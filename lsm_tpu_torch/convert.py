@@ -1,0 +1,45 @@
+"""Turn lsm_tpu parameters into the port's modules.
+
+Each function takes the reference package's parameter object
+(`ReservoirParams`, `ScalerState`, `LogisticParams`) or anything with the
+same attributes; every array goes through `np.asarray`, so this module
+needs no jax. Tests use it to make both packages compute with the same
+weights.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lsm_tpu_torch.models.reservoir import Reservoir
+from lsm_tpu_torch.readout.logistic import LogisticReadout
+from lsm_tpu_torch.readout.scaler import Scaler
+
+
+def _f32(a) -> np.ndarray:
+    return np.array(a, dtype=np.float32)      # a writable copy the module owns
+
+
+def reservoir(params, device: torch.device | str = "cpu") -> Reservoir:
+    """lsm_tpu ReservoirParams (w_rec, w_in, leak + static fields)."""
+    return Reservoir(
+        _f32(params.w_rec), _f32(params.w_in), _f32(params.leak),
+        n_neurons=params.n_neurons,
+        n_outputs=params.n_outputs,
+        n_channels=params.n_channels,
+        threshold=params.threshold,
+        refractory=params.refractory,
+        burst_isi_max=params.burst_isi_max,
+        n_rate_windows=params.n_rate_windows,
+    ).to(device)
+
+
+def scaler(state, device: torch.device | str = "cpu") -> Scaler:
+    """lsm_tpu ScalerState (mean, scale)."""
+    return Scaler(_f32(state.mean), _f32(state.scale)).to(device)
+
+
+def readout(params, device: torch.device | str = "cpu") -> LogisticReadout:
+    """lsm_tpu LogisticParams (w (D, K), b (K,))."""
+    return LogisticReadout(_f32(params.w), _f32(params.b)).to(device)

@@ -1,0 +1,167 @@
+"""Kernel B2: fused dense LIF reservoir with streaming statistics
+(csrc/lif.cu).
+
+Replaces lsm_tpu/ops/pallas/lif_kernel.py:46 `_lif_kernel` (entry
+`simulate_batch_pallas`). The TPU kept W_rec (2 MB bf16) resident in VMEM;
+a Hopper SM has 227 KB of shared memory, so the kernel streams W from the
+50 MB L2 instead: one CTA per batch row, one thread per neuron, the state
+and statistics in registers, and each step reads only the W rows of the
+neurons and input channels that fired (spikes are 0/1). What bounds it on
+an H100: the L2 latency of those row reads and two block barriers per
+step, not FLOPs (the TPU formulation's dense (B, N) x (N, N) matmul does
+~50x more work at a ~2 % firing rate).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lsm_tpu_torch.ops import _build
+
+STAT_KEYS = (
+    "counts", "sum_t", "sum_t2", "first", "last", "n_isi", "sum_isi",
+    "sum_isi2", "bursts", "win_sum", "win_sum2",
+)
+MAX_NEURONS = 1024       # one thread per padded neuron (csrc/lif.cu)
+
+launches = 0             # kernel launches (the plain twin does not count)
+
+
+def lif_stats_plain(
+    x: torch.Tensor,            # (B, C, T) uint8 0/1
+    w_rec: torch.Tensor,        # (Np, Np) bfloat16, row = source
+    w_in: torch.Tensor,         # (Cp, Np) bfloat16
+    leak_keep: torch.Tensor,    # (Np,) float32 = 1 - leak
+    *,
+    threshold: float,
+    refractory: int,
+    burst_isi_max: int,
+    n_outputs: int,
+    n_win: int,
+):
+    """Plain PyTorch twin: lsm_tpu's `simulate_batch(matmul_dtype=bf16)`.
+    The bf16 weights are widened to f32 and multiplied in f32, which is what
+    bf16 operands with f32 accumulation compute (a bf16 torch.matmul would
+    round its OUTPUT to bf16). Returns (stats (11, B, no) f32 in STAT_KEYS
+    order, all_counts (B, Np) f32)."""
+    B, C, T = x.shape
+    n_pad = w_rec.shape[0]
+    c_pad = w_in.shape[0]
+    no = n_outputs
+    win_len = max(1, T // n_win)
+    dev = x.device
+    wr = w_rec.to(torch.float32)
+    wi = w_in.to(torch.float32)
+    xf = torch.zeros(B, c_pad, T, dtype=torch.float32, device=dev)
+    xf[:, :C] = x.to(torch.float32)
+
+    def zeros(width):
+        return torch.zeros(B, width, dtype=torch.float32, device=dev)
+
+    v, s, all_counts = zeros(n_pad), zeros(n_pad), zeros(n_pad)
+    refrac = torch.zeros(B, n_pad, dtype=torch.int32, device=dev)
+    st = {k: zeros(no) for k in STAT_KEYS}
+    st["first"].fill_(float("inf"))
+    st["last"].fill_(-1.0)
+    prev_t = torch.full((B, no), -1.0, device=dev)
+    c_cur = zeros(no)
+    for t in range(T):
+        drive = s @ wr + xf[:, :, t] @ wi
+        active = refrac == 0
+        v_new = torch.where(active, v * leak_keep + drive, 0.0)
+        spike = (v_new >= threshold) & active
+        v = torch.where(spike, 0.0, v_new)
+        refrac = torch.where(spike, refractory, torch.clamp(refrac - 1, min=0))
+        s = spike.to(torch.float32)
+        all_counts += s
+
+        sb = spike[:, :no]
+        so = s[:, :no]
+        tf = float(t)
+        st["counts"] += so
+        st["sum_t"] += so * tf
+        st["sum_t2"] += so * tf * tf
+        st["first"] = torch.minimum(st["first"], torch.where(sb, tf, float("inf")))
+        st["last"] = torch.maximum(st["last"], torch.where(sb, tf, -1.0))
+        isi = tf - prev_t
+        isi_event = sb & (prev_t >= 0.0)
+        isi_f = torch.where(isi_event, isi, 0.0)
+        st["n_isi"] += isi_event.to(torch.float32)
+        st["sum_isi"] += isi_f
+        st["sum_isi2"] += isi_f * isi_f
+        st["bursts"] += (isi_event & (isi <= burst_isi_max)).to(torch.float32)
+        prev_t = torch.where(sb, tf, prev_t)
+        c_cur += so
+        # The first n_win-1 windows are win_len steps; later steps fold
+        # into the last window.
+        if ((t + 1) % win_len == 0 and (t + 1) // win_len < n_win) or t == T - 1:
+            st["win_sum"] += c_cur
+            st["win_sum2"] += c_cur * c_cur
+            c_cur = zeros(no)
+    return torch.stack([st[k] for k in STAT_KEYS]), all_counts
+
+
+def _check(x, w_rec, w_in, leak_keep, n_outputs):
+    if x.dtype != torch.uint8:
+        raise TypeError(f"spikes must be uint8, got {x.dtype}")
+    if w_rec.dtype != torch.bfloat16 or w_in.dtype != torch.bfloat16:
+        raise TypeError(f"weights must be bfloat16, got {w_rec.dtype}, {w_in.dtype}")
+    if leak_keep.dtype != torch.float32:
+        raise TypeError(f"leak_keep must be float32, got {leak_keep.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"spikes must be (B, C, T), got {tuple(x.shape)}")
+    n_pad = w_rec.shape[0]
+    if w_rec.shape != (n_pad, n_pad) or w_in.dim() != 2 or w_in.shape[1] != n_pad \
+            or leak_keep.shape != (n_pad,):
+        raise ValueError(
+            f"bad weight shapes w_rec {tuple(w_rec.shape)} w_in "
+            f"{tuple(w_in.shape)} leak_keep {tuple(leak_keep.shape)}"
+        )
+    if x.shape[1] > w_in.shape[0] or not 0 < n_outputs <= n_pad:
+        raise ValueError(f"{x.shape[1]} channels / {n_outputs} outputs do not fit")
+    devs = {t.device for t in (x, w_rec, w_in, leak_keep)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+    if not all(t.is_contiguous() for t in (x, w_rec, w_in, leak_keep)):
+        raise ValueError("lif_stats wants contiguous tensors")
+
+
+def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
+              burst_isi_max, n_outputs, n_win):
+    """(stats (11, B, no), all_counts (B, Np)): kernel B2 on CUDA, the plain
+    twin on CPU."""
+    global launches
+    _check(x, w_rec, w_in, leak_keep, n_outputs)
+    kw = dict(threshold=threshold, refractory=refractory,
+              burst_isi_max=burst_isi_max, n_outputs=n_outputs, n_win=n_win)
+    if x.device.type == "cpu":
+        return lif_stats_plain(x, w_rec, w_in, leak_keep, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    B, C, T = x.shape
+    n_pad = w_rec.shape[0]
+    if n_pad > MAX_NEURONS or n_pad % 32 or C > n_pad or T == 0:
+        raise ValueError(
+            f"kernel B2 takes T > 0, N_pad <= {MAX_NEURONS}, N_pad % 32 == 0 "
+            f"and C <= N_pad; got T={T} N_pad={n_pad} C={C}"
+        )
+    stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=x.device)
+    all_counts = torch.empty(B, n_pad, dtype=torch.float32, device=x.device)
+    fn = _build.function("lsm_lif_stats", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
+                 leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
+                 B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
+                 int(burst_isi_max), max(1, T // n_win), int(n_win), stream)
+    _build.check(err, "lsm_lif_stats")
+    launches += 1
+    return stats, all_counts
