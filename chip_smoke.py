@@ -32,6 +32,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -67,37 +68,56 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def dyadic(reservoir):
-    """Snap weights to multiples of 1/256 and zero the leak (the
-    tests/test_reservoir.py recipe): every sum is exact in float32, so spike
-    decisions cannot depend on summation order."""
-    from lsm_tpu_torch.models.reservoir import Reservoir
-
-    q = lambda a: torch.round(a * 256.0) / 256.0
-    return Reservoir(
-        q(reservoir.w_rec), q(reservoir.w_in), torch.zeros_like(reservoir.leak),
-        n_neurons=reservoir.n_neurons, n_outputs=reservoir.n_outputs,
-        n_channels=reservoir.n_channels, threshold=reservoir.threshold,
-        refractory=reservoir.refractory, burst_isi_max=reservoir.burst_isi_max,
-        n_rate_windows=reservoir.n_rate_windows,
-    )
+def check_no_reference() -> None:
+    """The port runs alone: neither jax nor the JAX package lsm_tpu may have
+    been loaded into this process."""
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "lsm_tpu"))
+    if loaded:
+        fail(f"the reference stack was imported: {loaded[:8]}")
 
 
-def lif_args(r):
-    return (
-        r.w_rec.to(torch.bfloat16), r.w_in.to(torch.bfloat16),
-        (1.0 - r.leak).contiguous(),
-    ), dict(threshold=r.threshold, refractory=r.refractory,
-            burst_isi_max=r.burst_isi_max, n_outputs=r.n_outputs,
-            n_win=r.n_rate_windows)
+def hot_path(dev: torch.device) -> SimpleNamespace:
+    """The 2400-utterance inference path (bench.py's hot row) at the
+    flagship config: synthetic audio already on the card, a reservoir
+    calibrated on it, a scaler and a logistic readout fitted on its
+    features. `run()` featurizes, extracts, scales and predicts, and
+    returns (predictions, features, spikes)."""
+    from lsm_tpu_torch.config import FEATURE_SETS, PipelineConfig
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.models import reservoir as res
+    from lsm_tpu_torch.models.calibration import calibrate_weight
+    from lsm_tpu_torch.models.frontend import featurize_batch
+    from lsm_tpu_torch.readout import logistic, scaler
+
+    pcfg = PipelineConfig()
+    fcfg, rcfg = pcfg.frontend, pcfg.reservoir
+    keys = tuple(FEATURE_SETS[pcfg.feature_set])
+    audio_np, labels_np = dataset.synthetic_audio_batch(n_per_class=200, n_classes=12, seed=42)
+    audio = torch.as_tensor(audio_np).to(dev)
+    labels = torch.as_tensor(labels_np, dtype=torch.int64).to(dev)
+    spikes = featurize_batch(audio, fcfg)
+    _, mw = calibrate_weight(rcfg, spikes, pcfg.multiplier)
+    reservoir = res.init_reservoir(rcfg, fcfg.n_filters, mean_weight=mw, device=dev)
+    feats = res.extract_features(reservoir, spikes, keys)
+    sc = scaler.fit_scaler(feats)
+    ro, _ = logistic.fit_logistic(scaler.transform(sc, feats), labels, len(pcfg.commands))
+
+    def run():
+        sp = featurize_batch(audio, fcfg)
+        f = res.extract_features(reservoir, sp, keys)
+        return logistic.predict(ro, scaler.transform(sc, f)), f, sp
+
+    return SimpleNamespace(n=audio.shape[0], audio=audio, labels=labels, spikes=spikes,
+                           reservoir=reservoir, scaler=sc, readout=ro, keys=keys, run=run)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
-        from lsm_tpu.config import FEATURE_SETS, PipelineConfig, ReservoirConfig
-        from lsm_tpu.io import dataset
+        from lsm_tpu_torch.config import FEATURE_SETS, PipelineConfig
+        from lsm_tpu_torch.io import dataset
         from lsm_tpu_torch.device import resolve_device
         from lsm_tpu_torch.ops import _build
         from lsm_tpu_torch.ops import gammatone as gt
@@ -110,8 +130,7 @@ def main() -> None:
         from lsm_tpu_torch import pipeline
     except ImportError as exc:
         fail(f"cannot import the port ({exc}); run from the repository root")
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    check_no_reference()
 
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -131,10 +150,9 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}")
 
-    rcfg = ReservoirConfig()
-    keys = tuple(FEATURE_SETS["original"])
     pcfg = PipelineConfig()
-    fcfg = pcfg.frontend
+    fcfg, rcfg = pcfg.frontend, pcfg.reservoir
+    keys = tuple(FEATURE_SETS[pcfg.feature_set])
 
     # ---- 2. kernels vs plain twins -------------------------------------
     audio_np, _ = dataset.synthetic_audio_batch_hard(22, 12, seed=7)
@@ -142,11 +160,8 @@ def main() -> None:
     hop_time = fcfg.num_samples / (fcfg.sample_rate * fcfg.time_bins)
     nwin, hop, _ = gt.gtgram_strides(fcfg.sample_rate, fcfg.gt_window_time,
                                      hop_time, fcfg.num_samples)
-    g = np.gcd(nwin, hop)
-    kmat = torch.as_tensor(
-        gt.block_system(fcfg.sample_rate, fcfg.n_filters, fcfg.gt_f_min, int(g)),
-        device=dev,
-    )
+    g = int(np.gcd(nwin, hop))
+    kmat = gt.block_system_tensor(fcfg.sample_rate, fcfg.n_filters, fcfg.gt_f_min, g, dev)
     e_k = kgt.sub_energy(audio, kmat)
     e_p = kgt.sub_energy_plain(audio, kmat)
     torch.cuda.synchronize()
@@ -170,8 +185,7 @@ def main() -> None:
     spikes = featurize_batch(audio, fcfg)                          # (256, 128, 400)
     _, mw = calibrate_weight(rcfg, spikes, pcfg.multiplier)
     r_rand = res.init_reservoir(rcfg, fcfg.n_filters, mean_weight=mw, device=dev)
-    r_dy = dyadic(r_rand)
-    ops, kw = lif_args(r_dy)
+    ops, kw = r_rand.dyadic().kernel_operands()
     s_k, a_k = klif.lif_stats(spikes, *ops, **kw)
     s_p, a_p = klif.lif_stats_plain(spikes, *ops, **kw)
     torch.cuda.synchronize()
@@ -179,7 +193,7 @@ def main() -> None:
     finite = torch.isfinite(s_p) & torch.isfinite(s_k)
     b2_abs = float(torch.where(finite, (s_k - s_p).abs(), 0.0).max())
     b2_abs = max(b2_abs, float((a_k - a_p).abs().max()))
-    ops_r, kw_r = lif_args(r_rand)
+    ops_r, kw_r = r_rand.kernel_operands()
     f_k = res.features_from_stats(
         dict(zip(klif.STAT_KEYS, klif.lif_stats(spikes, *ops_r, **kw_r)[0].unbind(0)),
              n_win_used=float(rcfg.n_rate_windows)), keys)
@@ -233,22 +247,10 @@ def main() -> None:
         fail(f"a kernel of the path was not launched: {launches}")
 
     # ---- 4. hot inference path at 2400 utterances ------------------------
-    audio_np, labels_np = dataset.synthetic_audio_batch(n_per_class=200, n_classes=12, seed=42)
-    n = audio_np.shape[0]                                          # 2400
-    audio = torch.as_tensor(audio_np).to(dev)
-    labels = torch.as_tensor(labels_np, dtype=torch.int64).to(dev)
-    spikes0 = featurize_batch(audio, fcfg)
-    _, mw = calibrate_weight(rcfg, spikes0, pcfg.multiplier)
-    r_hot = res.init_reservoir(rcfg, fcfg.n_filters, mean_weight=mw, device=dev)
-    feats0 = res.extract_features(r_hot, spikes0, keys)
-    sc = scaler.fit_scaler(feats0)
-    ro, _ = logistic.fit_logistic(scaler.transform(sc, feats0), labels, 12)
-    ops_h, kw_h = lif_args(r_hot)
-
-    def hot():
-        sp = featurize_batch(audio, fcfg)
-        f = res.extract_features(r_hot, sp, keys)
-        return logistic.predict(ro, scaler.transform(sc, f)), f, sp
+    hp = hot_path(dev)
+    n, audio, labels, spikes0, r_hot, hot = hp.n, hp.audio, hp.labels, hp.spikes, hp.reservoir, hp.run
+    ro, sc = hp.readout, hp.scaler
+    ops_h, kw_h = r_hot.kernel_operands()
 
     preds, feats, sp = hot()
     torch.cuda.synchronize()
@@ -305,6 +307,7 @@ def main() -> None:
          "launches": launches["B2"], "max_abs_err": b2["max_abs_err"],
          "ms": b2["ms"], "plain_ms": b2["plain_ms"]},
     ]}
+    check_no_reference()
     print("[record] " + json.dumps(record))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

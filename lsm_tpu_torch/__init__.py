@@ -2,9 +2,10 @@
 
 The JAX package `lsm_tpu` is the reference; this package mirrors its
 layout (ops/, models/, readout/, pipeline.py) so each module's counterpart
-is easy to find. It imports torch and numpy and never jax. From `lsm_tpu`
-it uses only the JAX-free modules (`config`, `io.dataset`, `io.artifacts`,
-`io.wav`).
+is easy to find. It imports torch and numpy, never jax and nothing of
+`lsm_tpu`: the config dataclasses, the synthetic corpora and the artifact
+writers it shares with the reference are copies (`config.py`, `io/`) that
+the tests hold equal to lsm_tpu's.
 
 The two TPU kernels on the main path are hand-written CUDA C++ for
 sm_90a (csrc/gtgram.cu, csrc/lif.cu), built with nvcc at first use and

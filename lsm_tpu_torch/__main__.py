@@ -15,8 +15,8 @@ import logging
 import sys
 from pathlib import Path
 
-from lsm_tpu.config import FEATURE_SETS, FrontendConfig, PipelineConfig, ReservoirConfig
-from lsm_tpu.io import artifacts, dataset
+from lsm_tpu_torch.config import FEATURE_SETS, FrontendConfig, PipelineConfig, ReservoirConfig
+from lsm_tpu_torch.io import artifacts, dataset
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lsm_tpu.config import ReservoirConfig
+from lsm_tpu_torch.config import ReservoirConfig
 
 _FALLBACK = 0.007
 _CALIB_SAMPLES = 500

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from lsm_tpu.config import FrontendConfig
+from lsm_tpu_torch.config import FrontendConfig
 from lsm_tpu_torch.ops import db as db_ops
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import hysteresis, resample

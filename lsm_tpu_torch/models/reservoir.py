@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from lsm_tpu.config import ReservoirConfig
+from lsm_tpu_torch.config import ReservoirConfig
 from lsm_tpu_torch.ops.kernels import lif
 
 _ROUND = 128
@@ -51,7 +51,9 @@ def watts_strogatz_adjacency(n: int, k: int, p: float, rng: np.random.Generator)
 class Reservoir(nn.Module):
     """Reservoir weights as buffers, padded to lane multiples:
     w_rec (N_pad, N_pad) f32 with row = source, w_in (C_pad, N_pad) f32,
-    leak (N_pad,) f32; plus the static simulation fields."""
+    leak (N_pad,) f32; plus the static simulation fields. The weights are
+    fixed at construction, so kernel B2's operands (bf16 weights and
+    1 - leak) are made once and held as non-persistent buffers."""
 
     def __init__(self, w_rec, w_in, leak, *, n_neurons: int, n_outputs: int,
                  n_channels: int, threshold: float, refractory: int,
@@ -60,6 +62,9 @@ class Reservoir(nn.Module):
         self.register_buffer("w_rec", torch.as_tensor(w_rec, dtype=torch.float32))
         self.register_buffer("w_in", torch.as_tensor(w_in, dtype=torch.float32))
         self.register_buffer("leak", torch.as_tensor(leak, dtype=torch.float32))
+        self.register_buffer("w_rec_bf16", self.w_rec.to(torch.bfloat16), persistent=False)
+        self.register_buffer("w_in_bf16", self.w_in.to(torch.bfloat16), persistent=False)
+        self.register_buffer("leak_keep", (1.0 - self.leak).contiguous(), persistent=False)
         self.n_neurons = int(n_neurons)
         self.n_outputs = int(n_outputs)
         self.n_channels = int(n_channels)
@@ -67,6 +72,31 @@ class Reservoir(nn.Module):
         self.refractory = int(refractory)
         self.burst_isi_max = int(burst_isi_max)
         self.n_rate_windows = int(n_rate_windows)
+
+    def kernel_operands(self) -> Tuple[Tuple[torch.Tensor, ...], dict]:
+        """Kernel B2's arguments: ((w_rec bf16, w_in bf16, 1 - leak f32),
+        keyword arguments), for `lif.lif_stats(spikes, *ops, **kw)` and
+        its plain twin."""
+        return (self.w_rec_bf16, self.w_in_bf16, self.leak_keep), dict(
+            threshold=self.threshold, refractory=self.refractory,
+            burst_isi_max=self.burst_isi_max, n_outputs=self.n_outputs,
+            n_win=self.n_rate_windows,
+        )
+
+    def dyadic(self) -> "Reservoir":
+        """A copy with the weights snapped to multiples of 1/256 and zero
+        leak (the recipe of tests/test_reservoir.py). Every sum is then
+        exact in float32 and the weights are exact in bf16, so spike
+        decisions cannot depend on summation order: the kernel and its
+        plain twin must agree bit for bit."""
+        q = lambda a: torch.round(a * 256.0) / 256.0
+        return Reservoir(
+            q(self.w_rec), q(self.w_in), torch.zeros_like(self.leak),
+            n_neurons=self.n_neurons, n_outputs=self.n_outputs,
+            n_channels=self.n_channels, threshold=self.threshold,
+            refractory=self.refractory, burst_isi_max=self.burst_isi_max,
+            n_rate_windows=self.n_rate_windows,
+        )
 
     def forward(self, spikes: torch.Tensor, feature_keys: Tuple[str, ...]) -> torch.Tensor:
         return extract_features(self, spikes, feature_keys)
@@ -134,17 +164,8 @@ def simulate_batch(res: Reservoir, spikes_in: torch.Tensor) -> Dict[str, torch.T
     (inf if silent), last (-1 if silent), n_isi, sum_isi, sum_isi2, bursts,
     win_sum, win_sum2 (moments of the per-window counts over n_win_used
     windows), plus all_counts (B, n_neurons) over the whole reservoir."""
-    stats, all_counts = lif.lif_stats(
-        spikes_in.to(torch.uint8).contiguous(),
-        res.w_rec.to(torch.bfloat16),
-        res.w_in.to(torch.bfloat16),
-        (1.0 - res.leak).contiguous(),
-        threshold=res.threshold,
-        refractory=res.refractory,
-        burst_isi_max=res.burst_isi_max,
-        n_outputs=res.n_outputs,
-        n_win=res.n_rate_windows,
-    )
+    ops, kw = res.kernel_operands()
+    stats, all_counts = lif.lif_stats(spikes_in.to(torch.uint8).contiguous(), *ops, **kw)
     out = dict(zip(lif.STAT_KEYS, stats.unbind(0)))
     out["n_win_used"] = float(res.n_rate_windows)
     out["all_counts"] = all_counts[:, : res.n_neurons]

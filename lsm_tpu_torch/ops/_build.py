@@ -3,8 +3,10 @@
 One shared library with a plain C interface, compiled by nvcc for sm_90a
 at first use and loaded with ctypes (no PyTorch headers, so a build takes
 seconds, not minutes). The library is keyed by a hash of the sources and
-the flags: an edited kernel is never served from a stale build. Output goes
-to build/lsm_tpu_torch/ beside the package (build/ is git-ignored).
+the flags: an edited kernel is never served from a stale build. In a source
+checkout the output goes to build/lsm_tpu_torch/ at the checkout's root
+(build/ is git-ignored); an installed package builds into the user's cache
+directory instead of site-packages.
 """
 
 from __future__ import annotations
@@ -21,7 +23,17 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lsm_tpu_torch"
+
+
+def _build_dir() -> Path:
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():                 # a source checkout
+        return root / "build" / "lsm_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "lsm_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,7 +59,7 @@ def _nvcc() -> str:
 
 
 def sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    return sorted(CSRC_DIR.glob("*.cu"))
 
 
 def _digest() -> str:
@@ -59,15 +71,15 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into build/lsm_tpu_torch/liblsm_kernels_<hash>.so
-    unless that exact build exists. Returns the library path."""
+    """Compile csrc/*.cu into BUILD_DIR/liblsm_kernels_<hash>.so unless
+    that exact build exists. Returns the library path."""
     lib_path = BUILD_DIR / f"liblsm_kernels_{_digest()}.so"
     if lib_path.exists():
         _build_info.setdefault("path", str(lib_path))
         _build_info.setdefault("seconds", 0.0)
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    cu = [str(p) for p in sources()]
     # Build to a temp name and rename: a concurrent build never loads a
     # half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -192,6 +192,14 @@ def block_system(fs: float, channels: int, f_min: float, g: int) -> np.ndarray:
     return k
 
 
+@functools.lru_cache(maxsize=None)
+def block_system_tensor(fs: float, channels: int, f_min: float, g: int,
+                        device: torch.device) -> torch.Tensor:
+    """`block_system` as a tensor on `device`, uploaded once per device and
+    geometry: the hot path copies nothing to the card."""
+    return torch.as_tensor(block_system(fs, channels, f_min, g)).to(device)
+
+
 def gtgram_iir(
     wave: torch.Tensor,
     fs: float,
@@ -213,7 +221,7 @@ def gtgram_iir(
     wave = wave.to(torch.float32)
     if pad:
         wave = torch.nn.functional.pad(wave, (0, pad))
-    kmat = torch.as_tensor(block_system(fs, channels, f_min, g), device=wave.device)
+    kmat = block_system_tensor(fs, channels, f_min, g, wave.device)
     sub = gtgram_kernel.sub_energy(wave.contiguous(), kmat)   # (n_sub, C, B)
 
     w_per, h_per = nwin // g, hop // g

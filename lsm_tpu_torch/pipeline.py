@@ -23,8 +23,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from lsm_tpu.config import FEATURE_SETS, PipelineConfig
-from lsm_tpu.io import artifacts
+from lsm_tpu_torch.config import FEATURE_SETS, PipelineConfig
+from lsm_tpu_torch.io import artifacts
 from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.calibration import calibrate_weight
 from lsm_tpu_torch.models.diagnostics import DiagnosticsReport, run_network_diagnostics

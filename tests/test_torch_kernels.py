@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card. Every test here needs a CUDA device and skips without one.
 
-This file imports no jax, so it also runs where jax is not installed:
+This file imports no jax and nothing of lsm_tpu, so it also runs where jax
+is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 """
@@ -10,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from lsm_tpu.config import FrontendConfig, ReservoirConfig
-from lsm_tpu.io import dataset
+from lsm_tpu_torch.config import FrontendConfig, ReservoirConfig
+from lsm_tpu_torch.io import dataset
 from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.ops import gammatone as gt
@@ -34,7 +35,7 @@ def test_gtgram_kernel_matches_plain(cuda, batch, channels):
     wave = torch.as_tensor(
         (np.random.default_rng(batch).standard_normal((batch, 16000)) * 0.2).astype(np.float32)
     ).to(cuda)
-    kmat = torch.as_tensor(gt.block_system(16000.0, channels, 50.0, 80)).to(cuda)
+    kmat = gt.block_system_tensor(16000.0, channels, 50.0, 80, cuda)
     before = kgt.launches
     out = kgt.sub_energy(wave, kmat)
     assert kgt.launches == before + 1
@@ -56,17 +57,6 @@ def test_gtgram_kernel_rejects_what_it_cannot_run(cuda):
                        torch.as_tensor(gt.block_system(16000.0, 8, 50.0, 40)).to(cuda))
 
 
-def _dyadic_reservoir(cfg, n_channels, device):
-    r = res.init_reservoir(cfg, n_channels, device=device)
-    q = lambda a: torch.round(a * 256.0) / 256.0
-    return res.Reservoir(
-        q(r.w_rec), q(r.w_in), torch.zeros_like(r.leak), n_neurons=r.n_neurons,
-        n_outputs=r.n_outputs, n_channels=r.n_channels, threshold=r.threshold,
-        refractory=r.refractory, burst_isi_max=r.burst_isi_max,
-        n_rate_windows=r.n_rate_windows,
-    )
-
-
 @pytest.mark.parametrize("cfg,c,t,b", [
     (ReservoirConfig(num_neurons=256, num_output_neurons=128, small_world_k=32,
                      mean_weight=0.02, input_fanout=6), 32, 40, 8),
@@ -75,13 +65,11 @@ def _dyadic_reservoir(cfg, n_channels, device):
     (ReservoirConfig(mean_weight=0.0114), 128, 400, 6),
 ])
 def test_lif_kernel_bit_equal_on_dyadic_weights(cuda, cfg, c, t, b):
-    r = _dyadic_reservoir(cfg, c, cuda)
+    r = res.init_reservoir(cfg, c, device=cuda).dyadic()
     spikes = torch.as_tensor(
         (np.random.default_rng(t).random((b, c, t)) < 0.2).astype(np.uint8)
     ).to(cuda)
-    ops = (r.w_rec.to(torch.bfloat16), r.w_in.to(torch.bfloat16), (1.0 - r.leak).contiguous())
-    kw = dict(threshold=r.threshold, refractory=r.refractory, burst_isi_max=r.burst_isi_max,
-              n_outputs=r.n_outputs, n_win=r.n_rate_windows)
+    ops, kw = r.kernel_operands()
     before = klif.launches
     stats, all_counts = klif.lif_stats(spikes, *ops, **kw)
     assert klif.launches == before + 1

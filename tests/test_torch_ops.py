@@ -134,6 +134,13 @@ def test_block_system_layout():
         np.testing.assert_allclose(k[c, 80:] @ z, x @ m_xs[c] + s @ m_ss[c], rtol=1e-5, atol=1e-8)
 
 
+def test_block_system_tensor_is_made_once():
+    dev = torch.device("cpu")
+    k = tgt.block_system_tensor(FS, 4, FMIN, 80, dev)
+    assert tgt.block_system_tensor(FS, 4, FMIN, 80, dev) is k
+    np.testing.assert_array_equal(k.numpy(), tgt.block_system(FS, 4, FMIN, 80))
+
+
 def test_plain_gtgram_matches_gtgram_iir(wave, jax_gtgram):
     ref, _ = jax_gtgram
     out = tgt.gtgram_iir(torch.as_tensor(wave), FS, WIN, HOP, C, FMIN).numpy()

@@ -1,0 +1,95 @@
+"""The port stands alone: its copies of lsm_tpu's config dataclasses,
+synthetic corpora and artifact writers agree with the reference, and
+importing it loads neither jax nor anything of lsm_tpu."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from lsm_tpu import config as jcfg
+from lsm_tpu.io import artifacts as jart
+from lsm_tpu.io import dataset as jds
+
+from lsm_tpu_torch import config as tcfg
+from lsm_tpu_torch.io import artifacts as tart
+from lsm_tpu_torch.io import dataset as tds
+from lsm_tpu_torch.ops import _build
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _assert_fields_equal(port, ref, path):
+    for f in dataclasses.fields(port):
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(a):
+            _assert_fields_equal(a, b, f"{path}.{f.name}")
+        else:
+            assert a == b and type(a) is type(b), f"{path}.{f.name}: {a!r} != {b!r}"
+
+
+@pytest.mark.parametrize("name", ["FrontendConfig", "ReservoirConfig", "ReadoutConfig",
+                                  "PipelineConfig"])
+def test_config_defaults_equal_reference(name):
+    """Every field the port keeps has lsm_tpu's name and default."""
+    _assert_fields_equal(getattr(tcfg, name)(), getattr(jcfg, name)(), name)
+
+
+def test_config_constants_equal_reference():
+    assert tcfg.FEATURE_SETS == jcfg.FEATURE_SETS
+    assert tcfg.COMMANDS_12 == jcfg.COMMANDS_12
+    port, ref = tcfg.FrontendConfig(), jcfg.FrontendConfig()
+    assert (port.num_samples, port.n_thresholds, port.spike_train_length) == \
+        (ref.num_samples, ref.n_thresholds, ref.spike_train_length)
+
+
+@pytest.mark.parametrize("name", ["synthetic_audio_batch", "synthetic_audio_batch_hard"])
+def test_synthetic_corpus_equals_reference(name):
+    for a, b in zip(getattr(tds, name)(2, 12, seed=3), getattr(jds, name)(2, 12, seed=3)):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
+@pytest.mark.parametrize("lvd", [None, 4.0])
+def test_artifacts_load_with_reference_readers(tmp_path, lvd):
+    rng = np.random.default_rng(0)
+    spikes = (rng.random((5, 8, 12)) < 0.3).astype(np.uint8)
+    labels = np.arange(5, dtype=np.int32)
+    tart.save_spike_dataset(tmp_path / tart.SPIKE_DATASET_FILENAME,
+                            tart.SpikeDataset(spikes, labels))
+    ds = jart.load_spike_dataset(tmp_path / jart.SPIKE_DATASET_FILENAME)
+    np.testing.assert_array_equal(ds.x_spikes, spikes)
+    np.testing.assert_array_equal(ds.y_labels, labels)
+
+    art = tart.FeatureArtifact(rng.random((4, 6)).astype(np.float32), labels[:4],
+                               rng.random((1, 6)).astype(np.float32), labels[4:],
+                               "original", lvd)
+    tart.save_features(tmp_path / tart.FEATURES_FILENAME, art)
+    got = jart.load_features(tmp_path / jart.FEATURES_FILENAME)
+    for a, b in zip(got[:4], art[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert got.feature_set == "original" and got.leak_variance_divisor == lvd
+
+
+def test_port_imports_nothing_of_the_reference():
+    code = (
+        "import sys\n"
+        "import lsm_tpu_torch.pipeline, lsm_tpu_torch.__main__, lsm_tpu_torch.convert\n"
+        "import lsm_tpu_torch.models.diagnostics, chip_smoke\n"
+        "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
+        "assert not ref, ref\n"
+        "print('ALONE')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "ALONE" in proc.stdout, proc.stderr[-2000:]
+
+
+def test_kernels_build_into_the_checkout():
+    assert _build.BUILD_DIR == REPO / "build" / "lsm_tpu_torch"
+    assert [p.name for p in _build.sources()] == ["gtgram.cu", "lif.cu"]

@@ -116,11 +116,26 @@ def test_features_match_xla_and_pallas(small_case, T):
     np.testing.assert_allclose(out, ref_p, rtol=1e-5, atol=1e-6)
 
 
+def test_dyadic_and_kernel_operands_follow_the_reference_recipe():
+    params = jres.init_reservoir(SMALL, n_channels=32)
+    port = convert.reservoir(params).dyadic()
+    ref = convert.reservoir(_dyadic(params))
+    for name in ("w_rec", "w_in", "leak"):
+        assert torch.equal(getattr(port, name), getattr(ref, name)), name
+    (w_rec, w_in, leak_keep), kw = port.kernel_operands()
+    assert torch.equal(w_rec.float(), port.w_rec) and torch.equal(w_in.float(), port.w_in)
+    assert w_rec.dtype == w_in.dtype == torch.bfloat16
+    assert torch.equal(leak_keep, 1.0 - port.leak)
+    assert kw == dict(threshold=SMALL.membrane_threshold, refractory=SMALL.refractory_period,
+                      burst_isi_max=SMALL.burst_isi_max, n_outputs=SMALL.num_output_neurons,
+                      n_win=SMALL.n_rate_windows)
+    assert set(port.state_dict()) == {"w_rec", "w_in", "leak"}
+
+
 def test_lif_wrapper_cpu_and_validation():
     r = tres.init_reservoir(SMALL, n_channels=32)
     x = torch.zeros(2, 32, 10, dtype=torch.uint8)
-    ops = (r.w_rec.to(torch.bfloat16), r.w_in.to(torch.bfloat16), 1.0 - r.leak)
-    kw = dict(threshold=2.0, refractory=2, burst_isi_max=5, n_outputs=128, n_win=10)
+    ops, kw = r.kernel_operands()
     before = klif.launches
     stats, all_counts = klif.lif_stats(x, *ops, **kw)
     assert klif.launches == before                       # plain twin: no launch
