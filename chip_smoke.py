@@ -18,10 +18,31 @@ Phases (any failure exits non-zero):
   4. hot     - the inference path at 2400 synthetic utterances with the
                audio already on the card: featurize, extract, scale,
                predict; utterances/s beside the card's name and power limit.
+  5. chunk kernels - B3 and B4 against their plain twins at serving shapes
+               (1024 streams, one 100 ms hop from a carried state, flagship
+               config): B3 at rtol 5e-3 / atol 1e-6 (its state, which
+               passes through zero, at atol 1e-5), and ten chained B3
+               hops bit-equal to one whole-second B3 call and to B1; B4
+               bit-equal on dyadic weights. CUDA-event times; B1/B3's bound
+               counts the sequential cascade, the block form's own work
+               stands beside it.
+  6. continuous slice - the band protocol of tests/test_continuous_band.py
+               through the port: run_pipeline_arrays on the hard corpus
+               (20 x 12, seed 42, batch 64) for the exact accuracy, then
+               fit_continuous_readout and carry-in serving of the test split
+               through ContinuousKWS in 100 ms chunks: matched accuracy
+               >= 0.60 and exact - matched <= 0.15; B3 and B4 launched.
+  7. serving - ContinuousKWS.step at 1024 streams, int16 wire, state
+               carried: host wall per hop (median, min), stream-chunks/s,
+               real-time factor, CUDA-event stage split, device busy share
+               and top device ops from torch.profiler, peak memory; B4's
+               time and bound at the serving weights from the carried
+               state (the kernels line takes these).
 
 A "[record] {...}" line holds every number of the run as JSON. The
-second-to-last stdout line is a JSON object with each kernel's launches,
-error against its twin and times; the last line is
+second-to-last stdout line is a JSON object with each kernel's launches
+(from the phase that drives its path), error against its twin, times and
+bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -32,12 +53,19 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 ACC_BAND = (0.76, 0.90)       # tests/test_accuracy_band.py, frozen
+CONT_MIN_ACC, CONT_MAX_DELTA = 0.60, 0.15   # tests/test_continuous_band.py, frozen
+CHUNK = 1600                  # 100 ms hops
+N_SERVE = 1024                # serving streams
+# Published H100 SXM peaks (NVIDIA data sheet) for the bounds: float32 on
+# the CUDA cores and HBM3 bandwidth.
+F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -75,6 +103,143 @@ def check_no_reference() -> None:
                     if m.split(".")[0] in ("jax", "jaxlib", "lsm_tpu"))
     if loaded:
         fail(f"the reference stack was imported: {loaded[:8]}")
+
+
+def bound(flops: float, n_bytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the f32 peak and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, n_bytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": n_bytes}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def gtgram_flops(batch: int, channels: int, samples: int) -> float:
+    """B1/B3's function, Slaney's four-section cascade, per (row, channel,
+    sample): a section is y = n0 x + s1 (1 FMA), s1' = n1 x - b1 y + s2
+    (2 FMAs) and s2' = -b2 y (1 multiply), then 1 FMA for the energy: 17
+    float32 instructions, each taking one FMA slot (2 flops of the peak)."""
+    return 2.0 * 17 * batch * channels * samples
+
+
+def block_form_flops(batch: int, channels: int, n_sub: int, g: int = 80) -> float:
+    """The kernels' own algorithm, the exact block form: per (row, channel,
+    sub-block) (g+8)^2 FMAs for the outputs and the new state plus g for
+    the energy. A second figure beside the bound, which counts the cascade."""
+    return 2.0 * batch * channels * n_sub * ((g + 8) ** 2 + g)
+
+
+def gtgram_bound(wave, kmat, *outs, channels: int) -> dict:
+    batch, samples = wave.shape
+    b = bound(gtgram_flops(batch, channels, samples), nbytes(wave, kmat, *outs))
+    bf = block_form_flops(batch, channels, samples // 80)
+    return {**b, "block_form_flops": bf, "block_form_ms": bf / F32_FLOPS * 1e3}
+
+
+def lif_flops(source_rows: float, batch: int, steps: int, n_neurons: int) -> float:
+    """B2/B4: one add per (fired source row, neuron) for the drive, and the
+    membrane update's multiply and add per (row, step, neuron), over the
+    real neurons (not the padding)."""
+    return float(source_rows) * n_neurons + 2.0 * batch * steps * n_neurons
+
+
+def lif_chunk_measure(hops, ops, kw, n_neurons: int) -> dict:
+    """B4 against its plain twin over `hops`, a list of (x, (v, refrac,
+    s_prev)) inputs: CUDA-event times and the bound, each the mean per hop,
+    the bound from these hops' spikes. Source rows: the carried spikes,
+    every spike of steps 0..T-2 of the whole reservoir (the twin run with
+    every neuron as an output counts them), and every input spike."""
+    from lsm_tpu_torch.ops.kernels import lif as klif
+
+    n_pad = ops[0].shape[0]
+    flops = n_bytes = rows = spikes = 0.0
+    for x, carried in hops:
+        out = klif.lif_chunk(x, *ops, *carried, **kw)
+        all_n = klif.lif_chunk_plain(x, *ops, *carried, **{**kw, "n_outputs": n_pad})
+        r = float(carried[2].sum() + all_n[3][0].sum() - all_n[2].sum() + x.sum())
+        rows += r
+        spikes += float(all_n[3][0].sum()) / (x.shape[0] * x.shape[-1])
+        flops += lif_flops(r, x.shape[0], x.shape[-1], n_neurons)
+        n_bytes += nbytes(x, *ops, *carried, *out)
+    n = len(hops)
+
+    def run(fn):
+        return lambda: [fn(x, *ops, *carried, **kw) for x, carried in hops]
+
+    return {
+        "hops": n,
+        "ms": cuda_ms(run(klif.lif_chunk), reps=max(1, 20 // n)) / n,
+        "plain_ms": cuda_ms(run(klif.lif_chunk_plain), reps=1 if n > 1 else 3) / n,
+        "source_rows": rows / n, "spikes_per_step": spikes / n,
+        **bound(flops / n, n_bytes / n),
+    }
+
+
+def union_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def device_profile(run, calls: int, trace: str | None = None) -> dict:
+    """torch.profiler over `calls` calls of run(): host wall, device-busy
+    time (the union of the CUDA events' intervals) and its share of the
+    wall, device events, and device time per kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if trace:
+        prof.export_chrome_trace(trace)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    busy = union_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    return {
+        "calls": calls, "profiled_wall_s": wall, "n_device_events": len(dev),
+        "device_busy_us": busy,
+        "device_span_us": (max(b for _, b in spans) - min(a for a, _ in spans)) if spans else 0.0,
+        "busy_share_of_wall": busy / (wall * 1e6),
+        "device_us_total": sum(v[1] for v in by_name.values()),
+        "top_device": [{"name": k[:120], "count": c, "us": us} for k, (c, us) in top],
+    }
+
+
+def reset_launches() -> None:
+    from lsm_tpu_torch.ops.kernels import gtgram as kgt
+    from lsm_tpu_torch.ops.kernels import lif as klif
+
+    kgt.launches = kgt.chunk_launches = klif.launches = klif.chunk_launches = 0
+
+
+def read_launches() -> dict:
+    from lsm_tpu_torch.ops.kernels import gtgram as kgt
+    from lsm_tpu_torch.ops.kernels import lif as klif
+
+    return {"B1": kgt.launches, "B2": klif.launches,
+            "B3": kgt.chunk_launches, "B4": klif.chunk_launches}
 
 
 def hot_path(dev: torch.device) -> SimpleNamespace:
@@ -175,6 +340,7 @@ def main() -> None:
         "allclose": bool(torch.allclose(e_k, e_p, rtol=5e-3, atol=1e-6)),
         "ms": cuda_ms(lambda: kgt.sub_energy(audio, kmat), reps=10),
         "plain_ms": cuda_ms(lambda: kgt.sub_energy_plain(audio, kmat), reps=3),
+        **gtgram_bound(audio, kmat, e_k, channels=fcfg.n_filters),
     }
     print(f"[B1 gtgram] B=256 S=16000 C={fcfg.n_filters}: max_abs_err "
           f"{b1['max_abs_err']:.3e} p99_rel_err {b1['p99_rel_err']:.3e} "
@@ -208,6 +374,11 @@ def main() -> None:
         "spikes_per_step": float(a_p.sum() / (256 * spikes.shape[-1])),
         "ms": cuda_ms(lambda: klif.lif_stats(spikes, *ops, **kw), reps=5),
         "plain_ms": cuda_ms(lambda: klif.lif_stats_plain(spikes, *ops, **kw), reps=2),
+        # Source rows: every reservoir spike (the last step's, <= 1/T of
+        # them, included) and every input spike.
+        **bound(lif_flops(float(a_p.sum() + spikes.sum()), spikes.shape[0], spikes.shape[-1],
+                          r_rand.n_neurons),
+                nbytes(spikes, *ops, s_k, a_k)),
     }
     print(f"[B2 lif] B=256 C=128 N=1000 T=400 dyadic: bit_equal {equal} "
           f"max_abs_err {b2_abs:.3e}; random weights feature max rel err "
@@ -218,15 +389,14 @@ def main() -> None:
 
     # ---- 3. the slice ---------------------------------------------------
     audio_h, labels_h = dataset.synthetic_audio_batch_hard(30, 12, seed=42)
-    kgt.launches = 0
-    klif.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     result, ext = pipeline.run_pipeline_arrays(
         PipelineConfig(batch_size=64), audio_h, labels_h, dev
     )
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
-    launches = {"B1": kgt.launches, "B2": klif.launches}
+    launches = {k: v for k, v in read_launches().items() if k in ("B1", "B2")}
     record["slice"] = {
         "seconds": slice_s, "accuracy": result.accuracy,
         "regime": ext.diagnostics.regime,
@@ -287,6 +457,12 @@ def main() -> None:
         "B2_ms_2400": cuda_ms(lambda: klif.lif_stats(spikes0, *ops_h, **kw_h), reps=3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    e_h = kgt.sub_energy(audio, kmat)
+    s_h, a_h = klif.lif_stats(spikes0, *ops_h, **kw_h)
+    hot_rec["B1_bound_2400"] = gtgram_bound(audio, kmat, e_h, channels=fcfg.n_filters)
+    hot_rec["B2_bound_2400"] = bound(
+        lif_flops(float(a_h.sum() + spikes0.sum()), n, spikes0.shape[-1], r_hot.n_neurons),
+        nbytes(spikes0, *ops_h, s_h, a_h))
     record["hot"] = hot_rec
     print(f"[hot] {n} utt audio-on-card -> predictions: {hot_rec['utt_per_s']:.1f} utt/s "
           f"(min of 5 walls {min(walls) * 1e3:.2f} ms, median "
@@ -295,23 +471,279 @@ def main() -> None:
           + f"; B1 {hot_rec['B1_ms_2400']:.2f} ms B2 {hot_rec['B2_ms_2400']:.2f} ms "
           f"at B={n}; fit accuracy {fit_acc:.3f} ({card})")
 
+    # ---- 5-7. the continuous engine --------------------------------------
+    b3, b4 = chunk_kernels(dev, kmat, r_rand.dyadic(), card)
+    record["B3"], record["B4"] = b3, b4
+    cont = continuous_slice(dev, card)
+    record["continuous_slice"] = {k: v for k, v in cont.items() if k not in ("engine_args",)}
+    record["serving"] = serving(dev, *cont["engine_args"], card)
+    b4_line = {**b4, **{k: record["serving"]["B4"][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+    def row(name, key, source, replaces, rec, launches_):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches_[key], "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None}
+
+    # No single PyTorch call computes the IIR block scan or the spike-driven
+    # LIF recurrence, so library_ms is null for all four.
     kernels = {"kernels": [
-        {"name": "gtgram_sub_energy", "route": "cuda",
-         "source": "lsm_tpu_torch/csrc/gtgram.cu",
-         "replaces": "lsm_tpu/ops/pallas/gtgram_kernel.py:70",
-         "launches": launches["B1"], "max_abs_err": b1["max_abs_err"],
-         "ms": b1["ms"], "plain_ms": b1["plain_ms"]},
-        {"name": "lif_stats", "route": "cuda",
-         "source": "lsm_tpu_torch/csrc/lif.cu",
-         "replaces": "lsm_tpu/ops/pallas/lif_kernel.py:46",
-         "launches": launches["B2"], "max_abs_err": b2["max_abs_err"],
-         "ms": b2["ms"], "plain_ms": b2["plain_ms"]},
+        row("gtgram_sub_energy", "B1", "lsm_tpu_torch/csrc/gtgram.cu",
+            "lsm_tpu/ops/pallas/gtgram_kernel.py:70", b1, launches),
+        row("lif_stats", "B2", "lsm_tpu_torch/csrc/lif.cu",
+            "lsm_tpu/ops/pallas/lif_kernel.py:46", b2, launches),
+        row("gtgram_chunk", "B3", "lsm_tpu_torch/csrc/gtgram.cu",
+            "lsm_tpu/ops/pallas/gtgram_kernel.py:205", b3, cont["launches"]),
+        row("lif_chunk", "B4", "lsm_tpu_torch/csrc/lif.cu",
+            "lsm_tpu/ops/pallas/lif_chunk_kernel.py:39", b4_line, cont["launches"]),
     ]}
     check_no_reference()
     print("[record] " + json.dumps(record))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def _dummy_readout(reservoir, keys, n_classes: int = 12):
+    from lsm_tpu_torch.readout import logistic, scaler
+
+    d = len(keys) * reservoir.n_outputs
+    return (logistic.LogisticReadout(torch.zeros(d, n_classes), torch.zeros(n_classes)),
+            scaler.Scaler(torch.zeros(d), torch.ones(d)))
+
+
+def chunk_kernels(dev, kmat, r_dy, card):
+    """Phase 5: B3 and B4 against their plain twins at serving shapes, from
+    the carried state of a flagship engine (dyadic weights) that has run a
+    few hops of 1024 streams."""
+    from lsm_tpu_torch.config import FEATURE_SETS, FrontendConfig
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.models.continuous import ContinuousKWS
+    from lsm_tpu_torch.ops.kernels import gtgram as kgt
+    from lsm_tpu_torch.ops.kernels import lif as klif
+
+    fcfg = FrontendConfig()
+    audio_np, _ = dataset.synthetic_audio_batch_hard(86, 12, seed=7)
+    audio = torch.as_tensor(audio_np[:N_SERVE]).to(dev)             # (1024, 16000)
+    C = fcfg.n_filters
+
+    # B3 chaining: ten hops threading the state == one whole-second call,
+    # whose energies are also B1's (another layout).
+    zero = torch.zeros(N_SERVE, 8, C, device=dev)
+    s_whole, e_whole = kgt.chunk(audio, kmat, zero)
+    st, parts, states = zero, [], []
+    for c in range(10):
+        st, e = kgt.chunk(audio[:, c * CHUNK:(c + 1) * CHUNK].contiguous(), kmat, st)
+        parts.append(e)
+        states.append(st)
+    e_b1 = kgt.sub_energy(audio, kmat)
+    torch.cuda.synchronize()
+    chained = torch.equal(torch.cat(parts), e_whole) and torch.equal(st, s_whole)
+    as_b1 = torch.equal(e_whole.permute(0, 2, 1), e_b1)
+
+    # B3 against its twin on one hop from a carried state.
+    hop = audio[:, 3 * CHUNK:4 * CHUNK].contiguous()
+    st3 = states[2]
+    s_k, e_k = kgt.chunk(hop, kmat, st3)
+    s_p, e_p = kgt.chunk_plain(hop, kmat, st3)
+    torch.cuda.synchronize()
+    err = max(float((e_k - e_p).abs().max()), float((s_k - s_p).abs().max()))
+    # Energies at B1's tolerance; the state passes through zero, so its
+    # floor is 1e-5 against magnitudes ~0.4.
+    close = bool(torch.allclose(e_k, e_p, rtol=5e-3, atol=1e-6)
+                 and torch.allclose(s_k, s_p, rtol=5e-3, atol=1e-5))
+    b3 = {
+        "chained_bit_equal": bool(chained), "whole_equals_B1": bool(as_b1),
+        "allclose": close, "max_abs_err": err,
+        "ms": cuda_ms(lambda: kgt.chunk(hop, kmat, st3), reps=20),
+        "plain_ms": cuda_ms(lambda: kgt.chunk_plain(hop, kmat, st3), reps=3),
+        **gtgram_bound(hop, kmat, st3, s_k, e_k, channels=C),
+    }
+    print(f"[B3 gtgram_chunk] B={N_SERVE} hop {CHUNK} C={C}: ten chained hops bit-equal "
+          f"{chained}, = B1 {as_b1}; vs twin max_abs_err {err:.3e} allclose {close}; "
+          f"kernel {b3['ms']:.3f} ms plain {b3['plain_ms']:.3f} ms bound "
+          f"{b3['bound_ms']:.3f} ms ({b3['bound_by']}) ({card})")
+    if not (chained and as_b1):
+        fail("B3's chained hops are not bit-equal to the whole-second call / B1")
+    if not close:
+        fail("B3 disagrees with its plain twin beyond rtol 5e-3 / atol 1e-6 (state 1e-5)")
+
+    # B4 on the spikes and LIF state of hop 6 of a warmed engine.
+    keys = tuple(FEATURE_SETS["original"])
+    kws = ContinuousKWS(r_dy, *_dummy_readout(r_dy, keys), fcfg, "original", N_SERVE)
+    for c in range(5):
+        kws._step_device(audio[:, c * CHUNK:(c + 1) * CHUNK].contiguous())
+    state = kws.state
+    x = kws._featurize(audio[:, 5 * CHUNK:6 * CHUNK].contiguous(), state)[0].contiguous()
+    ops, kw = r_dy.kernel_operands()
+    del kw["n_win"]
+    kw.update(win_len=kws._win_len, n_new_win=kws._n_new_win)
+    carried = (state.v, state.refrac, state.s_prev)
+    out_k = klif.lif_chunk(x, *ops, *carried, **kw)
+    out_p = klif.lif_chunk_plain(x, *ops, *carried, **kw)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    err = max(float(torch.where(torch.isfinite(b), (a.float() - b.float()).abs(), 0.0).max())
+              for a, b in zip(out_k, out_p))
+    # The dyadic copy fires far more than the serving weights do; the
+    # kernels line takes B4's time and bound from phase 7's serving state.
+    b4 = {"bit_equal_dyadic": bool(equal), "max_abs_err": err,
+          "carried_spikes": float(state.s_prev.sum()),
+          "dyadic": lif_chunk_measure([(x, carried)], ops, kw, r_dy.n_neurons)}
+    dy = b4["dyadic"]
+    print(f"[B4 lif_chunk] B={N_SERVE} T_c={x.shape[-1]} N=1000 dyadic, carried spikes "
+          f"{b4['carried_spikes']:.0f}: bit_equal {equal} max_abs_err {err:.3e}; kernel "
+          f"{dy['ms']:.3f} ms plain {dy['plain_ms']:.3f} ms bound {dy['bound_ms']:.4f} ms "
+          f"({dy['bound_by']}) ({card})")
+    if not equal:
+        fail("B4 is not bit-equal to its plain twin on dyadic weights")
+    if b4["carried_spikes"] <= 0:
+        fail("B4's check carried no spike vector")
+    return b3, b4
+
+
+def continuous_slice(dev, card) -> dict:
+    """Phase 6: the matched-readout band protocol through the port."""
+    from lsm_tpu_torch import pipeline
+    from lsm_tpu_torch.config import PipelineConfig
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.models.continuous import ContinuousKWS, fit_continuous_readout
+
+    cfg = PipelineConfig(batch_size=64)
+    audio, labels = dataset.synthetic_audio_batch_hard(20, 12, seed=42)
+    reset_launches()
+    t0 = time.perf_counter()
+    result, ext = pipeline.run_pipeline_arrays(cfg, audio, labels, dev)
+    x_train, x_test, y_train, y_test = pipeline.stratified_split(
+        audio, labels, cfg.test_size, cfg.split_seed)
+    ro, sc = fit_continuous_readout(
+        ext.reservoir, cfg.frontend, x_train, y_train, num_classes=12,
+        feature_set=cfg.feature_set, chunk_len=CHUNK, norm_decay_db_per_bin=0.1,
+        l2_c=cfg.readout.l2_c, max_iter=cfg.readout.max_iter, tol=cfg.readout.tol)
+    n = x_test.shape[0]
+    nc = cfg.frontend.num_samples // CHUNK
+    kws = ContinuousKWS(ext.reservoir, ro, sc, cfg.frontend, cfg.feature_set,
+                        n_streams=n, chunk_len=CHUNK, norm_decay_db_per_bin=0.1)
+    prev = x_test[np.random.default_rng(12345).permutation(n)]
+    for c in range(nc):
+        kws.step(prev[:, c * CHUNK:(c + 1) * CHUNK])
+    for c in range(nc):
+        logits = kws.step(x_test[:, c * CHUNK:(c + 1) * CHUNK])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    acc = float((np.argmax(logits, -1) == y_test).mean())
+    diag = kws.diagnostics()
+    rec = {"exact_accuracy": result.accuracy, "matched_accuracy": acc,
+           "delta": result.accuracy - acc, "n_test": n, "seconds": wall,
+           "launches": launches, "serving_regime": diag.regime,
+           "serving_participation": diag.avg_participation}
+    print(diag.render())
+    print(f"[continuous] hard corpus {len(labels)} utt: exact {result.accuracy:.4f} matched "
+          f"continuous {acc:.4f} (delta {result.accuracy - acc:+.4f}) over {n} test streams, "
+          f"launches {launches}, wall {wall:.2f} s ({card})")
+    if logits.shape != (n, 12) or not np.isfinite(logits).all():
+        fail(f"continuous logits {logits.shape} or non-finite")
+    if acc < CONT_MIN_ACC or result.accuracy - acc > CONT_MAX_DELTA:
+        fail(f"matched continuous accuracy {acc:.4f} outside the band (>= {CONT_MIN_ACC}, "
+             f"within {CONT_MAX_DELTA} of exact {result.accuracy:.4f})")
+    if min(launches["B3"], launches["B4"]) <= 0:
+        fail(f"a kernel of the continuous path was not launched: {launches}")
+    rec["engine_args"] = (ext.reservoir, ro, sc)
+    return rec
+
+
+def serving(dev, reservoir, ro, sc, card) -> dict:
+    """Phase 7: the 1024-stream serving hop, int16 wire, state carried."""
+    from lsm_tpu_torch.config import PipelineConfig
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.models.continuous import ContinuousKWS
+    from lsm_tpu_torch.models.streaming import decode_pcm_device
+
+    cfg = PipelineConfig()
+    audio, _ = dataset.synthetic_audio_batch_hard(86, 12, seed=9)
+    wire = np.clip(audio[:N_SERVE] * 32768.0, -32768.0, 32767.0).astype(np.int16)
+    hops = [np.ascontiguousarray(wire[:, c * CHUNK:(c + 1) * CHUNK]) for c in range(10)]
+    torch.cuda.reset_peak_memory_stats()
+    kws = ContinuousKWS(reservoir, ro, sc, cfg.frontend, cfg.feature_set,
+                        n_streams=N_SERVE, chunk_len=CHUNK)
+    for h in hops:                                       # warm-up: one window
+        kws.step(h)
+    walls = []
+    for i in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = kws.step(hops[i % 10])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if logits.shape != (N_SERVE, 12) or not np.isfinite(logits).all():
+        fail(f"serving logits {logits.shape} or non-finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # B4 at the serving weights over one cycle of the ten hops, each from
+    # the engine's carried state as serving reaches it (after the
+    # peak-memory read: the inputs kept and the twin's temporaries are no
+    # part of serving).
+    ops, kw = kws.reservoir.kernel_operands()
+    del kw["n_win"]
+    kw.update(win_len=kws._win_len, n_new_win=kws._n_new_win)
+    b4_hops = []
+    for h in hops:
+        st = kws.state
+        x = kws._featurize(decode_pcm_device(torch.as_tensor(h).to(dev)), st)[0].contiguous()
+        b4_hops.append((x, (st.v, st.refrac, st.s_prev)))
+        kws.step(h)
+    b4 = lif_chunk_measure(b4_hops, ops, kw, kws.reservoir.n_neurons)
+    del b4_hops
+    dchunk = torch.as_tensor(hops[0]).to(dev)
+
+    # CUDA-event split of one hop on a device-resident chunk (the stages
+    # are pure in the state, so they are timed without advancing it).
+    splits = []
+    for _ in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        st = kws.state
+        ev[0].record()
+        feat = kws._featurize(decode_pcm_device(dchunk), st)
+        ev[1].record()
+        res_out = kws._reservoir_chunk(feat[0], st)
+        ev[2].record()
+        kws._evaluate(st, res_out[3], res_out[4])
+        ev[3].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    split = {k: statistics.median(s[i] for s in splits)
+             for i, k in enumerate(("featurize_ms", "reservoir_ms", "fold_features_readout_ms"))}
+    next_hop = iter(hops)
+    prof = device_profile(lambda: kws.step(next(next_hop)), calls=len(hops))
+    med = statistics.median(walls)
+    rec = {
+        "streams": N_SERVE, "hops_timed": len(walls),
+        "hop_wall_ms_median": med * 1e3, "hop_wall_ms_min": min(walls) * 1e3,
+        "stream_chunks_per_s": N_SERVE / med, "stream_chunks_per_s_best": N_SERVE / min(walls),
+        "real_time_factor": 0.1 / med, "stages": split,
+        "device_busy_share": prof["busy_share_of_wall"],
+        "device_busy_ms_per_hop": prof["device_busy_us"] / 1e3 / prof["calls"],
+        "device_events_per_hop": prof["n_device_events"] / prof["calls"],
+        "top_device": prof["top_device"][:8],
+        "peak_mem_gb": peak_gb,
+        "B4": b4,
+    }
+    print(f"[serving] {N_SERVE} streams, int16 wire, 100 ms hops: median hop wall "
+          f"{rec['hop_wall_ms_median']:.3f} ms (min {rec['hop_wall_ms_min']:.3f}), "
+          f"{rec['stream_chunks_per_s']:.1f} stream-chunks/s, real-time factor "
+          f"{rec['real_time_factor']:.2f}; stages " + " ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; device busy {100 * rec['device_busy_share']:.1f} % "
+          f"({rec['device_busy_ms_per_hop']:.3f} ms/hop, {rec['device_events_per_hop']:.0f} "
+          f"device events/hop); peak memory {rec['peak_mem_gb']:.2f} GB ({card})")
+    print(f"[serving] B4 at serving weights, mean of {b4['hops']} hops: kernel {b4['ms']:.3f} ms plain "
+          f"{b4['plain_ms']:.3f} ms bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}), "
+          f"{b4['spikes_per_step']:.1f} spikes a stream-step ({card})")
+    for t in rec["top_device"]:
+        print(f"[serving]   {t['us'] / 1e3 / prof['calls']:8.3f} ms/hop x{t['count'] // prof['calls']:4d}"
+              f"  {t['name']}")
+    return rec
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of lsm_tpu's batch classification path.
+"""PyTorch + CUDA port of lsm_tpu's batch classification path and its
+continuous serving engine (models/continuous.py).
 
 The JAX package `lsm_tpu` is the reference; this package mirrors its
 layout (ops/, models/, readout/, pipeline.py) so each module's counterpart
@@ -7,8 +8,9 @@ is easy to find. It imports torch and numpy, never jax and nothing of
 writers it shares with the reference are copies (`config.py`, `io/`) that
 the tests hold equal to lsm_tpu's.
 
-The two TPU kernels on the main path are hand-written CUDA C++ for
-sm_90a (csrc/gtgram.cu, csrc/lif.cu), built with nvcc at first use and
-bound with ctypes (ops/_build.py). Each wrapper runs its plain PyTorch
+The four TPU kernels on these paths are hand-written CUDA C++ for sm_90a
+(csrc/gtgram.cu: B1 and its carried-state sibling B3; csrc/lif.cu: B2
+and B4), built with nvcc at first use and bound with ctypes
+(ops/_build.py). Each wrapper runs its plain PyTorch
 twin for CPU tensors and the kernel for CUDA tensors.
 """

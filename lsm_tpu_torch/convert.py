@@ -1,10 +1,11 @@
 """Turn lsm_tpu parameters into the port's modules.
 
 Each function takes the reference package's parameter object
-(`ReservoirParams`, `ScalerState`, `LogisticParams`) or anything with the
-same attributes; every array goes through `np.asarray`, so this module
-needs no jax. Tests use it to make both packages compute with the same
-weights.
+(`ReservoirParams`, `ScalerState`, `LogisticParams`, the continuous
+engine's `ContinuousState`) or anything with the same attributes; every
+array goes through `np.asarray`, so this module needs no jax. Tests use it
+to make both packages compute with the same weights and from the same
+stream state.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lsm_tpu_torch.models.continuous import ContinuousState
 from lsm_tpu_torch.models.reservoir import Reservoir
 from lsm_tpu_torch.readout.logistic import LogisticReadout
 from lsm_tpu_torch.readout.scaler import Scaler
@@ -43,3 +45,18 @@ def scaler(state, device: torch.device | str = "cpu") -> Scaler:
 def readout(params, device: torch.device | str = "cpu") -> LogisticReadout:
     """lsm_tpu LogisticParams (w (D, K), b (K,))."""
     return LogisticReadout(_f32(params.w), _f32(params.b)).to(device)
+
+
+def continuous_state(state, device: torch.device | str = "cpu") -> ContinuousState:
+    """lsm_tpu ContinuousState (gammatone, dense reservoir) -> the port's,
+    on `device`, with the same dtypes (f32, int32 refrac, bool triggers)."""
+    def put(a):
+        return torch.as_tensor(np.array(a)).to(device)
+
+    return ContinuousState(
+        iir=put(state.iir), tail=put(state.tail), hyst=put(state.hyst),
+        norm_hi=put(state.norm_hi), norm_lo=put(state.norm_lo),
+        v=put(state.v), refrac=put(state.refrac), s_prev=put(state.s_prev),
+        segs={k: put(v) for k, v in state.segs.items()},
+        win_ring=put(state.win_ring),
+    )

@@ -1,15 +1,21 @@
-// Kernel B2: fused dense LIF reservoir with streaming spike statistics on
-// Hopper (sm_90a).
+// Kernels B2 and B4: fused dense LIF reservoir with streaming spike
+// statistics on Hopper (sm_90a).
 //
-// Replaces lsm_tpu/ops/pallas/lif_kernel.py:46 _lif_kernel. Per step t:
+// B2 replaces lsm_tpu/ops/pallas/lif_kernel.py:46 _lif_kernel; B4 replaces
+// lsm_tpu/ops/pallas/lif_chunk_kernel.py:39 _lif_chunk_kernel, one
+// continuous-mode chunk of T_c steps with the state carried in and out.
+// Per step t:
 //
 //     drive = s_prev . bf16(W_rec) + x_t . bf16(W_in)      (f32 accumulate)
 //     v     = refrac == 0 ? v * (1 - leak) + drive : 0
 //     spike = refrac == 0 && v >= threshold;  reset v = 0, refrac = R
 //
 // and the output neurons (n < n_outputs) accumulate counts, spike-time
-// moments, first/last spike, ISI moments, bursts (ISI <= burst_isi_max)
-// and windowed-rate moments; every neuron accumulates all_counts.
+// moments, first/last spike, ISI moments and bursts (ISI <= burst_isi_max),
+// with times relative to the start of the call. B2 adds windowed-rate
+// moments (later steps fold into the last window) and all_counts over every
+// neuron; B4 writes each rate window's count (one every win_len steps, no
+// folding) and the final v, refrac and spike vector.
 //
 // Design: the TPU kept W_rec (2 MB bf16) resident in VMEM; a Hopper SM has
 // 227 KB of shared memory, so W streams from L2 (50 MB) instead. One CTA
@@ -22,6 +28,8 @@
 // latency of those row reads and the two block barriers per step.
 // No atomics: the sums run in ascending source order, so results are
 // deterministic, and bit-equal to any order when weights are dyadic.
+// B4 compacts the carried spike vector before its first step, so that
+// step's recurrent drive comes from the previous chunk's last spikes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -30,6 +38,26 @@
 namespace {
 
 constexpr int MAX_N = 1024;
+
+struct LifArgs {
+  const uint8_t* x;          // (B, C, T)
+  const uint16_t* w_rec;     // (Np, Np) bf16, row = source
+  const uint16_t* w_in;      // (Cp, Np) bf16
+  const float* leak_keep;    // (Np,)
+  float* stats;              // B2: (11, B, no)
+  float* all_counts;         // B2: (B, Np)
+  const float* v_in;         // B4: (B, Np) carried state in
+  const int* refrac_in;
+  const float* s_in;
+  float* v_out;              // B4: (B, Np) state out
+  int* refrac_out;
+  float* s_out;
+  float* seg;                // B4: (9, B, no) segment summary
+  float* win;                // B4: (B, n_win, no) rate-window counts
+  int B, C, T, Np, no;
+  float thr;
+  int refractory, burst_isi_max, win_len, n_win;
+};
 
 __device__ __forceinline__ float bf16_bits_to_float(uint16_t h) {
   return __uint_as_float(static_cast<uint32_t>(h) << 16);
@@ -64,15 +92,11 @@ __device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n,
   __syncthreads();
 }
 
+// kChunk = false: B2 (zero state, window moments, all_counts).
+// kChunk = true:  B4 (carried state, segment summary, window counts).
+template <bool kChunk>
 __global__ void __launch_bounds__(MAX_N, 1)
-lif_stats_kernel(const uint8_t* __restrict__ x,          // (B, C, T)
-                 const uint16_t* __restrict__ w_rec,     // (Np, Np) bf16
-                 const uint16_t* __restrict__ w_in,      // (Cp, Np) bf16
-                 const float* __restrict__ leak_keep,    // (Np,)
-                 float* __restrict__ stats,              // (11, B, no)
-                 float* __restrict__ all_counts,         // (B, Np)
-                 int B, int C, int T, int Np, int no, float thr,
-                 int refractory, int burst_isi_max, int win_len, int n_win) {
+lif_kernel(const LifArgs a) {
   __shared__ int rec_list[MAX_N];
   __shared__ int in_list[MAX_N];
   __shared__ int cnt_rec[MAX_N / 32];
@@ -80,38 +104,47 @@ lif_stats_kernel(const uint8_t* __restrict__ x,          // (B, C, T)
 
   const int n = threadIdx.x;
   const int b = blockIdx.x;
-  const uint8_t* xb = x + (size_t)b * C * T;
-  const float lk = leak_keep[n];
-  const float isi_max = static_cast<float>(burst_isi_max);
+  const int C = a.C, T = a.T, Np = a.Np, no = a.no;
+  const size_t row = (size_t)b * Np + n;
+  const uint8_t* xb = a.x + (size_t)b * C * T;
+  const float lk = a.leak_keep[n];
+  const float isi_max = static_cast<float>(a.burst_isi_max);
 
   float v = 0.f;
   int refrac = 0;
+  bool s_last = false;
+  if (kChunk) {
+    v = a.v_in[row];
+    refrac = a.refrac_in[row];
+    s_last = a.s_in[row] != 0.f;
+  }
   float counts = 0.f, sum_t = 0.f, sum_t2 = 0.f, first = INFINITY, last = -1.f;
   float n_isi = 0.f, sum_isi = 0.f, sum_isi2 = 0.f, bursts = 0.f;
   float prev_t = -1.f, c_cur = 0.f, win_sum = 0.f, win_sum2 = 0.f, allc = 0.f;
 
   int n_rec = 0, n_in = 0;
-  compact2(false, n < C && xb[(size_t)n * T] != 0, n, rec_list, in_list,
+  compact2(s_last, n < C && xb[(size_t)n * T] != 0, n, rec_list, in_list,
            cnt_rec, cnt_in, n_rec, n_in);
 
   for (int t = 0; t < T; ++t) {
     float acc_r = 0.f, acc_i = 0.f;
 #pragma unroll 4
     for (int i = 0; i < n_rec; ++i)
-      acc_r += bf16_bits_to_float(w_rec[(size_t)rec_list[i] * Np + n]);
+      acc_r += bf16_bits_to_float(a.w_rec[(size_t)rec_list[i] * Np + n]);
 #pragma unroll 4
     for (int i = 0; i < n_in; ++i)
-      acc_i += bf16_bits_to_float(w_in[(size_t)in_list[i] * Np + n]);
+      acc_i += bf16_bits_to_float(a.w_in[(size_t)in_list[i] * Np + n]);
     const float drive = acc_r + acc_i;
 
     const bool active = refrac == 0;
     // No FMA contraction: the plain twin rounds the product and the sum.
     const float v_new = active ? __fadd_rn(__fmul_rn(v, lk), drive) : 0.f;
-    const bool spike = active && v_new >= thr;
+    const bool spike = active && v_new >= a.thr;
     v = spike ? 0.f : v_new;
-    refrac = spike ? refractory : max(refrac - 1, 0);
+    refrac = spike ? a.refractory : max(refrac - 1, 0);
+    s_last = spike;
 
-    if (spike) allc += 1.f;
+    if (!kChunk && spike) allc += 1.f;
     if (n < no) {
       const float tf = static_cast<float>(t);
       if (spike) {
@@ -130,35 +163,58 @@ lif_stats_kernel(const uint8_t* __restrict__ x,          // (B, C, T)
         prev_t = tf;
         c_cur += 1.f;
       }
-      // The first n_win-1 windows are win_len steps; every later step
-      // folds into the last window.
-      const bool boundary =
-          (((t + 1) % win_len == 0) && ((t + 1) / win_len < n_win)) || t == T - 1;
-      if (boundary) {
-        win_sum += c_cur;
-        win_sum2 += c_cur * c_cur;
-        c_cur = 0.f;
+      if (kChunk) {
+        // Every win_len steps one whole window (the caller makes T a
+        // multiple of win_len).
+        if ((t + 1) % a.win_len == 0) {
+          a.win[((size_t)b * a.n_win + (t + 1) / a.win_len - 1) * no + n] = c_cur;
+          c_cur = 0.f;
+        }
+      } else {
+        // The first n_win-1 windows are win_len steps; every later step
+        // folds into the last window.
+        const bool boundary =
+            (((t + 1) % a.win_len == 0) && ((t + 1) / a.win_len < a.n_win)) ||
+            t == T - 1;
+        if (boundary) {
+          win_sum += c_cur;
+          win_sum2 += c_cur * c_cur;
+          c_cur = 0.f;
+        }
       }
     }
     const bool next_in = (t + 1 < T) && n < C && xb[(size_t)n * T + t + 1] != 0;
     compact2(spike, next_in, n, rec_list, in_list, cnt_rec, cnt_in, n_rec, n_in);
   }
 
-  all_counts[(size_t)b * Np + n] = allc;
-  if (n < no) {
-    const size_t plane = (size_t)B * no, o = (size_t)b * no + n;
-    stats[0 * plane + o] = counts;
-    stats[1 * plane + o] = sum_t;
-    stats[2 * plane + o] = sum_t2;
-    stats[3 * plane + o] = first;
-    stats[4 * plane + o] = last;
-    stats[5 * plane + o] = n_isi;
-    stats[6 * plane + o] = sum_isi;
-    stats[7 * plane + o] = sum_isi2;
-    stats[8 * plane + o] = bursts;
-    stats[9 * plane + o] = win_sum;
-    stats[10 * plane + o] = win_sum2;
+  if (kChunk) {
+    a.v_out[row] = v;
+    a.refrac_out[row] = refrac;
+    a.s_out[row] = s_last ? 1.f : 0.f;
+  } else {
+    a.all_counts[row] = allc;
   }
+  if (n < no) {
+    const size_t plane = (size_t)a.B * no, o = (size_t)b * no + n;
+    float* dst = kChunk ? a.seg : a.stats;
+    dst[0 * plane + o] = counts;
+    dst[1 * plane + o] = sum_t;
+    dst[2 * plane + o] = sum_t2;
+    dst[3 * plane + o] = first;
+    dst[4 * plane + o] = last;
+    dst[5 * plane + o] = n_isi;
+    dst[6 * plane + o] = sum_isi;
+    dst[7 * plane + o] = sum_isi2;
+    dst[8 * plane + o] = bursts;
+    if (!kChunk) {
+      dst[9 * plane + o] = win_sum;
+      dst[10 * plane + o] = win_sum2;
+    }
+  }
+}
+
+bool bad_shape(int C, int T, int Np, int no) {
+  return Np <= 0 || Np > MAX_N || Np % 32 || C > Np || no > Np || T <= 0;
 }
 
 }  // namespace
@@ -170,10 +226,36 @@ extern "C" int lsm_lif_stats(const uint8_t* x, const uint16_t* w_rec,
                              int burst_isi_max, int win_len, int n_win,
                              void* stream) {
   if (B <= 0) return 0;
-  if (Np <= 0 || Np > MAX_N || Np % 32 || C > Np || no > Np || T <= 0)
+  if (bad_shape(C, T, Np, no)) return static_cast<int>(cudaErrorInvalidValue);
+  LifArgs a{};
+  a.x = x; a.w_rec = w_rec; a.w_in = w_in; a.leak_keep = leak_keep;
+  a.stats = stats; a.all_counts = all_counts;
+  a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
+  a.refractory = refractory; a.burst_isi_max = burst_isi_max;
+  a.win_len = win_len; a.n_win = n_win;
+  lif_kernel<false><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
+                             const uint16_t* w_in, const float* leak_keep,
+                             const float* v_in, const int* refrac_in,
+                             const float* s_in, float* v_out, int* refrac_out,
+                             float* s_out, float* seg, float* win, int B,
+                             int C, int T, int Np, int no, float thr,
+                             int refractory, int burst_isi_max, int win_len,
+                             int n_win, void* stream) {
+  if (B <= 0) return 0;
+  if (bad_shape(C, T, Np, no) || win_len <= 0 || T != win_len * n_win)
     return static_cast<int>(cudaErrorInvalidValue);
-  lif_stats_kernel<<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w_rec, w_in, leak_keep, stats, all_counts, B, C, T, Np, no, thr,
-      refractory, burst_isi_max, win_len, n_win);
+  LifArgs a{};
+  a.x = x; a.w_rec = w_rec; a.w_in = w_in; a.leak_keep = leak_keep;
+  a.v_in = v_in; a.refrac_in = refrac_in; a.s_in = s_in;
+  a.v_out = v_out; a.refrac_out = refrac_out; a.s_out = s_out;
+  a.seg = seg; a.win = win;
+  a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
+  a.refractory = refractory; a.burst_isi_max = burst_isi_max;
+  a.win_len = win_len; a.n_win = n_win;
+  lif_kernel<true><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

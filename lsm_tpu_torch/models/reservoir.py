@@ -8,6 +8,10 @@ path draws them (same rng calls in the same order), so `init_reservoir`
 gives bit-equal w_rec, w_in and leak. The simulation with its streaming
 statistics is kernel B2 (ops/kernels/lif.py) on CUDA and its plain twin on
 the CPU; both use bf16 weight operands with f32 accumulation and f32 state.
+The continuous engine runs one chunk at a time with the state carried
+(`simulate_chunk`, kernel B4), reduces each chunk to a segment summary and
+folds a ring of them into whole-window statistics (`segment_summary`,
+`fold_segment_stats`).
 """
 
 from __future__ import annotations
@@ -172,11 +176,115 @@ def simulate_batch(res: Reservoir, spikes_in: torch.Tensor) -> Dict[str, torch.T
     return out
 
 
+def simulate_chunk(
+    res: Reservoir,
+    spikes_in: torch.Tensor,      # (B, C, T_c) 0/1
+    v: torch.Tensor,              # (B, N_pad) f32
+    refrac: torch.Tensor,         # (B, N_pad) int32
+    s_prev: torch.Tensor,         # (B, N_pad) f32
+    win_len: int,
+    n_new_win: int,
+):
+    """One continuous-mode chunk from the carried state (kernel B4 on CUDA,
+    its plain twin on CPU). Returns (v, refrac, s_prev, segment summary
+    dict of (B, no) with segment-relative times, win_counts
+    (B, n_new_win, no))."""
+    ops, kw = res.kernel_operands()
+    del kw["n_win"]
+    v, refrac, s_prev, seg, win = lif.lif_chunk(
+        spikes_in.to(torch.uint8).contiguous(), *ops, v, refrac, s_prev, **kw,
+        win_len=win_len, n_new_win=n_new_win,
+    )
+    return v, refrac, s_prev, dict(zip(lif.SEG_KEYS, seg.unbind(0))), win
+
+
+def segment_summary(raster: torch.Tensor, burst_isi_max: int) -> Dict[str, torch.Tensor]:
+    """Statistics of one segment's (B, T_c, no) bool output raster with
+    SEGMENT-RELATIVE times, vectorized over T (lsm_tpu's `segment_summary`):
+    counts, sum_t, sum_t2, first (inf if silent), last (-1 if silent), and
+    the ISI moments and bursts of spike pairs internal to the segment (the
+    fold reconstructs the pairs that cross a boundary). Each spike's
+    previous-spike time is an inclusive cummax of (t if spike else -1)
+    shifted by one step."""
+    B, T, no = raster.shape
+    sof = raster.to(torch.float32)
+    tf = torch.arange(T, dtype=torch.float32, device=raster.device).view(1, T, 1)
+    counts = sof.sum(dim=1)
+    sum_t = (sof * tf).sum(dim=1)
+    sum_t2 = (sof * tf * tf).sum(dim=1)
+    first = torch.where(raster, tf, float("inf")).amin(dim=1)
+    marks = torch.where(raster, tf, -1.0)
+    last = marks.amax(dim=1)
+    m = torch.cummax(marks, dim=1).values
+    prev_t = torch.cat([torch.full_like(m[:, :1], -1.0), m[:, :-1]], dim=1)
+    isi_event = raster & (prev_t >= 0.0)
+    isi = torch.where(isi_event, tf - prev_t, 0.0)
+    return dict(
+        counts=counts, sum_t=sum_t, sum_t2=sum_t2, first=first, last=last,
+        n_isi=isi_event.to(torch.float32).sum(dim=1),
+        sum_isi=isi.sum(dim=1),
+        sum_isi2=(isi * isi).sum(dim=1),
+        bursts=(isi_event & (isi <= burst_isi_max)).to(torch.float32).sum(dim=1),
+    )
+
+
+def fold_segment_stats(
+    segs: Dict[str, torch.Tensor],  # each (n_ring, B, no); ring[0] = oldest
+    seg_len: int,
+    burst_isi_max: int,
+) -> Dict[str, torch.Tensor]:
+    """Combine consecutive segment summaries into whole-window statistics
+    (times relative to segment 0's start), in ring (age) order, op for op as
+    lsm_tpu's `fold_segment_stats`: sums shift by the segment offset,
+    first/last are offset min/max, and the one ISI that crosses into each
+    non-empty segment runs from the previous non-empty segment's last spike
+    to its first. Integer-valued fields are exact in f32; sum_t2 and
+    sum_isi2 carry f32 rounding beyond 2^24."""
+    n_ring = segs["counts"].shape[0]
+    counts = torch.sum(segs["counts"], dim=0)
+    sum_t = counts * 0.0
+    sum_t2 = counts * 0.0
+    first = torch.full_like(counts, float("inf"))
+    last = torch.full_like(counts, -1.0)
+    n_isi = torch.sum(segs["n_isi"], dim=0)
+    sum_isi = torch.sum(segs["sum_isi"], dim=0)
+    sum_isi2 = torch.sum(segs["sum_isi2"], dim=0)
+    bursts = torch.sum(segs["bursts"], dim=0)
+
+    carry_last = torch.full_like(counts, -1.0)
+    for k in range(n_ring):
+        off = float(k * seg_len)
+        ck = segs["counts"][k]
+        has = ck > 0
+        fk = segs["first"][k] + off            # inf stays inf when silent
+        lk = segs["last"][k]
+        sum_t = sum_t + segs["sum_t"][k] + off * ck
+        sum_t2 = sum_t2 + segs["sum_t2"][k] + 2.0 * off * segs["sum_t"][k] \
+            + off * off * ck
+        first = torch.minimum(first, torch.where(has, fk, float("inf")))
+        last = torch.maximum(last, torch.where(has, lk + off, -1.0))
+        cross = has & (carry_last >= 0.0)
+        isi = torch.where(cross, fk - carry_last, 0.0)
+        n_isi = n_isi + cross.to(torch.float32)
+        sum_isi = sum_isi + isi
+        sum_isi2 = sum_isi2 + isi * isi
+        bursts = bursts + (cross & (isi <= burst_isi_max)).to(torch.float32)
+        carry_last = torch.where(has, lk + off, carry_last)
+
+    return dict(
+        counts=counts, sum_t=sum_t, sum_t2=sum_t2, first=first, last=last,
+        n_isi=n_isi, sum_isi=sum_isi, sum_isi2=sum_isi2, bursts=bursts,
+    )
+
+
 def features_from_stats(
     stats: Dict[str, torch.Tensor], feature_keys: Tuple[str, ...]
 ) -> torch.Tensor:
     """Per-neuron feature vectors from the accumulators, concatenated in
-    feature-set order; NaN-producing entries of silent neurons are 0."""
+    feature-set order; NaN-producing entries of silent neurons are 0. The
+    rate-window variance comes from `win_counts` (B, no, n_win) when the
+    stats carry it (the continuous engine's ring), else from the streaming
+    moments win_sum / win_sum2 over n_win_used windows."""
     counts = stats["counts"]
     fired = counts > 0
     n_isi = stats["n_isi"]
@@ -185,9 +293,14 @@ def features_from_stats(
     safe_counts = torch.clamp(counts, min=1.0)
     safe_n_isi = torch.clamp(n_isi, min=1.0)
     mean_isi = stats["sum_isi"] / safe_n_isi
-    nw = stats["n_win_used"]
-    win_mean = stats["win_sum"] / nw
-    win_var = stats["win_sum2"] / nw - win_mean * win_mean
+    if "win_counts" in stats:
+        win = stats["win_counts"]
+        win_mean = torch.mean(win, dim=-1)
+        win_var = torch.mean(win * win, dim=-1) - win_mean * win_mean
+    else:
+        nw = stats["n_win_used"]
+        win_mean = stats["win_sum"] / nw
+        win_var = stats["win_sum2"] / nw - win_mean * win_mean
 
     derived = {
         "spike_counts": counts,

@@ -2,11 +2,13 @@
 
 One shared library with a plain C interface, compiled by nvcc for sm_90a
 at first use and loaded with ctypes (no PyTorch headers, so a build takes
-seconds, not minutes). The library is keyed by a hash of the sources and
-the flags: an edited kernel is never served from a stale build. In a source
-checkout the output goes to build/lsm_tpu_torch/ at the checkout's root
-(build/ is git-ignored); an installed package builds into the user's cache
-directory instead of site-packages.
+seconds, not minutes). Each source compiles in its own nvcc process, all
+started together, and one more nvcc links the objects. The library is keyed
+by a hash of the sources and the flags: an edited kernel is never served
+from a stale build. In a source checkout the output goes to
+build/lsm_tpu_torch/ at the checkout's root (build/ is git-ignored); an
+installed package builds into the user's cache directory instead of
+site-packages.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -34,9 +37,9 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -70,6 +73,10 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd: list) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into BUILD_DIR/liblsm_kernels_<hash>.so unless
     that exact build exists. Returns the library path."""
@@ -79,24 +86,28 @@ def build() -> Path:
         _build_info.setdefault("seconds", 0.0)
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources()]
-    # Build to a temp name and rename: a concurrent build never loads a
-    # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for obj, src in zip(objs, sources())]
+        # Link to a temp name and rename: a concurrent build never loads a
+        # half-written library.
+        so = Path(tmp) / lib_path.name
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(so), *objs]
+        with ThreadPoolExecutor(len(cmds)) as pool:             # one nvcc a source
+            procs = list(pool.map(_run, cmds))
+        procs.append(_run(link) if all(p.returncode == 0 for p in procs) else None)
+        for cmd, proc in zip([*cmds, link], procs):
+            if proc is not None and proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+        os.replace(so, lib_path)
     dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
-    (BUILD_DIR / f"ptxas_{lib_path.stem}.log").write_text(proc.stderr)
-    _build_info.update(path=str(lib_path), seconds=dt, log=proc.stderr)
+    report = "\n".join(p.stdout + p.stderr for p in procs)
+    (BUILD_DIR / f"ptxas_{lib_path.stem}.log").write_text(report)
+    _build_info.update(path=str(lib_path), seconds=dt, log=report)
     return lib_path
 
 

@@ -6,7 +6,9 @@ whose module imports jax: `make_erb_coeffs`, `gtgram_strides`,
 lsm_tpu's). Slaney's 4-biquad cascade is applied in block form over
 sub-blocks of g = gcd(hop, window) samples with an 8-dim carried state; the
 per-sub-block energies come from kernel B1 (ops/kernels/gtgram.py), whose
-plain PyTorch twin is the exact block scan of lsm_tpu's `gtgram_iir`.
+plain PyTorch twin is the exact block scan of lsm_tpu's `gtgram_iir`, and,
+for the continuous engine's chunks with a carried state, from kernel B3
+(`gtgram_chunk`, `gtgram_iir_scan`).
 """
 
 from __future__ import annotations
@@ -198,6 +200,39 @@ def block_system_tensor(fs: float, channels: int, f_min: float, g: int,
     """`block_system` as a tensor on `device`, uploaded once per device and
     geometry: the hot path copies nothing to the card."""
     return torch.as_tensor(block_system(fs, channels, f_min, g)).to(device)
+
+
+def gtgram_chunk(
+    wave: torch.Tensor,
+    state: torch.Tensor,
+    fs: float,
+    channels: int,
+    f_min: float,
+    g: int,
+):
+    """One chunk of the block scan from a carried cascade state.
+    wave (B, n_sub*g) float32, state (B, 8, C) -> (final state (B, 8, C),
+    sub-block energies (n_sub, B, C)): kernel B3 on CUDA, its plain twin on
+    the CPU. Chunked calls that thread the state are bit-equal to one call
+    over the whole signal."""
+    kmat = block_system_tensor(fs, channels, f_min, g, wave.device)
+    return gtgram_kernel.chunk(wave.contiguous(), kmat, state.contiguous())
+
+
+def gtgram_iir_scan(
+    blocks: torch.Tensor,
+    init_state: torch.Tensor,
+    fs: float,
+    channels: int,
+    f_min: float,
+    g: int,
+):
+    """lsm_tpu's `gtgram_iir_scan` with its layouts: blocks (n_sub, B, g)
+    scan-major, init_state (B, 8, C) -> (final_state (B, 8, C),
+    sub_energy (n_sub, B, C))."""
+    n_sub, B, _ = blocks.shape
+    wave = blocks.transpose(0, 1).reshape(B, n_sub * g)
+    return gtgram_chunk(wave, init_state, fs, channels, f_min, g)
 
 
 def gtgram_iir(

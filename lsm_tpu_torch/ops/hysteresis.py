@@ -6,9 +6,11 @@ when x > theta, OFF when x < theta - gap, and holds otherwise:
 
     active_t = (x_t > theta) | (active_{t-1} & (x_t >= theta - gap))
 
-A plain loop over the T=100 bins, vectorised over (batch, threshold,
-filter); the associative scan of the reference was a TPU choice. Output
-columns are interleaved: column t * n_thresholds + t_idx.
+A plain loop over the bins, vectorised over (batch, threshold, filter);
+the associative scan of the reference was a TPU choice. The trigger state
+can be carried across chunks (`hysteresis_encode_step`, the continuous
+engine's encoder). Output columns are interleaved: column
+t * n_thresholds + t_idx.
 """
 
 from __future__ import annotations
@@ -22,7 +24,21 @@ import torch
 def hysteresis_encode(
     spec: torch.Tensor, thresholds: Sequence[float], gap: float
 ) -> torch.Tensor:
-    """(..., F, T) float in [0, 1] -> (..., F, T * n_thr) uint8."""
+    """(..., F, T) float in [0, 1] -> (..., F, T * n_thr) uint8: the
+    all-off-state special case of `hysteresis_encode_step`."""
+    state = torch.zeros(spec.shape[:-2] + (len(thresholds), spec.shape[-2]),
+                        dtype=torch.bool, device=spec.device)
+    return hysteresis_encode_step(spec, state, thresholds, gap)[0]
+
+
+def hysteresis_encode_step(
+    spec: torch.Tensor, state: torch.Tensor, thresholds: Sequence[float], gap: float
+):
+    """Chunked encoder with an explicit carried trigger state (lsm_tpu's
+    `hysteresis_encode_step`). spec (..., F, T_chunk) in [0, 1], state
+    (..., n_thr, F) bool (all False at stream start) -> (spikes (..., F,
+    T_chunk * n_thr) uint8 interleaved, new state (..., n_thr, F)).
+    Chunks that thread the state are bit-equal to one whole-signal call."""
     if gap < 0:
         raise ValueError(f"hysteresis gap must be >= 0, got {gap}")
     # float32 thresholds and OFF levels, computed as the reference does
@@ -37,11 +53,11 @@ def hysteresis_encode(
     x = spec.unsqueeze(-3)                                  # (..., 1, F, T)
     rising = x > thr_t                                      # (..., n_thr, F, T)
     holdable = x >= lower_t
-    active = torch.zeros(rising.shape[:-1], dtype=torch.bool, device=dev)
+    active = state
     out = torch.empty_like(rising)
     for t in range(spec.shape[-1]):
         active = rising[..., t] | (active & holdable[..., t])
         out[..., t] = active
     # (..., n_thr, F, T) -> (..., F, T, n_thr) -> interleaved columns.
     out = out.movedim(-3, -1)
-    return out.reshape(out.shape[:-2] + (-1,)).to(torch.uint8)
+    return out.reshape(out.shape[:-2] + (-1,)).to(torch.uint8), active

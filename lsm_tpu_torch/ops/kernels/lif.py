@@ -1,15 +1,21 @@
-"""Kernel B2: fused dense LIF reservoir with streaming statistics
+"""Kernels B2 and B4: fused dense LIF reservoir with streaming statistics
 (csrc/lif.cu).
 
-Replaces lsm_tpu/ops/pallas/lif_kernel.py:46 `_lif_kernel` (entry
-`simulate_batch_pallas`). The TPU kept W_rec (2 MB bf16) resident in VMEM;
-a Hopper SM has 227 KB of shared memory, so the kernel streams W from the
-50 MB L2 instead: one CTA per batch row, one thread per neuron, the state
+B2 replaces lsm_tpu/ops/pallas/lif_kernel.py:46 `_lif_kernel` (entry
+`simulate_batch_pallas`); B4 replaces lsm_tpu/ops/pallas/lif_chunk_kernel.py:39
+`_lif_chunk_kernel` (entry `simulate_chunk_pallas`), one continuous-mode
+chunk with v, refrac and the spike vector carried in and out, a segment
+summary with segment-relative times and per-window counts, and no
+all_counts. Both are one templated kernel body. The TPU kept W_rec (2 MB
+bf16) resident in VMEM; a Hopper SM has 227 KB of shared memory, so the
+kernel streams W from the 50 MB L2 instead: one CTA per batch row, one thread per neuron, the state
 and statistics in registers, and each step reads only the W rows of the
 neurons and input channels that fired (spikes are 0/1). What bounds it on
 an H100: the L2 latency of those row reads and two block barriers per
 step, not FLOPs (the TPU formulation's dense (B, N) x (N, N) matmul does
-~50x more work at a ~2 % firing rate).
+~50x more work at a ~2 % firing rate). B4 compacts the carried spike
+vector before its first step, so that step's recurrent drive comes from
+the previous chunk's last spikes.
 """
 
 from __future__ import annotations
@@ -24,9 +30,23 @@ STAT_KEYS = (
     "counts", "sum_t", "sum_t2", "first", "last", "n_isi", "sum_isi",
     "sum_isi2", "bursts", "win_sum", "win_sum2",
 )
+SEG_KEYS = STAT_KEYS[:9]  # the segment summary B4 writes
 MAX_NEURONS = 1024       # one thread per padded neuron (csrc/lif.cu)
 
-launches = 0             # kernel launches (the plain twin does not count)
+launches = 0             # B2 kernel launches (the plain twin does not count)
+chunk_launches = 0       # B4 kernel launches
+
+
+def _lif_update(v, refrac, drive, leak_keep, threshold, refractory):
+    """One LIF step (lsm_tpu's `lif_update`): leak + integrate while not
+    refractory, threshold, reset, refractory countdown. The product and
+    the sum round separately, as the kernels' __fmul_rn/__fadd_rn do.
+    Returns (v, refrac int32, spike bool)."""
+    active = refrac == 0
+    v_new = torch.where(active, v * leak_keep + drive, 0.0)
+    spike = (v_new >= threshold) & active
+    refrac = torch.where(spike, refractory, torch.clamp(refrac - 1, min=0)).to(torch.int32)
+    return torch.where(spike, 0.0, v_new), refrac, spike
 
 
 def lif_stats_plain(
@@ -68,12 +88,8 @@ def lif_stats_plain(
     prev_t = torch.full((B, no), -1.0, device=dev)
     c_cur = zeros(no)
     for t in range(T):
-        drive = s @ wr + xf[:, :, t] @ wi
-        active = refrac == 0
-        v_new = torch.where(active, v * leak_keep + drive, 0.0)
-        spike = (v_new >= threshold) & active
-        v = torch.where(spike, 0.0, v_new)
-        refrac = torch.where(spike, refractory, torch.clamp(refrac - 1, min=0))
+        v, refrac, spike = _lif_update(v, refrac, s @ wr + xf[:, :, t] @ wi, leak_keep,
+                                       threshold, refractory)
         s = spike.to(torch.float32)
         all_counts += s
 
@@ -128,6 +144,17 @@ def _check(x, w_rec, w_in, leak_keep, n_outputs):
         raise ValueError("lif_stats wants contiguous tensors")
 
 
+def _check_cuda(name, x, n_pad):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    B, C, T = x.shape
+    if n_pad > MAX_NEURONS or n_pad % 32 or C > n_pad or T == 0:
+        raise ValueError(
+            f"kernel {name} takes T > 0, N_pad <= {MAX_NEURONS}, N_pad % 32 == 0 "
+            f"and C <= N_pad; got T={T} N_pad={n_pad} C={C}"
+        )
+
+
 def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
               burst_isi_max, n_outputs, n_win):
     """(stats (11, B, no), all_counts (B, Np)): kernel B2 on CUDA, the plain
@@ -138,15 +165,9 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
               burst_isi_max=burst_isi_max, n_outputs=n_outputs, n_win=n_win)
     if x.device.type == "cpu":
         return lif_stats_plain(x, w_rec, w_in, leak_keep, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    B, C, T = x.shape
     n_pad = w_rec.shape[0]
-    if n_pad > MAX_NEURONS or n_pad % 32 or C > n_pad or T == 0:
-        raise ValueError(
-            f"kernel B2 takes T > 0, N_pad <= {MAX_NEURONS}, N_pad % 32 == 0 "
-            f"and C <= N_pad; got T={T} N_pad={n_pad} C={C}"
-        )
+    _check_cuda("B2", x, n_pad)
+    B, C, T = x.shape
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=x.device)
     all_counts = torch.empty(B, n_pad, dtype=torch.float32, device=x.device)
     fn = _build.function("lsm_lif_stats", [
@@ -165,3 +186,80 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
     _build.check(err, "lsm_lif_stats")
     launches += 1
     return stats, all_counts
+
+
+def lif_chunk_plain(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
+                    refractory, burst_isi_max, n_outputs, win_len, n_new_win):
+    """Plain PyTorch twin of B4: lsm_tpu's XLA chunk path
+    (tests/test_continuous.py:168-192): a scan of `lif_update` from the
+    carried (v, refrac, s_prev), then `segment_summary` of the output
+    raster, then the rate-window reshape-sum. Weights widened from bf16 to
+    f32 as in `lif_stats_plain`. Returns (v, refrac, s_prev, seg (9, B, no)
+    in SEG_KEYS order, win (B, n_new_win, no))."""
+    # models/reservoir.py imports this module; its summary is the oracle.
+    from lsm_tpu_torch.models.reservoir import segment_summary
+
+    B, C, T = x.shape
+    no = n_outputs
+    wr = w_rec.to(torch.float32)
+    wi = w_in.to(torch.float32)
+    xf = torch.zeros(B, w_in.shape[0], T, dtype=torch.float32, device=x.device)
+    xf[:, :C] = x.to(torch.float32)
+    raster = torch.empty(B, T, no, dtype=torch.bool, device=x.device)
+    s = s_prev
+    for t in range(T):
+        v, refrac, spike = _lif_update(v, refrac, s @ wr + xf[:, :, t] @ wi, leak_keep,
+                                       threshold, refractory)
+        s = spike.to(torch.float32)
+        raster[:, t] = spike[:, :no]
+    seg = segment_summary(raster, burst_isi_max)
+    win = raster.to(torch.float32).view(B, n_new_win, win_len, no).sum(dim=2)
+    return v, refrac, s, torch.stack([seg[k] for k in SEG_KEYS]), win
+
+
+def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
+              refractory, burst_isi_max, n_outputs, win_len, n_new_win):
+    """One carried-state chunk: (v, refrac, s_prev, seg (9, B, no),
+    win (B, n_new_win, no)). Kernel B4 on CUDA, the plain twin on CPU."""
+    global chunk_launches
+    _check(x, w_rec, w_in, leak_keep, n_outputs)
+    B, C, T = x.shape
+    n_pad = w_rec.shape[0]
+    for name, t, dt in (("v", v, torch.float32), ("refrac", refrac, torch.int32),
+                        ("s_prev", s_prev, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != (B, n_pad) or t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous ({B}, {n_pad}) tensor on {x.device}, "
+                f"got {tuple(t.shape)} on {t.device}"
+            )
+    if win_len <= 0 or n_new_win <= 0 or T != win_len * n_new_win:
+        raise ValueError(f"chunk of {T} steps is not {n_new_win} windows of {win_len}")
+    kw = dict(threshold=threshold, refractory=refractory, burst_isi_max=burst_isi_max,
+              n_outputs=n_outputs, win_len=win_len, n_new_win=n_new_win)
+    if x.device.type == "cpu":
+        return lif_chunk_plain(x, w_rec, w_in, leak_keep, v, refrac, s_prev, **kw)
+    _check_cuda("B4", x, n_pad)
+    dev = x.device
+    v_out = torch.empty_like(v)
+    refrac_out = torch.empty_like(refrac)
+    s_out = torch.empty_like(s_prev)
+    seg = torch.empty(len(SEG_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
+    win = torch.empty(B, n_new_win, n_outputs, dtype=torch.float32, device=dev)
+    fn = _build.function("lsm_lif_chunk", [ctypes.c_void_p] * 12 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(), leak_keep.data_ptr(),
+                 v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
+                 v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
+                 seg.data_ptr(), win.data_ptr(),
+                 B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
+                 int(burst_isi_max), int(win_len), int(n_new_win), stream)
+    _build.check(err, "lsm_lif_chunk")
+    chunk_launches += 1
+    return v_out, refrac_out, s_out, seg, win

@@ -79,7 +79,8 @@ def test_port_imports_nothing_of_the_reference():
     code = (
         "import sys\n"
         "import lsm_tpu_torch.pipeline, lsm_tpu_torch.__main__, lsm_tpu_torch.convert\n"
-        "import lsm_tpu_torch.models.diagnostics, chip_smoke\n"
+        "import lsm_tpu_torch.models.diagnostics, lsm_tpu_torch.models.continuous\n"
+        "import lsm_tpu_torch.models.streaming, chip_smoke\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"

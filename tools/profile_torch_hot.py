@@ -20,7 +20,6 @@ import argparse
 import json
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import torch
@@ -57,50 +56,6 @@ def with_plain_twins(run, reps: int) -> list:
         kgt.sub_energy, klif.lif_stats = saved
 
 
-def union_us(intervals) -> float:
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    return busy
-
-
-def profile(run, calls: int, trace: str | None) -> dict:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
-
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if trace:
-        prof.export_chrome_trace(trace)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in dev]
-    by_name = defaultdict(lambda: [0, 0.0])
-    for e in dev:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
-    busy = union_us(spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    return {
-        "calls": calls, "profiled_wall_s": wall, "n_device_events": len(dev),
-        "device_busy_us": busy,
-        "device_span_us": (max(b for _, b in spans) - min(a for a, _ in spans)) if spans else 0.0,
-        "busy_share_of_wall": busy / (wall * 1e6),
-        "device_us_total": sum(v[1] for v in by_name.values()),
-        "top_device": [{"name": k[:120], "count": c, "us": us} for k, (c, us) in top],
-    }
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "hot_profile.json"))
@@ -116,7 +71,7 @@ def main() -> None:
     rec["wall_s_kernel"] = walls(hp.run, 5)
     rec["wall_s_plain"] = with_plain_twins(hp.run, 2)
     rec["wall_s_kernel_after"] = walls(hp.run, 5)
-    rec["profile"] = profile(hp.run, 3, args.trace)
+    rec["profile"] = chip_smoke.device_profile(hp.run, 3, args.trace)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(rec, indent=1))
 
