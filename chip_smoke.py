@@ -32,14 +32,33 @@ Phases (any failure exits non-zero):
                fit_continuous_readout and carry-in serving of the test split
                through ContinuousKWS in 100 ms chunks: matched accuracy
                >= 0.60 and exact - matched <= 0.15; B3 and B4 launched.
-  7. serving - ContinuousKWS.step at 1024 streams, int16 wire, state
+  7. serving - ContinuousKWS.step at 1024 streams (flagship reservoir of
+               phase 6), int16 wire, after one 1 s window of warm-up, state
                carried: host wall per hop (median, min), stream-chunks/s,
                real-time factor, CUDA-event stage split, device busy share
                and top device ops from torch.profiler, peak memory; B4's
                time and bound at the serving weights from the carried
                state (the kernels line takes these).
+  8. sparse kernels - BASELINE configs[3] width (N=10240, k=2048, R=4,
+               C=128, T=400), weights calibrated at multiplier 1.6 on the
+               phase-2 spikes: B5 bit-equal to its twin on the dyadic copy
+               at B=32 and timed at B=256 on the calibrated weights; B6
+               over three chained chunks of 64 streams, bit-equal on the
+               dyadic copy; the dense B2 and B4 at N=2048 (past one thread
+               a neuron) bit-equal on dyadic weights.
+  9. sparse slice - the N=1024 dense/sparse parity oracle of
+               tests/test_sparse_reservoir.py (both EDGE OF CHAOS, accuracy
+               in [0.66, 0.95], within 0.15), then run_pipeline_arrays at
+               configs[3] full width, multiplier 1.6, on the hard corpus
+               (30 x 12): diagnostics, accuracy and wall recorded (the
+               regime is not gated: the port draws its own weights);
+               finite features, B1 and B5 launched.
+ 10. sparse serving - phase 7 with the phase-9 reservoir: 1024 streams at
+               10240 neurons, B3 and B6 launched; B6's time and bound at
+               the serving weights from the carried state.
 
-A "[record] {...}" line holds every number of the run as JSON. The
+Each phase prints its seconds ("[time] ..."). A "[record] {...}" line
+holds every number of the run as JSON. The
 second-to-last stdout line is a JSON object with each kernel's launches
 (from the phase that drives its path), error against its twin, times and
 bound; the last line is
@@ -66,6 +85,11 @@ N_SERVE = 1024                # serving streams
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: float32 on
 # the CUDA cores and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# BASELINE.json configs[3], the scaled block-sparse reservoir: 10240
+# neurons, k = 0.1 N * 2, at the multiplier docs/VALIDATION.md's configs[3]
+# sweep found at the edge of chaos (lsm_tpu's draws).
+N_10K, K_10K, MULT_10K = 10240, 2048, 1.6
+SPARSE_ACC_RANGE, SPARSE_MAX_DELTA = (0.66, 0.95), 0.15   # tests/test_sparse_reservoir.py
 
 
 def fail(msg: str) -> None:
@@ -148,23 +172,39 @@ def lif_flops(source_rows: float, batch: int, steps: int, n_neurons: int) -> flo
     return float(source_rows) * n_neurons + 2.0 * batch * steps * n_neurons
 
 
-def lif_chunk_measure(hops, ops, kw, n_neurons: int) -> dict:
-    """B4 against its plain twin over `hops`, a list of (x, (v, refrac,
-    s_prev)) inputs: CUDA-event times and the bound, each the mean per hop,
-    the bound from these hops' spikes. Source rows: the carried spikes,
-    every spike of steps 0..T-2 of the whole reservoir (the twin run with
-    every neuron as an output counts them), and every input spike."""
-    from lsm_tpu_torch.ops.kernels import lif as klif
+def sparse_flops(rec_rows: float, in_rows: float, fanout: float, per_row: float,
+                 batch: int, steps: int, n_neurons: int) -> float:
+    """B5/B6: one add per recurrent edge of a neuron that fired (`per_row`:
+    the true out-degree, ~k/2, or S * 128 for the stored block form), one
+    per input edge of a channel that fired (`fanout`), and the membrane
+    update's multiply and add per (row, step, neuron)."""
+    return (float(rec_rows) * per_row + float(in_rows) * fanout
+            + 2.0 * batch * steps * n_neurons)
 
-    n_pad = ops[0].shape[0]
-    flops = n_bytes = rows = spikes = 0.0
+
+def sparse_degrees(sr) -> tuple:
+    """(recurrent edges per source neuron, input edges per channel) of a
+    SparseReservoir, counted from its nonzero weights."""
+    return (float((sr.w_blocks != 0).sum()) / sr.n_neurons,
+            float((sr.w_in != 0).sum()) / sr.n_channels)
+
+
+def chunk_measure(hops, ops, kw, kernel, plain, flops) -> dict:
+    """A chunk kernel (B4 or B6) against its plain twin over `hops`, a list
+    of (x, (v, refrac, s_prev)) inputs: CUDA-event times and the bound, each
+    the mean per hop, the bound from these hops' spikes. flops(rec_rows,
+    in_rows, batch, steps): rec_rows are the carried spikes and every spike
+    of steps 0..T-2 of the whole reservoir (the twin run with every neuron
+    as an output counts them), in_rows every input spike."""
+    n_state = ops[-1].shape[0]
+    n_flops = n_bytes = rows = spikes = 0.0
     for x, carried in hops:
-        out = klif.lif_chunk(x, *ops, *carried, **kw)
-        all_n = klif.lif_chunk_plain(x, *ops, *carried, **{**kw, "n_outputs": n_pad})
-        r = float(carried[2].sum() + all_n[3][0].sum() - all_n[2].sum() + x.sum())
-        rows += r
+        out = kernel(x, *ops, *carried, **kw)
+        all_n = plain(x, *ops, *carried, **{**kw, "n_outputs": n_state})
+        rec = float(carried[2].sum() + all_n[3][0].sum() - all_n[2].sum())
+        rows += rec + float(x.sum())
         spikes += float(all_n[3][0].sum()) / (x.shape[0] * x.shape[-1])
-        flops += lif_flops(r, x.shape[0], x.shape[-1], n_neurons)
+        n_flops += flops(rec, float(x.sum()), x.shape[0], x.shape[-1])
         n_bytes += nbytes(x, *ops, *carried, *out)
     n = len(hops)
 
@@ -173,11 +213,27 @@ def lif_chunk_measure(hops, ops, kw, n_neurons: int) -> dict:
 
     return {
         "hops": n,
-        "ms": cuda_ms(run(klif.lif_chunk), reps=max(1, 20 // n)) / n,
-        "plain_ms": cuda_ms(run(klif.lif_chunk_plain), reps=1 if n > 1 else 3) / n,
+        "ms": cuda_ms(run(kernel), reps=max(1, 20 // n)) / n,
+        "plain_ms": cuda_ms(run(plain), reps=1 if n > 1 else 3) / n,
         "source_rows": rows / n, "spikes_per_step": spikes / n,
-        **bound(flops / n, n_bytes / n),
+        **bound(n_flops / n, n_bytes / n),
     }
+
+
+def chunk_kernel_of(reservoir) -> tuple:
+    """(name, kernel, plain twin, flops(rec_rows, in_rows, batch, steps)) of
+    the chunk kernel that serves `reservoir`: B4 dense, B6 block-sparse."""
+    from lsm_tpu_torch.models.sparse import SparseReservoir
+    from lsm_tpu_torch.ops.kernels import lif as klif
+    from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
+
+    n = reservoir.n_neurons
+    if isinstance(reservoir, SparseReservoir):
+        edges, fan = sparse_degrees(reservoir)
+        return ("B6", ksp.sparse_lif_chunk, ksp.sparse_lif_chunk_plain,
+                lambda rec, inp, b, t: sparse_flops(rec, inp, fan, edges, b, t, n))
+    return ("B4", klif.lif_chunk, klif.lif_chunk_plain,
+            lambda rec, inp, b, t: lif_flops(rec + inp, b, t, n))
 
 
 def union_us(intervals) -> float:
@@ -230,16 +286,40 @@ def device_profile(run, calls: int, trace: str | None = None) -> dict:
 def reset_launches() -> None:
     from lsm_tpu_torch.ops.kernels import gtgram as kgt
     from lsm_tpu_torch.ops.kernels import lif as klif
+    from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
     kgt.launches = kgt.chunk_launches = klif.launches = klif.chunk_launches = 0
+    ksp.launches = ksp.chunk_launches = 0
 
 
 def read_launches() -> dict:
     from lsm_tpu_torch.ops.kernels import gtgram as kgt
     from lsm_tpu_torch.ops.kernels import lif as klif
+    from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
     return {"B1": kgt.launches, "B2": klif.launches,
-            "B3": kgt.chunk_launches, "B4": klif.chunk_launches}
+            "B3": kgt.chunk_launches, "B4": klif.chunk_launches,
+            "B5": ksp.launches, "B6": ksp.chunk_launches}
+
+
+def finite_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max |a - b| where both are finite (first/last spike times hold
+    +inf / -1 for silent neurons)."""
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float(torch.where(ok, (a.float() - b.float()).abs(), 0.0).max())
+
+
+class Laps:
+    """Seconds per phase, printed as each phase ends."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
+        print(f"[time] phase {name}: {self.seconds[name]:.1f} s")
 
 
 def hot_path(dev: torch.device) -> SimpleNamespace:
@@ -305,6 +385,7 @@ def main() -> None:
     print(card)
 
     # ---- 1. build ------------------------------------------------------
+    laps = Laps()
     t0 = time.perf_counter()
     _build.library()
     info = _build.build_info()
@@ -318,6 +399,7 @@ def main() -> None:
     pcfg = PipelineConfig()
     fcfg, rcfg = pcfg.frontend, pcfg.reservoir
     keys = tuple(FEATURE_SETS[pcfg.feature_set])
+    laps("1 build")
 
     # ---- 2. kernels vs plain twins -------------------------------------
     audio_np, _ = dataset.synthetic_audio_batch_hard(22, 12, seed=7)
@@ -386,6 +468,7 @@ def main() -> None:
     if not equal:
         fail("B2 statistics are not bit-equal to the plain twin on dyadic weights")
     record["B1"], record["B2"] = b1, b2
+    laps("2 kernels")
 
     # ---- 3. the slice ---------------------------------------------------
     audio_h, labels_h = dataset.synthetic_audio_batch_hard(30, 12, seed=42)
@@ -415,6 +498,7 @@ def main() -> None:
         fail(f"accuracy {result.accuracy:.4f} outside {ACC_BAND}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the path was not launched: {launches}")
+    laps("3 slice")
 
     # ---- 4. hot inference path at 2400 utterances ------------------------
     hp = hot_path(dev)
@@ -471,14 +555,31 @@ def main() -> None:
           + f"; B1 {hot_rec['B1_ms_2400']:.2f} ms B2 {hot_rec['B2_ms_2400']:.2f} ms "
           f"at B={n}; fit accuracy {fit_acc:.3f} ({card})")
 
+    laps("4 hot")
+
     # ---- 5-7. the continuous engine --------------------------------------
     b3, b4 = chunk_kernels(dev, kmat, r_rand.dyadic(), card)
     record["B3"], record["B4"] = b3, b4
+    laps("5 chunk kernels")
     cont = continuous_slice(dev, card)
     record["continuous_slice"] = {k: v for k, v in cont.items() if k not in ("engine_args",)}
+    laps("6 continuous slice")
     record["serving"] = serving(dev, *cont["engine_args"], card)
-    b4_line = {**b4, **{k: record["serving"]["B4"][k]
-                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    laps("7 serving")
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by")
+    b4_line = {**b4, **{k: record["serving"]["B4"][k] for k in timed}}
+
+    # ---- 8-10. the block-sparse reservoir at configs[3] width ------------
+    sk = sparse_kernels(dev, spikes, card)
+    record["sparse_kernels"] = sk
+    laps("8 sparse kernels")
+    record["sparse_slice"], engine_10k = sparse_slice(dev, card)
+    laps("9 sparse slice")
+    record["sparse_serving"] = sserve = serving(dev, *engine_10k, card)
+    laps("10 sparse serving")
+    if min(sserve["launches"]["B3"], sserve["launches"]["B6"]) <= 0:
+        fail(f"a kernel of the sparse serving path was not launched: {sserve['launches']}")
+    b6_line = {**sk["B6"], **{k: sserve["B6"][k] for k in timed}}
 
     def row(name, key, source, replaces, rec, launches_):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -487,7 +588,7 @@ def main() -> None:
                 "bound_by": rec["bound_by"], "library_ms": None}
 
     # No single PyTorch call computes the IIR block scan or the spike-driven
-    # LIF recurrence, so library_ms is null for all four.
+    # LIF recurrence, so library_ms is null for all six.
     kernels = {"kernels": [
         row("gtgram_sub_energy", "B1", "lsm_tpu_torch/csrc/gtgram.cu",
             "lsm_tpu/ops/pallas/gtgram_kernel.py:70", b1, launches),
@@ -497,7 +598,13 @@ def main() -> None:
             "lsm_tpu/ops/pallas/gtgram_kernel.py:205", b3, cont["launches"]),
         row("lif_chunk", "B4", "lsm_tpu_torch/csrc/lif.cu",
             "lsm_tpu/ops/pallas/lif_chunk_kernel.py:39", b4_line, cont["launches"]),
+        row("sparse_lif_stats", "B5", "lsm_tpu_torch/csrc/sparse_lif.cu",
+            "lsm_tpu/ops/pallas/sparse_lif_kernel.py:54", sk["B5"],
+            record["sparse_slice"]["launches"]),
+        row("sparse_lif_chunk", "B6", "lsm_tpu_torch/csrc/sparse_lif.cu",
+            "lsm_tpu/ops/pallas/sparse_lif_chunk_kernel.py:36", b6_line, sserve["launches"]),
     ]}
+    record["phase_seconds"] = laps.seconds
     check_no_reference()
     print("[record] " + json.dumps(record))
     print(json.dumps(kernels))
@@ -590,7 +697,7 @@ def chunk_kernels(dev, kmat, r_dy, card):
     # kernels line takes B4's time and bound from phase 7's serving state.
     b4 = {"bit_equal_dyadic": bool(equal), "max_abs_err": err,
           "carried_spikes": float(state.s_prev.sum()),
-          "dyadic": lif_chunk_measure([(x, carried)], ops, kw, r_dy.n_neurons)}
+          "dyadic": chunk_measure([(x, carried)], ops, kw, *chunk_kernel_of(r_dy)[1:])}
     dy = b4["dyadic"]
     print(f"[B4 lif_chunk] B={N_SERVE} T_c={x.shape[-1]} N=1000 dyadic, carried spikes "
           f"{b4['carried_spikes']:.0f}: bit_equal {equal} max_abs_err {err:.3e}; kernel "
@@ -655,7 +762,10 @@ def continuous_slice(dev, card) -> dict:
 
 
 def serving(dev, reservoir, ro, sc, card) -> dict:
-    """Phase 7: the 1024-stream serving hop, int16 wire, state carried."""
+    """Phases 7 and 10: the 1024-stream serving hop, int16 wire, state
+    carried, after one 1 s window of warm-up; the launch counters cover the
+    warm-up and the timed hops. Then the chunk kernel (B4 dense, B6 sparse)
+    at the serving weights."""
     from lsm_tpu_torch.config import PipelineConfig
     from lsm_tpu_torch.io import dataset
     from lsm_tpu_torch.models.continuous import ContinuousKWS
@@ -668,6 +778,7 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kws = ContinuousKWS(reservoir, ro, sc, cfg.frontend, cfg.feature_set,
                         n_streams=N_SERVE, chunk_len=CHUNK)
+    reset_launches()
     for h in hops:                                       # warm-up: one window
         kws.step(h)
     walls = []
@@ -677,25 +788,28 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
         logits = kws.step(hops[i % 10])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    launches = read_launches()
     if logits.shape != (N_SERVE, 12) or not np.isfinite(logits).all():
         fail(f"serving logits {logits.shape} or non-finite")
+    diag = kws.diagnostics()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # B4 at the serving weights over one cycle of the ten hops, each from
-    # the engine's carried state as serving reaches it (after the
-    # peak-memory read: the inputs kept and the twin's temporaries are no
-    # part of serving).
+    # The chunk kernel at the serving weights over one cycle of the ten
+    # hops, each from the engine's carried state as serving reaches it
+    # (after the peak-memory read: the inputs kept and the twin's
+    # temporaries are no part of serving).
+    name, kernel, plain, flops = chunk_kernel_of(kws.reservoir)
     ops, kw = kws.reservoir.kernel_operands()
     del kw["n_win"]
     kw.update(win_len=kws._win_len, n_new_win=kws._n_new_win)
-    b4_hops = []
+    ck_hops = []
     for h in hops:
         st = kws.state
         x = kws._featurize(decode_pcm_device(torch.as_tensor(h).to(dev)), st)[0].contiguous()
-        b4_hops.append((x, (st.v, st.refrac, st.s_prev)))
+        ck_hops.append((x, (st.v, st.refrac, st.s_prev)))
         kws.step(h)
-    b4 = lif_chunk_measure(b4_hops, ops, kw, kws.reservoir.n_neurons)
-    del b4_hops
+    ck = chunk_measure(ck_hops, ops, kw, kernel, plain, flops)
+    del ck_hops
     dchunk = torch.as_tensor(hops[0]).to(dev)
 
     # CUDA-event split of one hop on a device-resident chunk (the stages
@@ -728,22 +842,211 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
         "device_events_per_hop": prof["n_device_events"] / prof["calls"],
         "top_device": prof["top_device"][:8],
         "peak_mem_gb": peak_gb,
-        "B4": b4,
+        "n_neurons": kws.reservoir.n_neurons, "launches": launches, name: ck,
+        "regime": diag.regime, "output_participation": diag.avg_participation,
     }
-    print(f"[serving] {N_SERVE} streams, int16 wire, 100 ms hops: median hop wall "
+    print(f"[serving] N={kws.reservoir.n_neurons}, {N_SERVE} streams, int16 wire, 100 ms hops: median hop wall "
           f"{rec['hop_wall_ms_median']:.3f} ms (min {rec['hop_wall_ms_min']:.3f}), "
           f"{rec['stream_chunks_per_s']:.1f} stream-chunks/s, real-time factor "
           f"{rec['real_time_factor']:.2f}; stages " + " ".join(f"{k} {v:.3f}" for k, v in split.items())
-          + f"; device busy {100 * rec['device_busy_share']:.1f} % "
+          + f"; regime {diag.regime} ({diag.avg_participation:.1f} % of the outputs)"
+          f"; device busy {100 * rec['device_busy_share']:.1f} % "
           f"({rec['device_busy_ms_per_hop']:.3f} ms/hop, {rec['device_events_per_hop']:.0f} "
           f"device events/hop); peak memory {rec['peak_mem_gb']:.2f} GB ({card})")
-    print(f"[serving] B4 at serving weights, mean of {b4['hops']} hops: kernel {b4['ms']:.3f} ms plain "
-          f"{b4['plain_ms']:.3f} ms bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}), "
-          f"{b4['spikes_per_step']:.1f} spikes a stream-step ({card})")
+    print(f"[serving] {name} at serving weights, mean of {ck['hops']} hops: kernel {ck['ms']:.3f} ms "
+          f"plain {ck['plain_ms']:.3f} ms bound {ck['bound_ms']:.4f} ms ({ck['bound_by']}), "
+          f"{ck['spikes_per_step']:.1f} spikes a stream-step; launches {launches} ({card})")
     for t in rec["top_device"]:
         print(f"[serving]   {t['us'] / 1e3 / prof['calls']:8.3f} ms/hop x{t['count'] // prof['calls']:4d}"
               f"  {t['name']}")
     return rec
+
+
+def chained_chunks_equal(kernel, plain, ops, kw, chunks, width: int) -> tuple:
+    """Three (or more) chained chunks from a zero state through a chunk
+    kernel and its twin: (every output bit-equal, max abs err, carried
+    spikes that fed a later chunk)."""
+    dev = chunks[0].device
+    b = chunks[0].shape[0]
+    st_k = st_p = (torch.zeros(b, width, device=dev),
+                   torch.zeros(b, width, dtype=torch.int32, device=dev),
+                   torch.zeros(b, width, device=dev))
+    equal, err, carried = True, 0.0, 0.0
+    for x in chunks:
+        carried += float(st_k[2].sum())
+        out_k = kernel(x, *ops, *st_k, **kw)
+        out_p = plain(x, *ops, *st_p, **kw)
+        torch.cuda.synchronize()
+        equal = equal and all(torch.equal(a, p) for a, p in zip(out_k, out_p))
+        err = max(err, *(finite_err(a, p) for a, p in zip(out_k, out_p)))
+        st_k, st_p = out_k[:3], out_p[:3]
+    return equal, err, carried
+
+
+def sparse_kernels(dev, spikes, card) -> dict:
+    """Phase 8: B5 and B6 at BASELINE configs[3] width (N = 10240, k = 2048,
+    R = 4, C = 128, T = 400) on weights calibrated at multiplier 1.6 on
+    featurized hard-corpus audio: B5 bit-equal to its twin on the dyadic
+    copy at B = 32 and timed at B = 256 on the calibrated weights; B6 over
+    three chained chunks of 64 streams, bit-equal on the dyadic copy (B6's
+    time comes from phase 10's serving state). Then the dense B2 and B4 at
+    N = 2048, past one thread a neuron, bit-equal on dyadic weights."""
+    from lsm_tpu_torch.config import ReservoirConfig
+    from lsm_tpu_torch.models import reservoir as res
+    from lsm_tpu_torch.models import sparse
+    from lsm_tpu_torch.models.calibration import calibrate_weight
+    from lsm_tpu_torch.ops.kernels import lif as klif
+    from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
+
+    B, C, T = spikes.shape
+    rcfg = ReservoirConfig(num_neurons=N_10K, small_world_k=K_10K)
+    t0 = time.perf_counter()
+    _, mw = calibrate_weight(rcfg, spikes, MULT_10K)
+    sr = sparse.init_reservoir_sparse(rcfg, C, mean_weight=mw, device=dev)
+    init_s = time.perf_counter() - t0
+    edges, fan = sparse_degrees(sr)
+    S = sr.src_idx.shape[1]
+
+    dy = sr.dyadic()
+    ops, kw = dy.kernel_operands()
+    x32 = spikes[:32].contiguous()
+    s_k, a_k = ksp.sparse_lif_stats(x32, *ops, **kw)
+    s_p, a_p = ksp.sparse_lif_stats_plain(x32, *ops, **kw)
+    torch.cuda.synchronize()
+    equal = torch.equal(s_k, s_p) and torch.equal(a_k, a_p)
+    err = max(finite_err(s_k, s_p), finite_err(a_k, a_p))
+
+    ops_c, kw_c = sr.kernel_operands()
+    s_c, a_c = ksp.sparse_lif_stats(spikes, *ops_c, **kw_c)
+    rec, inp = float(a_c.sum()), float(spikes.sum())
+    block_flops = sparse_flops(rec, inp, fan, S * 128, B, T, N_10K)
+    b5 = {
+        "mean_weight": mw, "init_s": init_s, "S": S, "n_band": sr.n_band,
+        "edges_per_row": edges, "fanout": fan,
+        "bit_equal_dyadic": bool(equal), "max_abs_err": err,
+        "dyadic_spikes_per_step": float(a_p.sum()) / (32 * T),
+        "spikes_per_step": rec / (B * T), "participation": float((a_c > 0).float().mean()),
+        "ms": cuda_ms(lambda: ksp.sparse_lif_stats(spikes, *ops_c, **kw_c), reps=3),
+        "plain_ms": cuda_ms(lambda: ksp.sparse_lif_stats_plain(spikes, *ops_c, **kw_c), reps=1),
+        **bound(sparse_flops(rec, inp, fan, edges, B, T, N_10K),
+                nbytes(spikes, *ops_c, s_c, a_c)),
+        "block_form_flops": block_flops, "block_form_ms": block_flops / F32_FLOPS * 1e3,
+    }
+    print(f"[B5 sparse_lif] N={N_10K} k={K_10K} S={S} C={C} T={T}, mean weight {mw:.6f} "
+          f"(init {init_s:.1f} s): dyadic B=32 bit_equal {equal} max_abs_err {err:.3e}; "
+          f"calibrated B={B}: {b5['spikes_per_step']:.1f} spikes a row-step, kernel "
+          f"{b5['ms']:.3f} ms plain {b5['plain_ms']:.3f} ms bound {b5['bound_ms']:.4f} ms "
+          f"({b5['bound_by']}; block form {b5['block_form_ms']:.4f} ms) ({card})")
+    if not equal:
+        fail("B5 is not bit-equal to its plain twin on dyadic weights")
+
+    ckw = {k: v for k, v in kw.items() if k != "n_win"}
+    ckw.update(win_len=40, n_new_win=1)
+    chunks = [spikes[:64, :, c * 40:(c + 1) * 40].contiguous() for c in range(3)]
+    eq6, err6, carried6 = chained_chunks_equal(ksp.sparse_lif_chunk, ksp.sparse_lif_chunk_plain,
+                                               ops, ckw, chunks, N_10K)
+    b6 = {"bit_equal_dyadic": bool(eq6), "max_abs_err": err6, "carried_spikes": carried6}
+    print(f"[B6 sparse_lif_chunk] N={N_10K} 64 streams, three chained 40-step chunks, "
+          f"dyadic: bit_equal {eq6} max_abs_err {err6:.3e}, carried spikes {carried6:.0f}")
+    if not eq6 or carried6 <= 0:
+        fail("B6 is not bit-equal to its plain twin over chained chunks (or carried nothing)")
+
+    # Dense B2/B4 past 1024 padded neurons, on the block body.
+    rcfg2 = ReservoirConfig(num_neurons=2048, small_world_k=409)
+    _, mw2 = calibrate_weight(rcfg2, spikes, 0.6)
+    d2 = res.init_reservoir(rcfg2, C, mean_weight=mw2, device=dev).dyadic()
+    ops2, kw2 = d2.kernel_operands()
+    s2k, a2k = klif.lif_stats(x32, *ops2, **kw2)
+    s2p, a2p = klif.lif_stats_plain(x32, *ops2, **kw2)
+    torch.cuda.synchronize()
+    eq2 = torch.equal(s2k, s2p) and torch.equal(a2k, a2p)
+    ckw2 = {k: v for k, v in kw2.items() if k != "n_win"}
+    ckw2.update(win_len=40, n_new_win=1)
+    eq4, err4, carried4 = chained_chunks_equal(klif.lif_chunk, klif.lif_chunk_plain, ops2,
+                                               ckw2, chunks, ops2[0].shape[0])
+    dense = {"B2_bit_equal": bool(eq2), "B2_spikes": float(a2p.sum()),
+             "B4_bit_equal": bool(eq4), "B4_carried_spikes": carried4,
+             "max_abs_err": max(finite_err(s2k, s2p), err4)}
+    print(f"[B2/B4 dense N=2048] dyadic: B2 B=32 bit_equal {eq2} ({dense['B2_spikes']:.0f} "
+          f"spikes); B4 three chained chunks of 64 streams bit_equal {eq4} (carried "
+          f"{carried4:.0f})")
+    if not (eq2 and eq4) or dense["B2_spikes"] <= 0 or carried4 <= 0:
+        fail("dense B2/B4 at N = 2048 are not bit-equal to their twins (or stayed silent)")
+    return {"B5": b5, "B6": b6, "dense_2048": dense}
+
+
+def sparse_slice(dev, card) -> tuple:
+    """Phase 9: (a) the sparse-parity oracle of tests/test_sparse_reservoir.py
+    at N = 1024, k = 204 on the hard corpus (dense and sparse EDGE OF CHAOS,
+    accuracies in [0.66, 0.95], within 0.15); (b) run_pipeline_arrays at
+    configs[3] full width and multiplier 1.6 on the same corpus, as
+    `python -m lsm_tpu_torch --synthetic --hard --samples-per-class 30
+    --num-neurons 10240 --multiplier 1.6` builds it. The regime of (b) is
+    recorded, not gated: the port draws its own weights."""
+    import dataclasses
+
+    from lsm_tpu_torch import pipeline
+    from lsm_tpu_torch.config import PipelineConfig, ReservoirConfig
+    from lsm_tpu_torch.io import artifacts, dataset
+    from lsm_tpu_torch.models.sparse import SparseReservoir
+
+    audio, labels = dataset.synthetic_audio_batch_hard(30, 12, seed=42)
+    base = ReservoirConfig(num_neurons=1024, num_output_neurons=400, small_world_k=204)
+    t0 = time.perf_counter()
+    spikes = pipeline.featurize_audio_array(PipelineConfig(reservoir=base, batch_size=64),
+                                            audio, dev)
+    ds = artifacts.SpikeDataset(x_spikes=spikes, y_labels=labels)
+    parity = {}
+    for flag in (False, True):
+        cfg = PipelineConfig(reservoir=dataclasses.replace(base, sparse=flag), batch_size=64)
+        ext = pipeline.extract_lsm_features(cfg, ds, dev)
+        if isinstance(ext.reservoir, SparseReservoir) != flag:
+            fail(f"sparse={flag} built a {type(ext.reservoir).__name__}")
+        result = pipeline.train_and_evaluate(cfg, ext.artifact, dev)
+        parity["sparse" if flag else "dense"] = {
+            "regime": ext.diagnostics.regime, "accuracy": result.accuracy,
+            "participation": ext.diagnostics.avg_participation}
+    torch.cuda.synchronize()
+    parity["seconds"] = time.perf_counter() - t0
+    dn, sp = parity["dense"], parity["sparse"]
+    print(f"[sparse parity] N=1024 hard corpus: dense {dn['accuracy']:.4f} {dn['regime']} "
+          f"({dn['participation']:.1f} %), sparse {sp['accuracy']:.4f} {sp['regime']} "
+          f"({sp['participation']:.1f} %), wall {parity['seconds']:.2f} s ({card})")
+    for name, r in (("dense", dn), ("sparse", sp)):
+        if r["regime"] != "EDGE OF CHAOS" or not (
+                SPARSE_ACC_RANGE[0] <= r["accuracy"] <= SPARSE_ACC_RANGE[1]):
+            fail(f"sparse-parity oracle: {name} {r}")
+    if abs(sp["accuracy"] - dn["accuracy"]) > SPARSE_MAX_DELTA:
+        fail(f"sparse-parity oracle: |delta| > {SPARSE_MAX_DELTA}: {parity}")
+
+    cfg = PipelineConfig(reservoir=ReservoirConfig(num_neurons=N_10K, small_world_k=K_10K),
+                         multiplier=MULT_10K)
+    reset_launches()
+    t0 = time.perf_counter()
+    result, ext = pipeline.run_pipeline_arrays(cfg, audio, labels, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    art = ext.artifact
+    rec = {"parity_1024": parity, "seconds": wall, "accuracy": result.accuracy,
+           "regime": ext.diagnostics.regime, "avg_participation": ext.diagnostics.avg_participation,
+           "avg_spikes_per_neuron": float(np.mean(ext.diagnostics.avg_spikes_per_neuron)),
+           "mean_weight": ext.mean_weight, "lbfgs_iters": result.n_iters,
+           "batch_size": cfg.batch_size, "launches": launches}
+    print(ext.diagnostics.render())
+    print(f"[sparse slice] N={N_10K} k={K_10K} multiplier {MULT_10K}, hard corpus "
+          f"{len(labels)} utt: accuracy {result.accuracy:.4f} regime {rec['regime']} "
+          f"participation {rec['avg_participation']:.1f} % "
+          f"({rec['avg_spikes_per_neuron']:.2f} spikes/neuron), launches {launches}, "
+          f"wall {wall:.2f} s ({card})")
+    if not isinstance(ext.reservoir, SparseReservoir):
+        fail("the configs[3] slice did not build the block-sparse reservoir")
+    if not (np.isfinite(art.x_train).all() and np.isfinite(art.x_test).all()) or \
+            art.x_train.shape[1] != 5 * 400:
+        fail(f"sparse slice features non-finite or shaped {art.x_train.shape}")
+    if min(launches["B1"], launches["B5"]) <= 0:
+        fail(f"a kernel of the sparse batch path was not launched: {launches}")
+    return rec, (ext.reservoir, result.readout, ext.scaler)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
 """PyTorch + CUDA port of lsm_tpu's batch classification path and its
-continuous serving engine (models/continuous.py).
+continuous serving engine (models/continuous.py), with the dense
+reservoir or the block-sparse one of the scaled configuration
+(models/sparse.py).
 
 The JAX package `lsm_tpu` is the reference; this package mirrors its
 layout (ops/, models/, readout/, pipeline.py) so each module's counterpart
@@ -8,9 +10,10 @@ is easy to find. It imports torch and numpy, never jax and nothing of
 writers it shares with the reference are copies (`config.py`, `io/`) that
 the tests hold equal to lsm_tpu's.
 
-The four TPU kernels on these paths are hand-written CUDA C++ for sm_90a
+The six TPU kernels on these paths are hand-written CUDA C++ for sm_90a
 (csrc/gtgram.cu: B1 and its carried-state sibling B3; csrc/lif.cu: B2
-and B4), built with nvcc at first use and bound with ctypes
+and B4; csrc/sparse_lif.cu: B5 and B6), built with nvcc at first use and
+bound with ctypes
 (ops/_build.py). Each wrapper runs its plain PyTorch
 twin for CPU tensors and the kernel for CUDA tensors.
 """

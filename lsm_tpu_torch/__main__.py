@@ -3,7 +3,8 @@ counterpart of the repo-root main.py.
 
 Same flags as main.py where the slice covers them (--n-filters
 --filterbank --feature-set --multiplier --synthetic --samples-per-class
---batch-size --skip-artifacts), plus --device (default cuda; no silent CPU
+--batch-size --skip-artifacts --num-neurons --num-output-neurons
+--sparse/--dense), plus --device (default cuda; no silent CPU
 fallback) and --hard (the frozen hard synthetic corpus). Writes the same two
 .npz artifacts and prints the same sections and report.
 """
@@ -39,6 +40,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(synthetic_audio_batch_hard) instead of the easy one.")
     p.add_argument("--samples-per-class", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=512)
+    p.add_argument("--num-neurons", type=int, default=1000)
+    p.add_argument("--num-output-neurons", type=int, default=400)
+    p.add_argument("--sparse", dest="sparse", action="store_true", default=None,
+                   help="Force the block-sparse reservoir (default: automatic for "
+                        ">=4096 neurons with N %% 128 == 0; requires N %% 128 == 0).")
+    p.add_argument("--dense", dest="sparse", action="store_false",
+                   help="Force the dense reservoir representation.")
     p.add_argument("--skip-artifacts", action="store_true",
                    help="Skip writing intermediate .npz artifacts.")
     p.add_argument("--device", type=str, default="cuda",
@@ -63,7 +71,12 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     cfg = PipelineConfig(
         frontend=FrontendConfig(n_filters=args.n_filters, filterbank=args.filterbank),
-        reservoir=ReservoirConfig(),
+        reservoir=ReservoirConfig(
+            num_neurons=args.num_neurons,
+            num_output_neurons=args.num_output_neurons,
+            small_world_k=int(0.10 * args.num_neurons * 2),
+            sparse=args.sparse,
+        ),
         feature_set=args.feature_set,
         multiplier=args.multiplier,
         max_samples_per_class=args.samples_per_class,

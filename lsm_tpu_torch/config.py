@@ -68,7 +68,7 @@ class FrontendConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ReservoirConfig:
-    """The dense LIF reservoir. Recurrent weights are drawn
+    """The LIF reservoir, dense or block-sparse. Recurrent weights are drawn
     N(mean_weight, (|mean_weight| * sqrt(weight_variance))^2); each input
     channel projects to `input_fanout` random neurons with `input_weight`;
     a spike whose ISI is <= burst_isi_max is a burst; `spike_variances`
@@ -88,7 +88,17 @@ class ReservoirConfig:
     input_weight: float = 1.0
     burst_isi_max: int = 5
     n_rate_windows: int = 10
+    # Block-sparse reservoirs (models/sparse.py): the random long-range
+    # partner blocks each 128-neuron source block rewires into.
+    sparse_partner_blocks: int = 4
+    # None = block-sparse for >= 4096 neurons with N % 128 == 0, else dense.
+    sparse: Optional[bool] = None
     seed: int = 42
+
+    def use_sparse(self) -> bool:
+        if self.sparse is not None:
+            return self.sparse
+        return self.num_neurons >= 4096 and self.num_neurons % 128 == 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """Turn lsm_tpu parameters into the port's modules.
 
 Each function takes the reference package's parameter object
-(`ReservoirParams`, `ScalerState`, `LogisticParams`, the continuous
-engine's `ContinuousState`) or anything with the same attributes; every
+(`ReservoirParams`, `SparseReservoirParams`, `ScalerState`,
+`LogisticParams`, the continuous engine's `ContinuousState`) or anything with the same attributes; every
 array goes through `np.asarray`, so this module needs no jax. Tests use it
 to make both packages compute with the same weights and from the same
 stream state.
@@ -15,6 +15,7 @@ import torch
 
 from lsm_tpu_torch.models.continuous import ContinuousState
 from lsm_tpu_torch.models.reservoir import Reservoir
+from lsm_tpu_torch.models.sparse import SparseReservoir
 from lsm_tpu_torch.readout.logistic import LogisticReadout
 from lsm_tpu_torch.readout.scaler import Scaler
 
@@ -37,6 +38,23 @@ def reservoir(params, device: torch.device | str = "cpu") -> Reservoir:
     ).to(device)
 
 
+def sparse_reservoir(params, device: torch.device | str = "cpu") -> SparseReservoir:
+    """lsm_tpu SparseReservoirParams (w_blocks, src_idx, w_in, leak + static
+    fields, n_band included)."""
+    return SparseReservoir(
+        _f32(params.w_blocks), np.array(params.src_idx, dtype=np.int32),
+        _f32(params.w_in), _f32(params.leak),
+        n_neurons=params.n_neurons,
+        n_outputs=params.n_outputs,
+        n_channels=params.n_channels,
+        threshold=params.threshold,
+        refractory=params.refractory,
+        burst_isi_max=params.burst_isi_max,
+        n_rate_windows=params.n_rate_windows,
+        n_band=params.n_band,
+    ).to(device)
+
+
 def scaler(state, device: torch.device | str = "cpu") -> Scaler:
     """lsm_tpu ScalerState (mean, scale)."""
     return Scaler(_f32(state.mean), _f32(state.scale)).to(device)
@@ -48,8 +66,9 @@ def readout(params, device: torch.device | str = "cpu") -> LogisticReadout:
 
 
 def continuous_state(state, device: torch.device | str = "cpu") -> ContinuousState:
-    """lsm_tpu ContinuousState (gammatone, dense reservoir) -> the port's,
-    on `device`, with the same dtypes (f32, int32 refrac, bool triggers)."""
+    """lsm_tpu ContinuousState (gammatone; dense or block-sparse reservoir)
+    -> the port's, on `device`, with the same dtypes (f32, int32 refrac,
+    bool triggers)."""
     def put(a):
         return torch.as_tensor(np.array(a)).to(device)
 

@@ -30,14 +30,18 @@
 // deterministic, and bit-equal to any order when weights are dyadic.
 // B4 compacts the carried spike vector before its first step, so that
 // step's recurrent drive comes from the previous chunk's last spikes.
+// One thread per neuron caps this body at 1024 padded neurons; a dense
+// reservoir of 1025-4096 padded neurons runs on the block-sparse body of
+// sparse_lif.cu (B5/B6) with its matrix seen as nb x nb blocks of 128.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "lif_common.cuh"
 
 namespace {
 
-constexpr int MAX_N = 1024;
+constexpr int MAX_N = 1024;       // this body: one thread per padded neuron
+constexpr int MAX_WIDE_N = 4096;  // the block body: the largest dense draw
+
+using lsm::bf16_bits_to_float;
 
 struct LifArgs {
   const uint8_t* x;          // (B, C, T)
@@ -58,10 +62,6 @@ struct LifArgs {
   float thr;
   int refractory, burst_isi_max, win_len, n_win;
 };
-
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t h) {
-  return __uint_as_float(static_cast<uint32_t>(h) << 16);
-}
 
 // Block-wide stream compaction of two flag sets into ascending index lists.
 // Two barriers; on return both lists and their lengths are visible to all.
@@ -118,9 +118,9 @@ lif_kernel(const LifArgs a) {
     refrac = a.refrac_in[row];
     s_last = a.s_in[row] != 0.f;
   }
-  float counts = 0.f, sum_t = 0.f, sum_t2 = 0.f, first = INFINITY, last = -1.f;
-  float n_isi = 0.f, sum_isi = 0.f, sum_isi2 = 0.f, bursts = 0.f;
-  float prev_t = -1.f, c_cur = 0.f, win_sum = 0.f, win_sum2 = 0.f, allc = 0.f;
+  lsm::OutputStats<kChunk> st;
+  float* win_row = kChunk ? a.win + (size_t)b * a.n_win * no + n : nullptr;
+  float allc = 0.f;
 
   int n_rec = 0, n_in = 0;
   compact2(s_last, n < C && xb[(size_t)n * T] != 0, n, rec_list, in_list,
@@ -145,44 +145,7 @@ lif_kernel(const LifArgs a) {
     s_last = spike;
 
     if (!kChunk && spike) allc += 1.f;
-    if (n < no) {
-      const float tf = static_cast<float>(t);
-      if (spike) {
-        counts += 1.f;
-        sum_t += tf;
-        sum_t2 += tf * tf;
-        first = fminf(first, tf);
-        last = fmaxf(last, tf);
-        if (prev_t >= 0.f) {
-          const float isi = tf - prev_t;
-          n_isi += 1.f;
-          sum_isi += isi;
-          sum_isi2 += isi * isi;
-          if (isi <= isi_max) bursts += 1.f;
-        }
-        prev_t = tf;
-        c_cur += 1.f;
-      }
-      if (kChunk) {
-        // Every win_len steps one whole window (the caller makes T a
-        // multiple of win_len).
-        if ((t + 1) % a.win_len == 0) {
-          a.win[((size_t)b * a.n_win + (t + 1) / a.win_len - 1) * no + n] = c_cur;
-          c_cur = 0.f;
-        }
-      } else {
-        // The first n_win-1 windows are win_len steps; every later step
-        // folds into the last window.
-        const bool boundary =
-            (((t + 1) % a.win_len == 0) && ((t + 1) / a.win_len < a.n_win)) ||
-            t == T - 1;
-        if (boundary) {
-          win_sum += c_cur;
-          win_sum2 += c_cur * c_cur;
-          c_cur = 0.f;
-        }
-      }
-    }
+    if (n < no) st.step(spike, t, T, isi_max, a.win_len, a.n_win, win_row, no);
     const bool next_in = (t + 1 < T) && n < C && xb[(size_t)n * T + t + 1] != 0;
     compact2(spike, next_in, n, rec_list, in_list, cnt_rec, cnt_in, n_rec, n_in);
   }
@@ -194,27 +157,35 @@ lif_kernel(const LifArgs a) {
   } else {
     a.all_counts[row] = allc;
   }
-  if (n < no) {
-    const size_t plane = (size_t)a.B * no, o = (size_t)b * no + n;
-    float* dst = kChunk ? a.seg : a.stats;
-    dst[0 * plane + o] = counts;
-    dst[1 * plane + o] = sum_t;
-    dst[2 * plane + o] = sum_t2;
-    dst[3 * plane + o] = first;
-    dst[4 * plane + o] = last;
-    dst[5 * plane + o] = n_isi;
-    dst[6 * plane + o] = sum_isi;
-    dst[7 * plane + o] = sum_isi2;
-    dst[8 * plane + o] = bursts;
-    if (!kChunk) {
-      dst[9 * plane + o] = win_sum;
-      dst[10 * plane + o] = win_sum2;
-    }
-  }
+  if (n < no) st.write(kChunk ? a.seg : a.stats, (size_t)a.B * no, (size_t)b * no + n);
 }
 
 bool bad_shape(int C, int T, int Np, int no) {
   return Np <= 0 || Np > MAX_N || Np % 32 || C > Np || no > Np || T <= 0;
+}
+
+// The block body's arguments for a dense (Np, Np) matrix, row = source:
+// Np / 128 slots, slot s reading source block s.
+lsm::BlockLifArgs wide_args(const LifArgs& d) {
+  lsm::BlockLifArgs a{};
+  a.x = d.x; a.w = d.w_rec; a.src_idx = nullptr; a.w_in = d.w_in;
+  a.leak_keep = d.leak_keep; a.stats = d.stats; a.all_counts = d.all_counts;
+  a.v_in = d.v_in; a.refrac_in = d.refrac_in; a.s_in = d.s_in;
+  a.v_out = d.v_out; a.refrac_out = d.refrac_out; a.s_out = d.s_out;
+  a.seg = d.seg; a.win = d.win;
+  a.stride_j = 128;
+  a.stride_s = 128LL * d.Np;
+  a.stride_r = d.Np;
+  a.B = d.B; a.C = d.C; a.T = d.T; a.N = d.Np; a.S = d.Np / 128; a.no = d.no;
+  a.thr = d.thr; a.refractory = d.refractory; a.burst_isi_max = d.burst_isi_max;
+  a.win_len = d.win_len; a.n_win = d.n_win;
+  return a;
+}
+
+// B2/B4 above 1024 padded neurons: the block body (up to MAX_WIDE_N).
+int launch_wide(const LifArgs& d, bool chunk, void* stream) {
+  if (d.Np > MAX_WIDE_N) return static_cast<int>(cudaErrorInvalidValue);
+  return lsm::launch_block_lif(wide_args(d), chunk, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -226,13 +197,15 @@ extern "C" int lsm_lif_stats(const uint8_t* x, const uint16_t* w_rec,
                              int burst_isi_max, int win_len, int n_win,
                              void* stream) {
   if (B <= 0) return 0;
-  if (bad_shape(C, T, Np, no)) return static_cast<int>(cudaErrorInvalidValue);
+  if (Np <= MAX_N && bad_shape(C, T, Np, no))
+    return static_cast<int>(cudaErrorInvalidValue);
   LifArgs a{};
   a.x = x; a.w_rec = w_rec; a.w_in = w_in; a.leak_keep = leak_keep;
   a.stats = stats; a.all_counts = all_counts;
   a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
+  if (Np > MAX_N) return launch_wide(a, false, stream);
   lif_kernel<false><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,7 +219,8 @@ extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
                              int refractory, int burst_isi_max, int win_len,
                              int n_win, void* stream) {
   if (B <= 0) return 0;
-  if (bad_shape(C, T, Np, no) || win_len <= 0 || T != win_len * n_win)
+  if ((Np <= MAX_N && bad_shape(C, T, Np, no)) || win_len <= 0 ||
+      T != win_len * n_win)
     return static_cast<int>(cudaErrorInvalidValue);
   LifArgs a{};
   a.x = x; a.w_rec = w_rec; a.w_in = w_in; a.leak_keep = leak_keep;
@@ -256,6 +230,7 @@ extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
   a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
+  if (Np > MAX_N) return launch_wide(a, true, stream);
   lif_kernel<true><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """Continuous-mode streaming KWS with state carried across hops
-(port of lsm_tpu/models/continuous.py, gammatone frontend, one device).
+(port of lsm_tpu/models/continuous.py, gammatone frontend, one device,
+dense or block-sparse reservoir).
 
 Every piece of sequential state persists across chunk boundaries, so a hop
 of `chunk_len` samples costs only the new work:
@@ -13,12 +14,12 @@ of `chunk_len` samples costs only the new work:
     min-max (the mode's main approximation);
   - hysteresis trigger state: carried exactly;
   - LIF reservoir: membrane, refractory and last-spike state carried
-    (kernel B4); the chunk's output spikes reduce to a segment summary;
+    (kernel B4 for a dense reservoir, B6 for a block-sparse one); the
+    chunk's output spikes reduce to a segment summary;
   - window statistics: a ring of window/hop segment summaries folded per
     hop (`reservoir.fold_segment_stats`) and a ring of rate-window counts.
 
-Not ported yet: the mel frontend (ROADMAP A8), block-sparse reservoirs
-(A12, kernel B6), step_active / step_compact / snapshot / restore /
+Not ported yet: the mel frontend (ROADMAP A8), step_active / step_compact / snapshot / restore /
 extract_streams / install_streams (A11), mesh paths (A14) and
 steps_fused / stream.
 """
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ import torch
 from lsm_tpu_torch.config import FEATURE_SETS, FrontendConfig
 from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.diagnostics import ServingDiagnosticsReport, serving_report
+from lsm_tpu_torch.models.sparse import SparseReservoir
 from lsm_tpu_torch.models.streaming import (
     decode_pcm_device, normalize_ingest_chunk, swap_readout_on,
 )
@@ -56,9 +58,9 @@ class ContinuousState:
     hyst: torch.Tensor       # (B, n_thr, C) bool Schmitt trigger state
     norm_hi: torch.Tensor    # (B,) f32 running peak dB
     norm_lo: torch.Tensor    # (B,) f32 running floor dB
-    v: torch.Tensor          # (B, N_pad) f32 membrane
-    refrac: torch.Tensor     # (B, N_pad) int32
-    s_prev: torch.Tensor     # (B, N_pad) f32 last step's spike vector
+    v: torch.Tensor          # (B, n_state) f32 membrane
+    refrac: torch.Tensor     # (B, n_state) int32
+    s_prev: torch.Tensor     # (B, n_state) f32 last step's spike vector
     segs: Dict[str, torch.Tensor]   # SEG_KEYS -> (n_ring, B, no); ring[0] oldest
     win_ring: torch.Tensor   # (B, no, n_win) f32 rate-window counts ring
 
@@ -72,12 +74,14 @@ _SEG_INIT = dict(first=float("inf"), last=-1.0)
 class ContinuousKWS:
     """Stateful continuous keyword spotter over B parallel streams.
 
-    `reservoir` is the port's dense `Reservoir`, `readout` a
-    `LogisticReadout` and `scaler_state` a `Scaler`. The engine runs on the
-    reservoir's device (the card, or the CPU for a CPU reservoir) and
-    moves the readout and scaler there. `chunk_len` must be a multiple of
-    the featurizer hop (160
-    samples at 16 kHz) and divide the 1 s window; `norm_decay_db_per_bin`
+    `reservoir` is the port's dense `Reservoir` or block-sparse
+    `SparseReservoir`, `readout` a `LogisticReadout` and `scaler_state` a
+    `Scaler`. The carried LIF state is (n_streams, n_state): N_pad for a
+    dense reservoir, n_neurons (a multiple of 128) for a sparse one. The
+    engine runs on the reservoir's device (the card, or the CPU for a CPU
+    reservoir) and moves the readout and scaler there. `chunk_len` must be
+    a multiple of the featurizer hop (160 samples at 16 kHz) and divide the
+    1 s window; `norm_decay_db_per_bin`
     is the causal normalization's peak/floor decay. The first ~1 s of a
     cold stream is warm-up: bins before its first loud event normalize
     against a noise-level peak, so readouts are calibrated in the
@@ -86,7 +90,7 @@ class ContinuousKWS:
 
     def __init__(
         self,
-        reservoir: res.Reservoir,
+        reservoir: Union[res.Reservoir, SparseReservoir],
         readout: logistic.LogisticReadout,
         scaler_state: scaler.Scaler,
         fcfg: FrontendConfig,
@@ -102,11 +106,11 @@ class ContinuousKWS:
                 "the continuous engine's mel frontend is not ported yet "
                 "(ROADMAP A8); use filterbank='gammatone'"
             )
-        if not isinstance(reservoir, res.Reservoir):
+        if not isinstance(reservoir, (res.Reservoir, SparseReservoir)):
             raise TypeError(
-                f"unsupported reservoir {type(reservoir).__name__}: the port "
-                "runs the dense Reservoir; block-sparse reservoirs "
-                "(SparseReservoirParams) are ROADMAP A12 with kernel B6"
+                f"unsupported reservoir {type(reservoir).__name__}: the engine "
+                "runs the port's Reservoir or SparseReservoir (lsm_tpu_torch.convert "
+                "carries lsm_tpu's parameters across)"
             )
         hop_time = fcfg.num_samples / (fcfg.sample_rate * fcfg.time_bins)
         nwin, hop, _ = gt.gtgram_strides(
@@ -148,8 +152,10 @@ class ContinuousKWS:
                 f"({win_len} steps; n_rate_windows={n_win})"
             )
 
-        self.device = reservoir.w_rec.device
+        self.device = reservoir.w_in.device
         self.reservoir = reservoir
+        self._n_state = (reservoir.n_neurons if isinstance(reservoir, SparseReservoir)
+                         else reservoir.w_rec.shape[0])
         self.readout = readout.to(self.device)
         self.scaler_state = scaler_state.to(self.device)
         self.fcfg = fcfg
@@ -336,12 +342,12 @@ class ContinuousKWS:
 
     def _init_state(self, B: int) -> ContinuousState:
         C = self.fcfg.n_filters
-        n_pad = self.reservoir.w_rec.shape[0]
+        n_state = self._n_state
         no = self.reservoir.n_outputs
         shapes = dict(
             iir=(B, 8, C), tail=(self._tail, B, C), hyst=(B, self.fcfg.n_thresholds, C),
-            norm_hi=(B,), norm_lo=(B,), v=(B, n_pad), refrac=(B, n_pad),
-            s_prev=(B, n_pad), win_ring=(B, no, self.reservoir.n_rate_windows),
+            norm_hi=(B,), norm_lo=(B,), v=(B, n_state), refrac=(B, n_state),
+            s_prev=(B, n_state), win_ring=(B, no, self.reservoir.n_rate_windows),
         )
         dtypes = dict(hyst=torch.bool, refrac=torch.int32)
         leaves = {
@@ -361,7 +367,7 @@ class ContinuousKWS:
 
 
 def fit_continuous_readout(
-    reservoir: res.Reservoir,
+    reservoir: Union[res.Reservoir, SparseReservoir],
     fcfg: FrontendConfig,
     audio: np.ndarray,            # (N, num_samples) training utterances
     labels: np.ndarray,           # (N,) int

@@ -16,7 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
-from lsm_tpu_torch.models.reservoir import Reservoir, simulate_batch
+from lsm_tpu_torch.models.reservoir import simulate_batch
 
 SUB_CRITICAL = "SUB-CRITICAL"
 SUPER_CRITICAL = "SUPER-CRITICAL"
@@ -67,12 +67,11 @@ class DiagnosticsReport:
         return "\n".join(lines)
 
 
-def run_network_diagnostics(
-    res: Reservoir, spikes, n_samples: int = 5
-) -> DiagnosticsReport:
+def run_network_diagnostics(res, spikes, n_samples: int = 5) -> DiagnosticsReport:
     """Classify the regime from the first n_samples spike trains (a NumPy
-    array or a tensor); the simulation runs on the reservoir's device."""
-    batch = torch.as_tensor(spikes[:n_samples]).to(res.w_rec.device)
+    array or a tensor) for a dense `Reservoir` (kernel B2) or a
+    `SparseReservoir` (B5); the simulation runs on the reservoir's device."""
+    batch = torch.as_tensor(spikes[:n_samples]).to(res.w_in.device)
     counts = simulate_batch(res, batch)["all_counts"].cpu().numpy()   # (n, N)
     total = res.n_neurons
 

@@ -11,7 +11,9 @@ the CPU; both use bf16 weight operands with f32 accumulation and f32 state.
 The continuous engine runs one chunk at a time with the state carried
 (`simulate_chunk`, kernel B4), reduces each chunk to a segment summary and
 folds a ring of them into whole-window statistics (`segment_summary`,
-`fold_segment_stats`).
+`fold_segment_stats`). The block-sparse reservoir of scaled configurations
+is models/sparse.py (kernels B5, B6); `simulate_batch`, `simulate_chunk` and
+`extract_features` dispatch on the reservoir's type.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from lsm_tpu_torch.config import ReservoirConfig
 from lsm_tpu_torch.ops.kernels import lif
 
 _ROUND = 128
-_HOST_INIT_MAX = 4096     # larger reservoirs are block-sparse (ROADMAP A12)
+_HOST_INIT_MAX = 4096     # larger dense reservoirs lsm_tpu draws with jax.random
 
 
 def _round_up(x: int, m: int = _ROUND) -> int:
@@ -116,8 +118,11 @@ def init_reservoir(
     NumPy host path, <4096 neurons)."""
     if cfg.num_neurons >= _HOST_INIT_MAX:
         raise NotImplementedError(
-            f"{cfg.num_neurons} neurons: device-drawn and block-sparse "
-            "reservoirs (>= 4096 neurons) are not ported yet (ROADMAP A12)"
+            f"a dense reservoir of {cfg.num_neurons} neurons: lsm_tpu draws dense "
+            f"reservoirs of >= {_HOST_INIT_MAX} neurons on the device with jax.random, "
+            "which the port does not do yet (ROADMAP A16, dense device init); the "
+            "block-sparse reservoir (ReservoirConfig(sparse=True), --sparse) runs "
+            "at this size"
         )
     rng = np.random.default_rng(cfg.seed)
     n, n_pad = cfg.num_neurons, _round_up(cfg.num_neurons)
@@ -161,13 +166,46 @@ def init_reservoir(
     ).to(device)
 
 
-def simulate_batch(res: Reservoir, spikes_in: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Run the reservoir over (B, C, T) 0/1 spikes with streaming statistics.
+def device_input_projection(gen: torch.Generator, n_channels: int, n: int, c_pad: int,
+                            width: int, fanout: int, weight: float) -> torch.Tensor:
+    """(c_pad, width) f32 input projection: `fanout` distinct target
+    neurons per channel at `weight`, the top of per-channel uniform scores
+    (rng.choice(n, fanout, replace=False) semantics; lsm_tpu's
+    `device_input_projection`, drawn from `gen`)."""
+    scores = torch.rand(n_channels, n, generator=gen)
+    proj = torch.topk(scores, fanout, dim=1).indices                  # (C, fanout)
+    w_in = torch.zeros(c_pad, width, dtype=torch.float32)
+    w_in[torch.arange(n_channels)[:, None], proj] += weight
+    return w_in
+
+
+def device_leak_draw(gen: torch.Generator, cfg: ReservoirConfig, n: int,
+                     width: int) -> torch.Tensor:
+    """Per-neuron leak, heterogeneous N(leak, (leak / divisor)^2) clipped to
+    [0, 1] when cfg.leak_variance_divisor is set, padded to `width`
+    (lsm_tpu's `device_leak_draw`, drawn from `gen`)."""
+    leak = torch.zeros(width, dtype=torch.float32)
+    if cfg.leak_variance_divisor:
+        leak[:n] = torch.clamp(
+            cfg.leak_coefficient + torch.randn(n, generator=gen)
+            * (cfg.leak_coefficient / cfg.leak_variance_divisor), 0.0, 1.0)
+    else:
+        leak[:n] = cfg.leak_coefficient
+    return leak
+
+
+def simulate_batch(res, spikes_in: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Run the reservoir over (B, C, T) 0/1 spikes with streaming statistics
+    (a dense `Reservoir` through kernel B2, a `SparseReservoir` through B5).
 
     Returns (B, n_outputs) f32 accumulators counts, sum_t, sum_t2, first
     (inf if silent), last (-1 if silent), n_isi, sum_isi, sum_isi2, bursts,
     win_sum, win_sum2 (moments of the per-window counts over n_win_used
     windows), plus all_counts (B, n_neurons) over the whole reservoir."""
+    if not isinstance(res, Reservoir):
+        from lsm_tpu_torch.models.sparse import simulate_batch_sparse
+
+        return simulate_batch_sparse(res, spikes_in)
     ops, kw = res.kernel_operands()
     stats, all_counts = lif.lif_stats(spikes_in.to(torch.uint8).contiguous(), *ops, **kw)
     out = dict(zip(lif.STAT_KEYS, stats.unbind(0)))
@@ -177,18 +215,23 @@ def simulate_batch(res: Reservoir, spikes_in: torch.Tensor) -> Dict[str, torch.T
 
 
 def simulate_chunk(
-    res: Reservoir,
+    res,
     spikes_in: torch.Tensor,      # (B, C, T_c) 0/1
-    v: torch.Tensor,              # (B, N_pad) f32
-    refrac: torch.Tensor,         # (B, N_pad) int32
-    s_prev: torch.Tensor,         # (B, N_pad) f32
+    v: torch.Tensor,              # (B, width) f32
+    refrac: torch.Tensor,         # (B, width) int32
+    s_prev: torch.Tensor,         # (B, width) f32
     win_len: int,
     n_new_win: int,
 ):
-    """One continuous-mode chunk from the carried state (kernel B4 on CUDA,
-    its plain twin on CPU). Returns (v, refrac, s_prev, segment summary
+    """One continuous-mode chunk from the carried state (kernel B4 on CUDA
+    for a dense `Reservoir`, width N_pad; B6 for a `SparseReservoir`, width
+    N; the plain twins on CPU). Returns (v, refrac, s_prev, segment summary
     dict of (B, no) with segment-relative times, win_counts
     (B, n_new_win, no))."""
+    if not isinstance(res, Reservoir):
+        from lsm_tpu_torch.models.sparse import simulate_chunk_sparse
+
+        return simulate_chunk_sparse(res, spikes_in, v, refrac, s_prev, win_len, n_new_win)
     ops, kw = res.kernel_operands()
     del kw["n_win"]
     v, refrac, s_prev, seg, win = lif.lif_chunk(
@@ -320,7 +363,8 @@ def features_from_stats(
 
 
 def extract_features(
-    res: Reservoir, spikes_in: torch.Tensor, feature_keys: Tuple[str, ...]
+    res, spikes_in: torch.Tensor, feature_keys: Tuple[str, ...]
 ) -> torch.Tensor:
-    """spikes (B, C, T) -> features (B, len(keys) * n_outputs)."""
+    """spikes (B, C, T) -> features (B, len(keys) * n_outputs), for a dense
+    `Reservoir` or a `SparseReservoir`."""
     return features_from_stats(simulate_batch(res, spikes_in), feature_keys)

@@ -67,7 +67,7 @@ def sources() -> list:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
+    for p in sorted(CSRC_DIR.glob("*.cu*")):             # sources and headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -15,7 +15,11 @@ an H100: the L2 latency of those row reads and two block barriers per
 step, not FLOPs (the TPU formulation's dense (B, N) x (N, N) matmul does
 ~50x more work at a ~2 % firing rate). B4 compacts the carried spike
 vector before its first step, so that step's recurrent drive comes from
-the previous chunk's last spikes.
+the previous chunk's last spikes. Above 1024 padded neurons (up to 4096,
+the largest dense reservoir the port draws) the C entry points run the
+block-sparse body of csrc/sparse_lif.cu instead, with the dense matrix
+seen as N_pad/128 x N_pad/128 blocks; the output neurons must then sit on
+its first 1024 threads (n_outputs <= 1024, C <= 1024).
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ STAT_KEYS = (
     "sum_isi2", "bursts", "win_sum", "win_sum2",
 )
 SEG_KEYS = STAT_KEYS[:9]  # the segment summary B4 writes
-MAX_NEURONS = 1024       # one thread per padded neuron (csrc/lif.cu)
+MAX_NEURONS = 4096       # N_pad <= 1024: one thread a neuron; above: the block body
+_ONE_THREAD_MAX = 1024
 
 launches = 0             # B2 kernel launches (the plain twin does not count)
 chunk_launches = 0       # B4 kernel launches
@@ -54,25 +59,30 @@ def lif_stats_plain(
     w_rec: torch.Tensor,        # (Np, Np) bfloat16, row = source
     w_in: torch.Tensor,         # (Cp, Np) bfloat16
     leak_keep: torch.Tensor,    # (Np,) float32 = 1 - leak
-    *,
-    threshold: float,
-    refractory: int,
-    burst_isi_max: int,
-    n_outputs: int,
-    n_win: int,
+    **kw,
 ):
     """Plain PyTorch twin: lsm_tpu's `simulate_batch(matmul_dtype=bf16)`.
     The bf16 weights are widened to f32 and multiplied in f32, which is what
     bf16 operands with f32 accumulation compute (a bf16 torch.matmul would
     round its OUTPUT to bf16). Returns (stats (11, B, no) f32 in STAT_KEYS
     order, all_counts (B, Np) f32)."""
+    wr = w_rec.to(torch.float32)
+    return stats_scan(x, lambda s: s @ wr, w_in, leak_keep, **kw)
+
+
+def stats_scan(x, recurrent, w_in, leak_keep, *, threshold, refractory,
+               burst_isi_max, n_outputs, n_win):
+    """The twins' batch scan from a zero state: per step the drive
+    recurrent(s_prev) + x_t @ f32(w_in), the LIF update, and the output
+    neurons' streaming statistics (the first n_win-1 windows are win_len
+    steps, later steps fold into the last). `recurrent` maps the (B, N) f32
+    spike vector to its (B, N) f32 drive."""
     B, C, T = x.shape
-    n_pad = w_rec.shape[0]
+    n_state = leak_keep.shape[0]
     c_pad = w_in.shape[0]
     no = n_outputs
     win_len = max(1, T // n_win)
     dev = x.device
-    wr = w_rec.to(torch.float32)
     wi = w_in.to(torch.float32)
     xf = torch.zeros(B, c_pad, T, dtype=torch.float32, device=dev)
     xf[:, :C] = x.to(torch.float32)
@@ -80,16 +90,16 @@ def lif_stats_plain(
     def zeros(width):
         return torch.zeros(B, width, dtype=torch.float32, device=dev)
 
-    v, s, all_counts = zeros(n_pad), zeros(n_pad), zeros(n_pad)
-    refrac = torch.zeros(B, n_pad, dtype=torch.int32, device=dev)
+    v, s, all_counts = zeros(n_state), zeros(n_state), zeros(n_state)
+    refrac = torch.zeros(B, n_state, dtype=torch.int32, device=dev)
     st = {k: zeros(no) for k in STAT_KEYS}
     st["first"].fill_(float("inf"))
     st["last"].fill_(-1.0)
     prev_t = torch.full((B, no), -1.0, device=dev)
     c_cur = zeros(no)
     for t in range(T):
-        v, refrac, spike = _lif_update(v, refrac, s @ wr + xf[:, :, t] @ wi, leak_keep,
-                                       threshold, refractory)
+        v, refrac, spike = _lif_update(v, refrac, recurrent(s) + xf[:, :, t] @ wi,
+                                       leak_keep, threshold, refractory)
         s = spike.to(torch.float32)
         all_counts += s
 
@@ -144,7 +154,7 @@ def _check(x, w_rec, w_in, leak_keep, n_outputs):
         raise ValueError("lif_stats wants contiguous tensors")
 
 
-def _check_cuda(name, x, n_pad):
+def _check_cuda(name, x, n_pad, n_outputs):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     B, C, T = x.shape
@@ -152,6 +162,12 @@ def _check_cuda(name, x, n_pad):
         raise ValueError(
             f"kernel {name} takes T > 0, N_pad <= {MAX_NEURONS}, N_pad % 32 == 0 "
             f"and C <= N_pad; got T={T} N_pad={n_pad} C={C}"
+        )
+    if n_pad > _ONE_THREAD_MAX and (n_pad % 128 or max(C, n_outputs) > _ONE_THREAD_MAX):
+        raise ValueError(
+            f"kernel {name} above {_ONE_THREAD_MAX} padded neurons takes N_pad % 128 == 0, "
+            f"C <= {_ONE_THREAD_MAX} and n_outputs <= {_ONE_THREAD_MAX}; got N_pad={n_pad} "
+            f"C={C} n_outputs={n_outputs}"
         )
 
 
@@ -166,7 +182,7 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
     if x.device.type == "cpu":
         return lif_stats_plain(x, w_rec, w_in, leak_keep, **kw)
     n_pad = w_rec.shape[0]
-    _check_cuda("B2", x, n_pad)
+    _check_cuda("B2", x, n_pad, n_outputs)
     B, C, T = x.shape
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=x.device)
     all_counts = torch.empty(B, n_pad, dtype=torch.float32, device=x.device)
@@ -188,28 +204,34 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
     return stats, all_counts
 
 
-def lif_chunk_plain(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
-                    refractory, burst_isi_max, n_outputs, win_len, n_new_win):
+def lif_chunk_plain(x, w_rec, w_in, leak_keep, v, refrac, s_prev, **kw):
     """Plain PyTorch twin of B4: lsm_tpu's XLA chunk path
-    (tests/test_continuous.py:168-192): a scan of `lif_update` from the
-    carried (v, refrac, s_prev), then `segment_summary` of the output
-    raster, then the rate-window reshape-sum. Weights widened from bf16 to
-    f32 as in `lif_stats_plain`. Returns (v, refrac, s_prev, seg (9, B, no)
-    in SEG_KEYS order, win (B, n_new_win, no))."""
+    (tests/test_continuous.py:168-192). Weights widened from bf16 to f32 as
+    in `lif_stats_plain`. Returns (v, refrac, s_prev, seg (9, B, no) in
+    SEG_KEYS order, win (B, n_new_win, no))."""
+    wr = w_rec.to(torch.float32)
+    return chunk_scan(x, lambda s: s @ wr, w_in, leak_keep, v, refrac, s_prev, **kw)
+
+
+def chunk_scan(x, recurrent, w_in, leak_keep, v, refrac, s_prev, *, threshold,
+               refractory, burst_isi_max, n_outputs, win_len, n_new_win):
+    """The twins' chunk scan: `lif_update` from the carried (v, refrac,
+    s_prev) with the drive recurrent(s_prev) + x_t @ f32(w_in), then
+    `segment_summary` of the output raster and the rate-window
+    reshape-sum."""
     # models/reservoir.py imports this module; its summary is the oracle.
     from lsm_tpu_torch.models.reservoir import segment_summary
 
     B, C, T = x.shape
     no = n_outputs
-    wr = w_rec.to(torch.float32)
     wi = w_in.to(torch.float32)
     xf = torch.zeros(B, w_in.shape[0], T, dtype=torch.float32, device=x.device)
     xf[:, :C] = x.to(torch.float32)
     raster = torch.empty(B, T, no, dtype=torch.bool, device=x.device)
     s = s_prev
     for t in range(T):
-        v, refrac, spike = _lif_update(v, refrac, s @ wr + xf[:, :, t] @ wi, leak_keep,
-                                       threshold, refractory)
+        v, refrac, spike = _lif_update(v, refrac, recurrent(s) + xf[:, :, t] @ wi,
+                                       leak_keep, threshold, refractory)
         s = spike.to(torch.float32)
         raster[:, t] = spike[:, :no]
     seg = segment_summary(raster, burst_isi_max)
@@ -240,7 +262,7 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
               n_outputs=n_outputs, win_len=win_len, n_new_win=n_new_win)
     if x.device.type == "cpu":
         return lif_chunk_plain(x, w_rec, w_in, leak_keep, v, refrac, s_prev, **kw)
-    _check_cuda("B4", x, n_pad)
+    _check_cuda("B4", x, n_pad, n_outputs)
     dev = x.device
     v_out = torch.empty_like(v)
     refrac_out = torch.empty_like(refrac)

@@ -18,7 +18,7 @@ import logging
 import math
 import time
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.calibration import calibrate_weight
 from lsm_tpu_torch.models.diagnostics import DiagnosticsReport, run_network_diagnostics
 from lsm_tpu_torch.models.frontend import featurize_batch
+from lsm_tpu_torch.models.sparse import SparseReservoir, init_reservoir_sparse
 from lsm_tpu_torch.readout import logistic, metrics, scaler
 
 log = logging.getLogger("lsm_tpu_torch")
@@ -58,7 +59,7 @@ class ExtractionResult:
     w_critico: float
     mean_weight: float
     diagnostics: Optional[DiagnosticsReport]
-    reservoir: res.Reservoir
+    reservoir: Union[res.Reservoir, SparseReservoir]
     scaler: scaler.Scaler
 
 
@@ -116,6 +117,20 @@ def stratified_split(
     return x[train], x[test], y[train], y[test]
 
 
+def init_reservoir(cfg: PipelineConfig, n_channels: int, mean_weight: float,
+                   device: torch.device) -> Union[res.Reservoir, SparseReservoir]:
+    """The block-sparse reservoir where cfg.reservoir.use_sparse() (>= 4096
+    neurons with N % 128 == 0 unless forced), else the dense one; a dense
+    reservoir of >= 4096 neurons raises NotImplementedError and never turns
+    sparse silently."""
+    if cfg.reservoir.use_sparse():
+        log.info("Using block-sparse reservoir (%d neurons)", cfg.reservoir.num_neurons)
+        return init_reservoir_sparse(cfg.reservoir, n_channels, mean_weight=mean_weight,
+                                     device=device)
+    return res.init_reservoir(cfg.reservoir, n_channels, mean_weight=mean_weight,
+                              device=device)
+
+
 def extract_lsm_features(
     cfg: PipelineConfig,
     ds: artifacts.SpikeDataset,
@@ -139,9 +154,7 @@ def extract_lsm_features(
             cfg.reservoir.leak_variance_divisor,
         )
 
-    reservoir = res.init_reservoir(
-        cfg.reservoir, ds.x_spikes.shape[1], mean_weight=mean_weight, device=device
-    )
+    reservoir = init_reservoir(cfg, ds.x_spikes.shape[1], mean_weight, device)
     report = None
     if run_diagnostics:
         report = run_network_diagnostics(reservoir, x_train)

@@ -80,7 +80,7 @@ def test_port_imports_nothing_of_the_reference():
         "import sys\n"
         "import lsm_tpu_torch.pipeline, lsm_tpu_torch.__main__, lsm_tpu_torch.convert\n"
         "import lsm_tpu_torch.models.diagnostics, lsm_tpu_torch.models.continuous\n"
-        "import lsm_tpu_torch.models.streaming, chip_smoke\n"
+        "import lsm_tpu_torch.models.streaming, lsm_tpu_torch.models.sparse, chip_smoke\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"
@@ -93,4 +93,4 @@ def test_port_imports_nothing_of_the_reference():
 
 def test_kernels_build_into_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "lsm_tpu_torch"
-    assert [p.name for p in _build.sources()] == ["gtgram.cu", "lif.cu"]
+    assert [p.name for p in _build.sources()] == ["gtgram.cu", "lif.cu", "sparse_lif.cu"]
