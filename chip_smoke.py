@@ -42,10 +42,17 @@ Phases (any failure exits non-zero):
   8. sparse kernels - BASELINE configs[3] width (N=10240, k=2048, R=4,
                C=128, T=400), weights calibrated at multiplier 1.6 on the
                phase-2 spikes: B5 bit-equal to its twin on the dyadic copy
-               at B=32 and timed at B=256 on the calibrated weights; B6
-               over three chained chunks of 64 streams, bit-equal on the
-               dyadic copy; the dense B2 and B4 at N=2048 (past one thread
-               a neuron) bit-equal on dyadic weights.
+               at B=32 and B=70 (a ragged stream tile), timed at B=256 on
+               the calibrated weights, where its spikes a row-step and
+               its participation must stay within 1e-3 of the twin's (the
+               tensor cores may sum in another order, so the bits may
+               part); B6 over three chained chunks of 64,
+               70 and 390 streams (64- and 128-stream tiles, ragged),
+               bit-equal on the dyadic copy; the dense B2 and B4 at N=2048
+               (past one thread a neuron) bit-equal on dyadic weights.
+               B5 and B6 also report the tensor-core bound: the stream-
+               tiled design's own block products at the 989 TFLOP/s bf16
+               dense peak, beside the function's bound.
   9. sparse slice - the N=1024 dense/sparse parity oracle of
                tests/test_sparse_reservoir.py (both EDGE OF CHAOS, accuracy
                in [0.66, 0.95], within 0.15), then run_pipeline_arrays at
@@ -55,7 +62,12 @@ Phases (any failure exits non-zero):
                finite features, B1 and B5 launched.
  10. sparse serving - phase 7 with the phase-9 reservoir: 1024 streams at
                10240 neurons, B3 and B6 launched; B6's time and bound at
-               the serving weights from the carried state.
+               the serving weights from the carried state, its tensor-core
+               bound, and the share of a call the card idles between its
+               kernels (profiled device time against the CUDA-event time).
+               In phases 7 and 10 the chunk kernel's totals of carried
+               spikes and output spike counts must stay within 1e-3 of
+               the twin's on every hop of the cycle.
 
 Each phase prints its seconds ("[time] ..."). A "[record] {...}" line
 holds every number of the run as JSON. The
@@ -83,13 +95,21 @@ CONT_MIN_ACC, CONT_MAX_DELTA = 0.60, 0.15   # tests/test_continuous_band.py, fro
 CHUNK = 1600                  # 100 ms hops
 N_SERVE = 1024                # serving streams
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: float32 on
-# the CUDA cores and HBM3 bandwidth.
-F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# the CUDA cores, HBM3 bandwidth, and bf16 on the tensor cores (dense).
+F32_FLOPS, HBM_BYTES_S, BF16_TC_FLOPS = 67e12, 3.35e12, 989e12
 # BASELINE.json configs[3], the scaled block-sparse reservoir: 10240
 # neurons, k = 0.1 N * 2, at the multiplier docs/VALIDATION.md's configs[3]
 # sweep found at the edge of chaos (lsm_tpu's draws).
 N_10K, K_10K, MULT_10K = 10240, 2048, 1.6
 SPARSE_ACC_RANGE, SPARSE_MAX_DELTA = (0.66, 0.95), 0.15   # tests/test_sparse_reservoir.py
+# On weights that are not dyadic a kernel may sum a drive in another order
+# than its twin, so their bits may part; their spike totals (and B5's
+# participation, a fraction of the neurons) may not move apart by more.
+SPIKE_REL = 1e-3
+# The device functions of one B5/B6 call (csrc/sparse_lif.cu), as the
+# profiler names them.
+SPARSE_LIF_KERNELS = ("block_step_kernel", "transpose_blocks_kernel", "pack_input_kernel",
+                      "load_state_kernel", "store_state_kernel", "stats_kernel")
 
 
 def fail(msg: str) -> None:
@@ -182,6 +202,17 @@ def sparse_flops(rec_rows: float, in_rows: float, fanout: float, per_row: float,
             + 2.0 * batch * steps * n_neurons)
 
 
+def tensor_core_bound(batch: int, steps: int, n_neurons: int, slots: int,
+                      channels: int) -> dict:
+    """B5/B6's own work in the stream-tiled design: per (stream, step,
+    destination block) a 128 x 128 block product for each of the S slots
+    and each 128 input channels, at the bf16 tensor-core peak. A second
+    figure beside the function's bound."""
+    k_slices = slots + -(-channels // 128)
+    flops = 2.0 * batch * steps * n_neurons * 128 * k_slices
+    return {"tensor_core_flops": flops, "tensor_core_bound_ms": flops / BF16_TC_FLOPS * 1e3}
+
+
 def sparse_degrees(sr) -> tuple:
     """(recurrent edges per source neuron, input edges per channel) of a
     SparseReservoir, counted from its nonzero weights."""
@@ -195,12 +226,18 @@ def chunk_measure(hops, ops, kw, kernel, plain, flops) -> dict:
     the mean per hop, the bound from these hops' spikes. flops(rec_rows,
     in_rows, batch, steps): rec_rows are the carried spikes and every spike
     of steps 0..T-2 of the whole reservoir (the twin run with every neuron
-    as an output counts them), in_rows every input spike."""
+    as an output counts them), in_rows every input spike. Also the largest
+    relative gap, over the hops, between the kernel's and the twin's totals
+    of the spikes carried out and of the output neurons' spike counts."""
     n_state = ops[-1].shape[0]
-    n_flops = n_bytes = rows = spikes = 0.0
+    n_flops = n_bytes = rows = spikes = gap = 0.0
     for x, carried in hops:
         out = kernel(x, *ops, *carried, **kw)
         all_n = plain(x, *ops, *carried, **{**kw, "n_outputs": n_state})
+        no = out[3].shape[-1]
+        for k, p in ((out[2].sum(), all_n[2].sum()),
+                     (out[3][0].sum(), all_n[3][0][:, :no].sum())):
+            gap = max(gap, abs(float(k) - float(p)) / max(float(p), 1.0))
         rec = float(carried[2].sum() + all_n[3][0].sum() - all_n[2].sum())
         rows += rec + float(x.sum())
         spikes += float(all_n[3][0].sum()) / (x.shape[0] * x.shape[-1])
@@ -216,6 +253,7 @@ def chunk_measure(hops, ops, kw, kernel, plain, flops) -> dict:
         "ms": cuda_ms(run(kernel), reps=max(1, 20 // n)) / n,
         "plain_ms": cuda_ms(run(plain), reps=1 if n > 1 else 3) / n,
         "source_rows": rows / n, "spikes_per_step": spikes / n,
+        "spike_total_rel_gap": gap,
         **bound(n_flops / n, n_bytes / n),
     }
 
@@ -251,7 +289,8 @@ def union_us(intervals) -> float:
 def device_profile(run, calls: int, trace: str | None = None) -> dict:
     """torch.profiler over `calls` calls of run(): host wall, device-busy
     time (the union of the CUDA events' intervals) and its share of the
-    wall, device events, and device time per kernel name."""
+    wall, device events, and device time per kernel name (the top 15, and
+    all of them in `device_us_by_name`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -280,6 +319,7 @@ def device_profile(run, calls: int, trace: str | None = None) -> dict:
         "busy_share_of_wall": busy / (wall * 1e6),
         "device_us_total": sum(v[1] for v in by_name.values()),
         "top_device": [{"name": k[:120], "count": c, "us": us} for k, (c, us) in top],
+        "device_us_by_name": {k: us for k, (_, us) in by_name.items()},
     }
 
 
@@ -809,6 +849,13 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
         ck_hops.append((x, (st.v, st.refrac, st.s_prev)))
         kws.step(h)
     ck = chunk_measure(ck_hops, ops, kw, kernel, plain, flops)
+    if ck["spike_total_rel_gap"] > SPIKE_REL:
+        fail(f"{name} at serving weights: its spike totals part from the twin's by "
+             f"{ck['spike_total_rel_gap']:.3e} (> {SPIKE_REL})")
+    if name == "B6":
+        b, c, t = ck_hops[0][0].shape
+        ck.update(tensor_core_bound(b, t, kws.reservoir.n_neurons,
+                                    kws.reservoir.src_idx.shape[1], c))
     del ck_hops
     dchunk = torch.as_tensor(hops[0]).to(dev)
 
@@ -831,6 +878,14 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
              for i, k in enumerate(("featurize_ms", "reservoir_ms", "fold_features_readout_ms"))}
     next_hop = iter(hops)
     prof = device_profile(lambda: kws.step(next(next_hop)), calls=len(hops))
+    if name == "B6":
+        # B6's kernels (csrc/sparse_lif.cu) under the profiler against the
+        # unprofiled CUDA-event time of a call: the share the card idles
+        # between them (mostly the 40 step launches).
+        per_hop = {k: us / 1e3 / prof["calls"] for k, us in prof["device_us_by_name"].items()
+                   if any(f in k for f in SPARSE_LIF_KERNELS)}
+        ck.update(device_ms_by_kernel=per_hop,
+                  idle_share=1.0 - sum(per_hop.values()) / ck["ms"])
     med = statistics.median(walls)
     rec = {
         "streams": N_SERVE, "hops_timed": len(walls),
@@ -853,9 +908,14 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
           f"; device busy {100 * rec['device_busy_share']:.1f} % "
           f"({rec['device_busy_ms_per_hop']:.3f} ms/hop, {rec['device_events_per_hop']:.0f} "
           f"device events/hop); peak memory {rec['peak_mem_gb']:.2f} GB ({card})")
+    tc = (f", tensor-core bound {ck['tensor_core_bound_ms']:.4f} ms, idle between its kernels "
+          f"{100 * ck['idle_share']:.2f} %" if name == "B6" else "")
     print(f"[serving] {name} at serving weights, mean of {ck['hops']} hops: kernel {ck['ms']:.3f} ms "
-          f"plain {ck['plain_ms']:.3f} ms bound {ck['bound_ms']:.4f} ms ({ck['bound_by']}), "
-          f"{ck['spikes_per_step']:.1f} spikes a stream-step; launches {launches} ({card})")
+          f"plain {ck['plain_ms']:.3f} ms bound {ck['bound_ms']:.4f} ms ({ck['bound_by']}){tc}, "
+          f"{ck['spikes_per_step']:.1f} spikes a stream-step, spike totals within "
+          f"{ck['spike_total_rel_gap']:.2e} of the twin's; launches {launches} ({card})")
+    for k, ms in ck.get("device_ms_by_kernel", {}).items():
+        print(f"[serving]   {name} {ms:8.4f} ms/hop  {k[:100]}")
     for t in rec["top_device"]:
         print(f"[serving]   {t['us'] / 1e3 / prof['calls']:8.3f} ms/hop x{t['count'] // prof['calls']:4d}"
               f"  {t['name']}")
@@ -887,8 +947,11 @@ def sparse_kernels(dev, spikes, card) -> dict:
     """Phase 8: B5 and B6 at BASELINE configs[3] width (N = 10240, k = 2048,
     R = 4, C = 128, T = 400) on weights calibrated at multiplier 1.6 on
     featurized hard-corpus audio: B5 bit-equal to its twin on the dyadic
-    copy at B = 32 and timed at B = 256 on the calibrated weights; B6 over
-    three chained chunks of 64 streams, bit-equal on the dyadic copy (B6's
+    copy at B = 32 and B = 70, timed at B = 256 on the calibrated weights
+    (spikes a row-step and participation of kernel and twin within
+    SPIKE_REL of each other: the tensor cores may sum in another order, so
+    the bits may part there); B6 over three chained
+    chunks of 64, 70 and 390 streams, bit-equal on the dyadic copy (B6's
     time comes from phase 10's serving state). Then the dense B2 and B4 at
     N = 2048, past one thread a neuron, bit-equal on dyadic weights."""
     from lsm_tpu_torch.config import ReservoirConfig
@@ -909,47 +972,80 @@ def sparse_kernels(dev, spikes, card) -> dict:
 
     dy = sr.dyadic()
     ops, kw = dy.kernel_operands()
-    x32 = spikes[:32].contiguous()
-    s_k, a_k = ksp.sparse_lif_stats(x32, *ops, **kw)
-    s_p, a_p = ksp.sparse_lif_stats_plain(x32, *ops, **kw)
-    torch.cuda.synchronize()
-    equal = torch.equal(s_k, s_p) and torch.equal(a_k, a_p)
-    err = max(finite_err(s_k, s_p), finite_err(a_k, a_p))
+    equal, err, dy_spikes = {}, 0.0, 0.0
+    for rows in (32, 70):
+        x_r = spikes[:rows].contiguous()
+        s_k, a_k = ksp.sparse_lif_stats(x_r, *ops, **kw)
+        s_p, a_p = ksp.sparse_lif_stats_plain(x_r, *ops, **kw)
+        torch.cuda.synchronize()
+        equal[rows] = bool(torch.equal(s_k, s_p) and torch.equal(a_k, a_p))
+        err = max(err, finite_err(s_k, s_p), finite_err(a_k, a_p))
+        if rows == 32:
+            dy_spikes = float(a_p.sum()) / (rows * T)
 
     ops_c, kw_c = sr.kernel_operands()
     s_c, a_c = ksp.sparse_lif_stats(spikes, *ops_c, **kw_c)
+    a_cp = ksp.sparse_lif_stats_plain(spikes, *ops_c, **kw_c)[1]
     rec, inp = float(a_c.sum()), float(spikes.sum())
     block_flops = sparse_flops(rec, inp, fan, S * 128, B, T, N_10K)
     b5 = {
         "mean_weight": mw, "init_s": init_s, "S": S, "n_band": sr.n_band,
         "edges_per_row": edges, "fanout": fan,
-        "bit_equal_dyadic": bool(equal), "max_abs_err": err,
-        "dyadic_spikes_per_step": float(a_p.sum()) / (32 * T),
-        "spikes_per_step": rec / (B * T), "participation": float((a_c > 0).float().mean()),
+        "bit_equal_dyadic": all(equal.values()), "bit_equal_dyadic_by_rows": equal,
+        "max_abs_err": err, "dyadic_spikes_per_step": dy_spikes,
+        "spikes_per_step": rec / (B * T), "plain_spikes_per_step": float(a_cp.sum()) / (B * T),
+        "spikes_ratio_to_plain": rec / max(float(a_cp.sum()), 1.0),
+        "participation": float((a_c > 0).float().mean()),
+        "plain_participation": float((a_cp > 0).float().mean()),
         "ms": cuda_ms(lambda: ksp.sparse_lif_stats(spikes, *ops_c, **kw_c), reps=3),
         "plain_ms": cuda_ms(lambda: ksp.sparse_lif_stats_plain(spikes, *ops_c, **kw_c), reps=1),
         **bound(sparse_flops(rec, inp, fan, edges, B, T, N_10K),
                 nbytes(spikes, *ops_c, s_c, a_c)),
         "block_form_flops": block_flops, "block_form_ms": block_flops / F32_FLOPS * 1e3,
+        **tensor_core_bound(B, T, N_10K, S, C),
     }
     print(f"[B5 sparse_lif] N={N_10K} k={K_10K} S={S} C={C} T={T}, mean weight {mw:.6f} "
-          f"(init {init_s:.1f} s): dyadic B=32 bit_equal {equal} max_abs_err {err:.3e}; "
-          f"calibrated B={B}: {b5['spikes_per_step']:.1f} spikes a row-step, kernel "
-          f"{b5['ms']:.3f} ms plain {b5['plain_ms']:.3f} ms bound {b5['bound_ms']:.4f} ms "
-          f"({b5['bound_by']}; block form {b5['block_form_ms']:.4f} ms) ({card})")
-    if not equal:
-        fail("B5 is not bit-equal to its plain twin on dyadic weights")
+          f"(init {init_s:.1f} s): dyadic bit_equal {equal} max_abs_err {err:.3e}; "
+          f"calibrated B={B}: {b5['spikes_per_step']:.4f} spikes a row-step (twin "
+          f"{b5['plain_spikes_per_step']:.4f}, ratio {b5['spikes_ratio_to_plain']:.6f}), "
+          f"participation {b5['participation']:.6f} (twin {b5['plain_participation']:.6f}), "
+          f"kernel {b5['ms']:.3f} ms plain "
+          f"{b5['plain_ms']:.3f} ms bound {b5['bound_ms']:.4f} ms ({b5['bound_by']}; block "
+          f"form {b5['block_form_ms']:.4f} ms; tensor-core bound "
+          f"{b5['tensor_core_bound_ms']:.4f} ms) ({card})")
+    if not b5["bit_equal_dyadic"]:
+        fail(f"B5 is not bit-equal to its plain twin on dyadic weights: {equal}")
+    if abs(b5["spikes_ratio_to_plain"] - 1.0) > SPIKE_REL or \
+            abs(b5["participation"] - b5["plain_participation"]) > SPIKE_REL:
+        fail(f"B5 on calibrated weights parts from its twin by more than {SPIKE_REL}: spikes "
+             f"ratio {b5['spikes_ratio_to_plain']:.6f}, participation {b5['participation']:.6f} "
+             f"against {b5['plain_participation']:.6f}")
 
     ckw = {k: v for k, v in kw.items() if k != "n_win"}
     ckw.update(win_len=40, n_new_win=1)
+    # On a 132-SM H100 at 10240 neurons the body runs 64-stream tiles up to
+    # 384 streams and 128-stream tiles above: 64 and 70 streams (a ragged
+    # tile) on 64, 390 (past the 256 featurized rows: the rows again,
+    # reversed) on ragged 128-stream tiles.
+    x_all = torch.cat([spikes, spikes.flip(0)])
+    b6 = {"bit_equal_dyadic": True, "max_abs_err": 0.0, "chains": {}}
+    for width in (64, 70, 390):
+        chunks = [x_all[:width, :, c * 40:(c + 1) * 40].contiguous() for c in range(3)]
+        eq6, err6, carried6 = chained_chunks_equal(
+            ksp.sparse_lif_chunk, ksp.sparse_lif_chunk_plain, ops, ckw, chunks, N_10K)
+        b6["chains"][width] = {"bit_equal": bool(eq6), "carried_spikes": carried6}
+        b6["bit_equal_dyadic"] = b6["bit_equal_dyadic"] and bool(eq6) and carried6 > 0
+        b6["max_abs_err"] = max(b6["max_abs_err"], err6)
+    print(f"[B6 sparse_lif_chunk] N={N_10K} three chained 40-step chunks, dyadic: "
+          + "; ".join(f"{w} streams bit_equal {c['bit_equal']} carried spikes "
+                      f"{c['carried_spikes']:.0f}"
+                      for w, c in b6["chains"].items())
+          + f"; max_abs_err {b6['max_abs_err']:.3e}")
+    if not b6["bit_equal_dyadic"]:
+        fail(f"B6 is not bit-equal to its plain twin over chained chunks (or carried "
+             f"nothing): {b6['chains']}")
     chunks = [spikes[:64, :, c * 40:(c + 1) * 40].contiguous() for c in range(3)]
-    eq6, err6, carried6 = chained_chunks_equal(ksp.sparse_lif_chunk, ksp.sparse_lif_chunk_plain,
-                                               ops, ckw, chunks, N_10K)
-    b6 = {"bit_equal_dyadic": bool(eq6), "max_abs_err": err6, "carried_spikes": carried6}
-    print(f"[B6 sparse_lif_chunk] N={N_10K} 64 streams, three chained 40-step chunks, "
-          f"dyadic: bit_equal {eq6} max_abs_err {err6:.3e}, carried spikes {carried6:.0f}")
-    if not eq6 or carried6 <= 0:
-        fail("B6 is not bit-equal to its plain twin over chained chunks (or carried nothing)")
+    x32 = spikes[:32].contiguous()
 
     # Dense B2/B4 past 1024 padded neurons, on the block body.
     rcfg2 = ReservoirConfig(num_neurons=2048, small_world_k=409)

@@ -31,8 +31,9 @@
 // B4 compacts the carried spike vector before its first step, so that
 // step's recurrent drive comes from the previous chunk's last spikes.
 // One thread per neuron caps this body at 1024 padded neurons; a dense
-// reservoir of 1025-4096 padded neurons runs on the block-sparse body of
-// sparse_lif.cu (B5/B6) with its matrix seen as nb x nb blocks of 128.
+// reservoir of 1025-4096 padded neurons runs on the stream-tiled block body
+// of sparse_lif.cu (B5/B6) with its matrix seen as nb x nb blocks of 128,
+// in the global scratch the caller passes (unused at <= 1024 neurons).
 
 #include "lif_common.cuh"
 
@@ -166,7 +167,7 @@ bool bad_shape(int C, int T, int Np, int no) {
 
 // The block body's arguments for a dense (Np, Np) matrix, row = source:
 // Np / 128 slots, slot s reading source block s.
-lsm::BlockLifArgs wide_args(const LifArgs& d) {
+lsm::BlockLifArgs wide_args(const LifArgs& d, void* scratch) {
   lsm::BlockLifArgs a{};
   a.x = d.x; a.w = d.w_rec; a.src_idx = nullptr; a.w_in = d.w_in;
   a.leak_keep = d.leak_keep; a.stats = d.stats; a.all_counts = d.all_counts;
@@ -178,14 +179,15 @@ lsm::BlockLifArgs wide_args(const LifArgs& d) {
   a.stride_r = d.Np;
   a.B = d.B; a.C = d.C; a.T = d.T; a.N = d.Np; a.S = d.Np / 128; a.no = d.no;
   a.thr = d.thr; a.refractory = d.refractory; a.burst_isi_max = d.burst_isi_max;
-  a.win_len = d.win_len; a.n_win = d.n_win;
+  a.win_len = d.win_len; a.n_win = d.n_win; a.scratch = scratch;
   return a;
 }
 
 // B2/B4 above 1024 padded neurons: the block body (up to MAX_WIDE_N).
-int launch_wide(const LifArgs& d, bool chunk, void* stream) {
+int launch_wide(const LifArgs& d, bool chunk, void* scratch, void* stream) {
   if (d.Np > MAX_WIDE_N) return static_cast<int>(cudaErrorInvalidValue);
-  return lsm::launch_block_lif(wide_args(d), chunk, static_cast<cudaStream_t>(stream));
+  return lsm::launch_block_lif(wide_args(d, scratch), chunk,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -195,7 +197,7 @@ extern "C" int lsm_lif_stats(const uint8_t* x, const uint16_t* w_rec,
                              float* stats, float* all_counts, int B, int C,
                              int T, int Np, int no, float thr, int refractory,
                              int burst_isi_max, int win_len, int n_win,
-                             void* stream) {
+                             void* scratch, void* stream) {
   if (B <= 0) return 0;
   if (Np <= MAX_N && bad_shape(C, T, Np, no))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -205,7 +207,7 @@ extern "C" int lsm_lif_stats(const uint8_t* x, const uint16_t* w_rec,
   a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
-  if (Np > MAX_N) return launch_wide(a, false, stream);
+  if (Np > MAX_N) return launch_wide(a, false, scratch, stream);
   lif_kernel<false><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -217,7 +219,7 @@ extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
                              float* s_out, float* seg, float* win, int B,
                              int C, int T, int Np, int no, float thr,
                              int refractory, int burst_isi_max, int win_len,
-                             int n_win, void* stream) {
+                             int n_win, void* scratch, void* stream) {
   if (B <= 0) return 0;
   if ((Np <= MAX_N && bad_shape(C, T, Np, no)) || win_len <= 0 ||
       T != win_len * n_win)
@@ -230,7 +232,7 @@ extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
   a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
-  if (Np > MAX_N) return launch_wide(a, true, stream);
+  if (Np > MAX_N) return launch_wide(a, true, scratch, stream);
   lif_kernel<true><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -85,13 +85,15 @@ struct OutputStats {
   }
 };
 
-// The block-structured LIF (sparse_lif.cu). The recurrent weights are seen
-// as 128 x 128 blocks: destination block j reads S slots, slot s from source
-// block src_idx[j, s], and its bf16 weight from source lane r to destination
-// lane l sits at w[j * stride_j + s * stride_s + r * stride_r + l]. The
-// block-sparse reservoir stores (nb, S, 128, 128); a dense (N, N) matrix with
-// row = source is the case S = nb, src_idx = nullptr (slot s reads block s),
-// stride_j = 128, stride_s = 128 N, stride_r = N.
+// The block-structured LIF (sparse_lif.cu), one kernel launch a step. The
+// recurrent weights are seen as 128 x 128 blocks: destination block j reads
+// S slots, slot s from source block src_idx[j, s], and its bf16 weight from
+// source lane r to destination lane l sits at
+// w[j * stride_j + s * stride_s + r * stride_r + l]. The block-sparse
+// reservoir stores (nb, S, 128, 128); a dense (N, N) matrix with row =
+// source is the case S = nb, src_idx = nullptr (slot s reads block s),
+// stride_j = 128, stride_s = 128 N, stride_r = N. Each call first copies the
+// blocks K-major into its scratch, so any strides and alignment will do.
 struct BlockLifArgs {
   const uint8_t* x;          // (B, C, T) 0/1
   const uint16_t* w;         // recurrent weights, bf16 bits
@@ -108,6 +110,7 @@ struct BlockLifArgs {
   float* s_out;
   float* seg;                // B6: (9, B, no) segment summary
   float* win;                // B6: (B, n_win, no) rate-window counts
+  void* scratch;             // block_lif_scratch_bytes() of global scratch
   long long stride_j, stride_s, stride_r;
   int B, C, T, N, S, no;
   float thr;
@@ -115,7 +118,11 @@ struct BlockLifArgs {
 };
 
 // Launch on `stream`; returns a cudaError_t (cudaErrorInvalidValue for a
-// shape the kernel does not take, before any launch).
+// shape the kernel does not take, before any launch). The body keeps refrac
+// in 8 bits between steps, so it takes refractory <= 255.
 int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream);
+
+// Bytes of global scratch one launch_block_lif call needs.
+size_t block_lif_scratch_bytes(int B, int C, int T, int N, int S, int no, bool chunk);
 
 }  // namespace lsm

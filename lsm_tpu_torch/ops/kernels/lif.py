@@ -17,9 +17,10 @@ step, not FLOPs (the TPU formulation's dense (B, N) x (N, N) matmul does
 vector before its first step, so that step's recurrent drive comes from
 the previous chunk's last spikes. Above 1024 padded neurons (up to 4096,
 the largest dense reservoir the port draws) the C entry points run the
-block-sparse body of csrc/sparse_lif.cu instead, with the dense matrix
-seen as N_pad/128 x N_pad/128 blocks; the output neurons must then sit on
-its first 1024 threads (n_outputs <= 1024, C <= 1024).
+stream-tiled block body of csrc/sparse_lif.cu instead, with the dense
+matrix seen as N_pad/128 x N_pad/128 blocks, in global scratch that the
+wrapper allocates (`block_scratch`); that body keeps refrac in 8 bits
+(refractory <= 255).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ STAT_KEYS = (
 SEG_KEYS = STAT_KEYS[:9]  # the segment summary B4 writes
 MAX_NEURONS = 4096       # N_pad <= 1024: one thread a neuron; above: the block body
 _ONE_THREAD_MAX = 1024
+MAX_REFRACTORY = 255     # the block body's 8-bit refractory counter
 
 launches = 0             # B2 kernel launches (the plain twin does not count)
 chunk_launches = 0       # B4 kernel launches
@@ -154,7 +156,7 @@ def _check(x, w_rec, w_in, leak_keep, n_outputs):
         raise ValueError("lif_stats wants contiguous tensors")
 
 
-def _check_cuda(name, x, n_pad, n_outputs):
+def _check_cuda(name, x, n_pad, refractory):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     B, C, T = x.shape
@@ -163,12 +165,35 @@ def _check_cuda(name, x, n_pad, n_outputs):
             f"kernel {name} takes T > 0, N_pad <= {MAX_NEURONS}, N_pad % 32 == 0 "
             f"and C <= N_pad; got T={T} N_pad={n_pad} C={C}"
         )
-    if n_pad > _ONE_THREAD_MAX and (n_pad % 128 or max(C, n_outputs) > _ONE_THREAD_MAX):
+    if n_pad > _ONE_THREAD_MAX and (n_pad % 128 or not 0 <= refractory <= MAX_REFRACTORY):
         raise ValueError(
-            f"kernel {name} above {_ONE_THREAD_MAX} padded neurons takes N_pad % 128 == 0, "
-            f"C <= {_ONE_THREAD_MAX} and n_outputs <= {_ONE_THREAD_MAX}; got N_pad={n_pad} "
-            f"C={C} n_outputs={n_outputs}"
+            f"kernel {name} above {_ONE_THREAD_MAX} padded neurons takes N_pad % 128 == 0 "
+            f"and 0 <= refractory <= {MAX_REFRACTORY}; got N_pad={n_pad} "
+            f"refractory={refractory}"
         )
+
+
+def block_scratch(x, n_state, n_slots, n_outputs, chunk):
+    """The global scratch (uint8) of one call of the stream-tiled block
+    body (csrc/sparse_lif.cu) on spikes x (B, C, T) at n_state neurons and
+    n_slots source blocks a destination block: the K-major weight blocks,
+    spike bit planes, input bits, output raster, 8-bit refrac and, for the
+    batch kernels, v."""
+    B, C, T = x.shape
+    fn = _build.function("lsm_block_lif_scratch_bytes", [ctypes.c_int] * 7)
+    fn.restype = ctypes.c_longlong
+    n_bytes = fn(B, C, T, n_state, n_slots, n_outputs, int(chunk))
+    return torch.empty(n_bytes, dtype=torch.uint8, device=x.device)
+
+
+def _scratch_ptr(x, n_pad, n_outputs, chunk):
+    """(tensor kept alive for the call, pointer): the block body's scratch
+    above one thread a neuron (the dense matrix as n_pad / 128 slots), none
+    below."""
+    if n_pad <= _ONE_THREAD_MAX:
+        return None, None
+    sc = block_scratch(x, n_pad, n_pad // 128, n_outputs, chunk)
+    return sc, sc.data_ptr()
 
 
 def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
@@ -182,7 +207,7 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
     if x.device.type == "cpu":
         return lif_stats_plain(x, w_rec, w_in, leak_keep, **kw)
     n_pad = w_rec.shape[0]
-    _check_cuda("B2", x, n_pad, n_outputs)
+    _check_cuda("B2", x, n_pad, refractory)
     B, C, T = x.shape
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=x.device)
     all_counts = torch.empty(B, n_pad, dtype=torch.float32, device=x.device)
@@ -191,14 +216,15 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ])
     with torch.cuda.device(x.device):
+        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, chunk=False)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), max(1, T // n_win), int(n_win), stream)
+                 int(burst_isi_max), max(1, T // n_win), int(n_win), scratch, stream)
     _build.check(err, "lsm_lif_stats")
     launches += 1
     return stats, all_counts
@@ -262,7 +288,7 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
               n_outputs=n_outputs, win_len=win_len, n_new_win=n_new_win)
     if x.device.type == "cpu":
         return lif_chunk_plain(x, w_rec, w_in, leak_keep, v, refrac, s_prev, **kw)
-    _check_cuda("B4", x, n_pad, n_outputs)
+    _check_cuda("B4", x, n_pad, refractory)
     dev = x.device
     v_out = torch.empty_like(v)
     refrac_out = torch.empty_like(refrac)
@@ -272,16 +298,17 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
     fn = _build.function("lsm_lif_chunk", [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ])
     with torch.cuda.device(dev):
+        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, chunk=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(), leak_keep.data_ptr(),
                  v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
                  v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
                  seg.data_ptr(), win.data_ptr(),
                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), int(win_len), int(n_new_win), stream)
+                 int(burst_isi_max), int(win_len), int(n_new_win), scratch, stream)
     _build.check(err, "lsm_lif_chunk")
     chunk_launches += 1
     return v_out, refrac_out, s_out, seg, win

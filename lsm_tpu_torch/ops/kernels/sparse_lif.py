@@ -8,15 +8,31 @@ lsm_tpu/ops/pallas/sparse_lif_chunk_kernel.py:36 `_sparse_chunk_kernel`
 refrac and the spike vector carried in and out. Both are one templated
 kernel body and compute what B2 and B4 compute (ops/kernels/lif.py), with
 the recurrent drive of destination block j summed over its S slots:
-drive_j = sum_s s_prev[block src_idx[j, s]] @ w_blocks[j, s]. The TPU kept
-the 34 MB of bf16 blocks of a 10240-neuron reservoir resident in VMEM; on
-an H100 they fit the 50 MB L2 but no SM's shared memory, so one CTA per
-utterance (or stream) reads only the weight rows of the sources that fired
-each step from L2, with a block barrier a step. What bounds it: the L2
-latency of those reads and the barriers, not FLOPs.
+drive_j = sum_s s_prev[block src_idx[j, s]] @ w_blocks[j, s].
+
+Like the TPU kernel, which took a tile of up to 256 streams through MXU
+products, the CUDA body works on (tile of 64 or 128 streams, destination
+block j) per step: for each slot the tile's 0/1 spike plane of the source
+block times the 128 x 128 bf16 weight block on the tensor cores (wgmma,
+f32 accumulate), plus the step's input bits times W_in[:, block j] as one
+more slot. Each weight block is read from L2 once per tile and step, not
+once per stream, so the time no longer depends on the firing rate. What
+bounds it on an H100: the block products (2 * 128 * 128 * (S + C / 128)
+operations a stream-step and block at the bf16 tensor-core peak), the
+weight reads from L2, the state read and written each step, and the
+latency of each slot's serial chain of load, barrier and products. A tile
+is 128 streams when a step still has two CTAs for every SM, else 64.
+Every block reads R random partner blocks, so
+the C entry point enqueues one launch a step (T a call); v, an 8-bit
+refrac (so refractory <= 255) and two bit-packed spike planes live between
+steps in global scratch that the wrapper allocates (`lif.block_scratch`),
+and the output statistics are replayed from a bit raster after the last
+step.
 
 The plain twins repeat lsm_tpu's `simulate_batch_sparse` and its XLA sparse
-chunk scan, with the bf16 weights widened to f32 and multiplied in f32.
+chunk scan, with the bf16 weights widened to f32 and multiplied in f32. On
+dyadic weights the kernels give the twins' bits; on other weights the
+tensor cores sum in another order, which may flip the last bit of a drive.
 """
 
 from __future__ import annotations
@@ -26,11 +42,10 @@ import ctypes
 import torch
 
 from lsm_tpu_torch.ops import _build
-from lsm_tpu_torch.ops.kernels.lif import SEG_KEYS, STAT_KEYS, chunk_scan, stats_scan
+from lsm_tpu_torch.ops.kernels.lif import (
+    MAX_REFRACTORY, SEG_KEYS, STAT_KEYS, block_scratch, chunk_scan, stats_scan)
 
 BLOCK = 128
-MAX_CHANNELS = 1024       # one input-channel flag per thread of the CTA
-MAX_OUTPUTS = 1024        # the output neurons sit on distinct threads
 
 launches = 0              # B5 kernel launches (the plain twin does not count)
 chunk_launches = 0        # B6 kernel launches
@@ -100,20 +115,16 @@ def _check(x, w_blocks, src_idx, w_in, leak_keep, n_outputs):
         raise ValueError("the sparse LIF kernels want contiguous tensors")
 
 
-def _check_cuda(name, x, w_blocks, n_outputs, chunk):
+def _check_cuda(name, x, refractory):
+    """The block body's own limits, before any launch: T > 0 and an 8-bit
+    refractory counter."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    B, C, T = x.shape
-    nb, S = w_blocks.shape[:2]
-    need = _build.function("lsm_block_lif_smem", [ctypes.c_int] * 4)(
-        nb * BLOCK, S, int(chunk), 1)
-    with torch.cuda.device(x.device):
-        limit = _build.function("lsm_smem_optin", [])()
-    if T == 0 or C > MAX_CHANNELS or n_outputs > MAX_OUTPUTS or need > limit:
+    T = x.shape[2]
+    if T == 0 or not 0 <= refractory <= MAX_REFRACTORY:
         raise ValueError(
-            f"kernel {name} takes T > 0, C <= {MAX_CHANNELS}, n_outputs <= {MAX_OUTPUTS} "
-            f"and a reservoir whose state fits one CTA's shared memory ({limit} B); got "
-            f"T={T} C={C} n_outputs={n_outputs}, N={nb * BLOCK} and S={S} need {need} B"
+            f"kernel {name} takes T > 0 and 0 <= refractory <= {MAX_REFRACTORY} (refrac is "
+            f"kept in 8 bits between steps); got T={T} refractory={refractory}"
         )
 
 
@@ -127,20 +138,22 @@ def sparse_lif_stats(x, w_blocks, src_idx, w_in, leak_keep, *, threshold, refrac
               burst_isi_max=burst_isi_max, n_outputs=n_outputs, n_win=n_win)
     if x.device.type == "cpu":
         return sparse_lif_stats_plain(x, w_blocks, src_idx, w_in, leak_keep, **kw)
-    _check_cuda("B5", x, w_blocks, n_outputs, chunk=False)
+    _check_cuda("B5", x, refractory)
     B, C, T = x.shape
     nb, S = src_idx.shape
     dev = x.device
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     all_counts = torch.empty(B, nb * BLOCK, dtype=torch.float32, device=dev)
     fn = _build.function("lsm_sparse_lif_stats", [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(dev):
+        scratch = block_scratch(x, nb * BLOCK, S, n_outputs, chunk=False)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
                  B, C, T, nb * BLOCK, S, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), max(1, T // n_win), int(n_win), stream)
+                 int(burst_isi_max), max(1, T // n_win), int(n_win), scratch.data_ptr(),
+                 stream)
     _build.check(err, "lsm_sparse_lif_stats")
     launches += 1
     return stats, all_counts
@@ -171,7 +184,7 @@ def sparse_lif_chunk(x, w_blocks, src_idx, w_in, leak_keep, v, refrac, s_prev, *
     if x.device.type == "cpu":
         return sparse_lif_chunk_plain(x, w_blocks, src_idx, w_in, leak_keep, v, refrac,
                                       s_prev, **kw)
-    _check_cuda("B6", x, w_blocks, n_outputs, chunk=True)
+    _check_cuda("B6", x, refractory)
     dev = x.device
     v_out = torch.empty_like(v)
     refrac_out = torch.empty_like(refrac)
@@ -179,15 +192,17 @@ def sparse_lif_chunk(x, w_blocks, src_idx, w_in, leak_keep, v, refrac, s_prev, *
     seg = torch.empty(len(SEG_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     win = torch.empty(B, n_new_win, n_outputs, dtype=torch.float32, device=dev)
     fn = _build.function("lsm_sparse_lif_chunk", [ctypes.c_void_p] * 13 + [
-        ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(dev):
+        scratch = block_scratch(x, n, S, n_outputs, chunk=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
                  leak_keep.data_ptr(), v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
                  v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
                  seg.data_ptr(), win.data_ptr(),
                  B, C, T, n, S, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), int(win_len), int(n_new_win), stream)
+                 int(burst_isi_max), int(win_len), int(n_new_win), scratch.data_ptr(),
+                 stream)
     _build.check(err, "lsm_sparse_lif_chunk")
     chunk_launches += 1
     return v_out, refrac_out, s_out, seg, win

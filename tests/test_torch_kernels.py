@@ -274,6 +274,8 @@ def test_sparse_init_same_on_card(cuda):
     (384, 76, 2, 32, 40, 5, 0.02),
     (384, 76, 2, 32, 45, 4, 0.02),        # T % n_win != 0: the last window folds
     (10240, 2048, 4, 128, 400, 8, 0.003),  # BASELINE configs[3] width
+    (384, 76, 2, 32, 40, 70, 0.02),       # 70 rows: a ragged last stream tile
+    (10240, 2048, 4, 128, 400, 70, 0.003),
 ])
 def test_sparse_lif_kernel_bit_equal_on_dyadic_weights(cuda, n, k, r, c, t, b, mw):
     sr = _sparse(cuda, n, k, r, c, mw)
@@ -304,15 +306,21 @@ def test_sparse_lif_kernel_equals_dense_kernel_on_densify(cuda):
     assert counts.sum() > 0
 
 
-@pytest.mark.parametrize("n,n_new_win", [(384, 1), (384, 2), (10240, 1)])
-def test_sparse_chunk_kernel_bit_equal_over_chained_chunks(cuda, n, n_new_win):
+@pytest.mark.parametrize("n,n_new_win,b", [
+    (384, 1, 6), (384, 2, 6), (10240, 1, 6),
+    # Stream counts that are no multiple of the stream tile. The body takes
+    # 128-stream tiles when a step still has two CTAs for every SM, else 64:
+    # on a 132-SM H100 at 10240 neurons (80 blocks) 70 and 383 streams run
+    # on 64-stream tiles, 390, just past the switch, on 128-stream tiles.
+    (384, 1, 70), (10240, 1, 70), (10240, 1, 383), (10240, 1, 390),
+])
+def test_sparse_chunk_kernel_bit_equal_over_chained_chunks(cuda, n, n_new_win, b):
     c = 128
     sr = _sparse(cuda, n, int(0.2 * n), 4 if n > 1000 else 2, c,
                  0.003 if n > 1000 else 0.02)
     ops, kw = sr.kernel_operands()
     del kw["n_win"]
     kw.update(win_len=40, n_new_win=n_new_win)
-    b = 6
     rng = np.random.default_rng(n_new_win)
     state_k = state_p = (torch.zeros(b, n, device=cuda),
                          torch.zeros(b, n, dtype=torch.int32, device=cuda),
@@ -348,14 +356,28 @@ def test_sparse_kernels_refuse_what_they_cannot_run(cuda):
                              *ops, **kw)
     with pytest.raises(ValueError, match="devices"):
         ksp.sparse_lif_stats(x.cpu(), *ops, **kw)
-    # A reservoir whose state does not fit one CTA's shared memory.
+    # The stream-tiled body keeps no reservoir in shared memory: 20480
+    # neurons run (silent, on zero weights and input).
     nb = 160
     wide = (torch.zeros(nb, 1, 128, 128, dtype=torch.bfloat16, device=cuda),
             torch.arange(nb, dtype=torch.int32, device=cuda)[:, None].contiguous(),
             torch.zeros(128, nb * 128, dtype=torch.bfloat16, device=cuda),
             torch.ones(nb * 128, device=cuda))
-    with pytest.raises(ValueError, match="shared memory"):
-        ksp.sparse_lif_stats(x, *wide, **kw)
+    stats, counts = ksp.sparse_lif_stats(x, *wide, **kw)
+    torch.cuda.synchronize()
+    assert counts.shape == (2, nb * 128) and not counts.any() and not stats[0].any()
+    # Its real limit: refrac is kept in 8 bits between steps.
+    with pytest.raises(ValueError, match="refractory"):
+        ksp.sparse_lif_stats(x, *ops, **{**kw, "refractory": 256})
+    # Weights at any alignment (each call copies the blocks K-major first).
+    flat = torch.zeros(ops[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    flat[1:] = ops[0].flatten()
+    x_on = torch.as_tensor((np.random.default_rng(2).random((2, 16, 40)) < 0.3)
+                           .astype(np.uint8)).to(cuda)
+    shifted = ksp.sparse_lif_stats(x_on, flat[1:].view(ops[0].shape), *ops[1:], **kw)
+    aligned = ksp.sparse_lif_stats(x_on, *ops, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(shifted, aligned)) and aligned[1].any()
     del kw["n_win"]
     kw.update(win_len=40, n_new_win=1)
     v, s = torch.zeros(2, 256, device=cuda), torch.zeros(2, 256, device=cuda)
