@@ -2,11 +2,13 @@
 counterpart of the repo-root main.py.
 
 Same flags as main.py where the slice covers them (--n-filters
---filterbank --feature-set --multiplier --synthetic --samples-per-class
---batch-size --skip-artifacts --num-neurons --num-output-neurons
---sparse/--dense), plus --device (default cuda; no silent CPU
-fallback) and --hard (the frozen hard synthetic corpus). Writes the same two
-.npz artifacts and prints the same sections and report.
+--filterbank --feature-set --multiplier --leak-variance-divisor --vocab
+--commands --synthetic --samples-per-class --batch-size --redundancy-factor
+--skip-artifacts --num-neurons --num-output-neurons --sparse/--dense), plus
+--device (default cuda; no silent CPU fallback) and --hard (the frozen hard
+synthetic corpus). With --synthetic the corpus has one class per resolved
+command. Writes the same two .npz artifacts and prints the same sections
+and report.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import logging
 import sys
 from pathlib import Path
 
-from lsm_tpu_torch.config import FEATURE_SETS, FrontendConfig, PipelineConfig, ReservoirConfig
+from lsm_tpu_torch.config import (
+    COMMANDS_12, COMMANDS_35, FEATURE_SETS, FrontendConfig, PipelineConfig, ReservoirConfig,
+)
 from lsm_tpu_torch.io import artifacts, dataset
 
 
@@ -33,6 +37,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--feature-set", type=str, default="original",
                    choices=list(FEATURE_SETS.keys()))
     p.add_argument("--multiplier", type=float, default=0.6)
+    p.add_argument("--leak-variance-divisor", type=float, default=None)
+    p.add_argument("--vocab", type=str, default="v12", choices=["v12", "v35"],
+                   help="12-command reference vocabulary or full 35-class set.")
+    p.add_argument("--commands", type=str, default=None,
+                   help="Comma-separated keyword subset (e.g. 'yes,no,up,down'); "
+                        "overrides --vocab. Class index = position in the list.")
     p.add_argument("--synthetic", action="store_true",
                    help="Use a synthetic corpus (no dataset on disk needed).")
     p.add_argument("--hard", action="store_true",
@@ -42,6 +52,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--num-neurons", type=int, default=1000)
     p.add_argument("--num-output-neurons", type=int, default=400)
+    p.add_argument("--redundancy-factor", type=int, default=1,
+                   help="Duplicate each filter channel R times before the reservoir.")
     p.add_argument("--sparse", dest="sparse", action="store_true", default=None,
                    help="Force the block-sparse reservoir (default: automatic for "
                         ">=4096 neurons with N %% 128 == 0; requires N %% 128 == 0).")
@@ -52,6 +64,42 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu.")
     return p.parse_args(argv)
+
+
+def resolve_commands(args: argparse.Namespace):
+    """The keyword vocabulary implied by the flags: --commands (at least two
+    distinct comma-separated words) wins over --vocab; the default is the
+    reference's 12."""
+    raw = getattr(args, "commands", None)
+    if raw:
+        commands = tuple(w.strip() for w in raw.split(",") if w.strip())
+        if len(commands) < 2:
+            raise SystemExit(f"--commands needs at least 2 comma-separated words, got {raw!r}")
+        if len(set(commands)) != len(commands):
+            raise SystemExit(f"--commands has duplicate words: {raw!r}")
+        return commands
+    return COMMANDS_35 if getattr(args, "vocab", "v12") == "v35" else COMMANDS_12
+
+
+def build_config(args: argparse.Namespace) -> PipelineConfig:
+    """The pipeline config the flags describe (lsm_tpu's `build_config`
+    over the fields the port keeps)."""
+    return PipelineConfig(
+        frontend=FrontendConfig(n_filters=args.n_filters, filterbank=args.filterbank,
+                                redundancy_factor=args.redundancy_factor),
+        reservoir=ReservoirConfig(
+            num_neurons=args.num_neurons,
+            num_output_neurons=args.num_output_neurons,
+            small_world_k=int(0.10 * args.num_neurons * 2),
+            leak_variance_divisor=args.leak_variance_divisor,
+            sparse=args.sparse,
+        ),
+        feature_set=args.feature_set,
+        multiplier=args.multiplier,
+        max_samples_per_class=args.samples_per_class,
+        commands=resolve_commands(args),
+        batch_size=args.batch_size,
+    )
 
 
 def main(argv=None) -> None:
@@ -69,19 +117,7 @@ def main(argv=None) -> None:
     )
 
     device = resolve_device(args.device)
-    cfg = PipelineConfig(
-        frontend=FrontendConfig(n_filters=args.n_filters, filterbank=args.filterbank),
-        reservoir=ReservoirConfig(
-            num_neurons=args.num_neurons,
-            num_output_neurons=args.num_output_neurons,
-            small_world_k=int(0.10 * args.num_neurons * 2),
-            sparse=args.sparse,
-        ),
-        feature_set=args.feature_set,
-        multiplier=args.multiplier,
-        max_samples_per_class=args.samples_per_class,
-        batch_size=args.batch_size,
-    )
+    cfg = build_config(args)
 
     print("--- Running Pipeline ---")
     print("\n--- Step 1: Creating Spike Train Dataset ---")

@@ -18,6 +18,15 @@ COMMANDS_12 = (
     "bird", "cat", "nine", "eight", "zero", "follow",
 )
 
+# The full Speech Commands v0.02 vocabulary (the 35-class config).
+COMMANDS_35 = (
+    "backward", "bed", "bird", "cat", "dog", "down", "eight", "five",
+    "follow", "forward", "four", "go", "happy", "house", "learn", "left",
+    "marvin", "nine", "no", "off", "on", "one", "right", "seven", "sheila",
+    "six", "stop", "three", "tree", "two", "up", "visual", "wow", "yes",
+    "zero",
+)
+
 # Feature-set key lists.
 FEATURE_SETS = {
     "all": [
