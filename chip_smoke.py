@@ -10,7 +10,11 @@ Phases (any failure exits non-zero):
                main-path shapes (B1: 256 x 1 s of audio; B2: B=256, C=128,
                N=1000, T=400), with CUDA-event times after warm-up. B2's
                statistics must be bit-equal on dyadic weights; B1 is held
-               at rtol 5e-3 / atol 1e-6.
+               at rtol 5e-3 / atol 1e-6, and against the float64 cascade
+               (the twin's block form in float64): on the sub-block
+               energies at >= 1e-4 of their (row, channel) peak its largest
+               relative error must stay <= 1e-3 in every channel and its
+               worst channel no worse than the twin's.
   3. slice   - lsm_tpu_torch.pipeline.run_pipeline_arrays on the frozen hard
                corpus (30 x 12, seed 42, batch 64): regime EDGE OF CHAOS,
                accuracy inside the band (0.76, 0.90), and both kernels'
@@ -21,11 +25,14 @@ Phases (any failure exits non-zero):
   5. chunk kernels - B3 and B4 against their plain twins at serving shapes
                (1024 streams, one 100 ms hop from a carried state, flagship
                config): B3 at rtol 5e-3 / atol 1e-6 (its state, which
-               passes through zero, at atol 1e-5), and ten chained B3
-               hops bit-equal to one whole-second B3 call and to B1; B4
-               bit-equal on dyadic weights. CUDA-event times; B1/B3's bound
-               counts the sequential cascade, the block form's own work
-               stands beside it.
+               passes through zero, at atol 1e-5) and against float64 as
+               B1 is, and ten chained B3 hops bit-equal to one whole-second
+               B3 call and to B1; B1 and B3 at the sub-block lengths g = 40
+               (FrontendConfig(sample_rate=8000)) and g = 160
+               (gt_window_time=0.03): featurize_batch on the card against
+               the CPU path, B1 and B3 against their twins, B3's chained
+               hops bit-equal; B4 bit-equal on dyadic weights. CUDA-event
+               times; B1/B3's bound counts Slaney's cascade.
   6. continuous slice - the band protocol of tests/test_continuous_band.py
                through the port: run_pipeline_arrays on the hard corpus
                (20 x 12, seed 42, batch 64) for the exact accuracy, then
@@ -49,7 +56,11 @@ Phases (any failure exits non-zero):
                part); B6 over three chained chunks of 64,
                70 and 390 streams (64- and 128-stream tiles, ragged),
                bit-equal on the dyadic copy; the dense B2 and B4 at N=2048
-               (past one thread a neuron) bit-equal on dyadic weights.
+               (past one thread a neuron) bit-equal on dyadic weights; dense
+               B2/B4 with more input channels than padded neurons (C = 256
+               at 100 neurons, C = 2048 at 1000: redundancy 16), and the
+               block body (B5, B6, dense B2/B4 at 2048) at refractory 300,
+               past its 8-bit counter, all bit-equal on dyadic weights.
                B5 and B6 also report the tensor-core bound: the stream-
                tiled design's own block products at the 989 TFLOP/s bf16
                dense peak, beside the function's bound.
@@ -106,6 +117,9 @@ SPARSE_ACC_RANGE, SPARSE_MAX_DELTA = (0.66, 0.95), 0.15   # tests/test_sparse_re
 # than its twin, so their bits may part; their spike totals (and B5's
 # participation, a fraction of the neurons) may not move apart by more.
 SPIKE_REL = 1e-3
+# B1/B3 against the float64 cascade: the largest relative error of a
+# channel's sub-block energies at >= 1e-4 of their peak.
+F64_REL = 1e-3
 # The device functions of one B5/B6 call (csrc/sparse_lif.cu), as the
 # profiler names them.
 SPARSE_LIF_KERNELS = ("block_step_kernel", "transpose_blocks_kernel", "pack_input_kernel",
@@ -171,18 +185,36 @@ def gtgram_flops(batch: int, channels: int, samples: int) -> float:
     return 2.0 * 17 * batch * channels * samples
 
 
-def block_form_flops(batch: int, channels: int, n_sub: int, g: int = 80) -> float:
-    """The kernels' own algorithm, the exact block form: per (row, channel,
-    sub-block) (g+8)^2 FMAs for the outputs and the new state plus g for
-    the energy. A second figure beside the bound, which counts the cascade."""
-    return 2.0 * batch * channels * n_sub * ((g + 8) ** 2 + g)
-
-
-def gtgram_bound(wave, kmat, *outs, channels: int) -> dict:
+def gtgram_bound(wave, fb, *outs) -> dict:
     batch, samples = wave.shape
-    b = bound(gtgram_flops(batch, channels, samples), nbytes(wave, kmat, *outs))
-    bf = block_form_flops(batch, channels, samples // 80)
-    return {**b, "block_form_flops": bf, "block_form_ms": bf / F32_FLOPS * 1e3}
+    return bound(gtgram_flops(batch, fb.coeffs.shape[0], samples),
+                 nbytes(wave, fb.coeffs, *outs))
+
+
+def float64_errors(e, e64, s=None, s64=None, twin=None) -> dict:
+    """A gtgram kernel's (and its twin's) largest relative error against
+    the float64 cascade, per channel, over the sub-block energies (n_sub,
+    B, C) at >= 1e-4 of their (row, channel) peak; with s, s64 also the
+    largest absolute error of the final state (B, 8, C). Fails when a
+    channel of the kernel's exceeds 1e-3 or its worst channel is worse
+    than the twin's."""
+    keep = e64 >= 1e-4 * e64.amax(dim=0, keepdim=True)
+
+    def per_channel(x):
+        rel = (x.double() - e64).abs() / e64.clamp_min(1e-300)
+        return torch.where(keep, rel, 0.0).amax(dim=(0, 1))
+
+    k, t = per_channel(e), per_channel(twin)
+    rec = {"kernel_worst": float(k.max()), "kernel_worst_channel": int(k.argmax()),
+           "twin_worst": float(t.max()), "twin_worst_channel": int(t.argmax()),
+           "kernel_by_channel": k.tolist(), "twin_by_channel": t.tolist()}
+    if s is not None:
+        rec["state_max_abs_err"] = float((s.double() - s64).abs().max())
+    if rec["kernel_worst"] > F64_REL or rec["kernel_worst"] > rec["twin_worst"]:
+        fail(f"against float64 the kernel's worst channel reads {rec['kernel_worst']:.3e} "
+             f"(channel {rec['kernel_worst_channel']}; limit {F64_REL}, twin "
+             f"{rec['twin_worst']:.3e})")
+    return rec
 
 
 def lif_flops(source_rows: float, batch: int, steps: int, n_neurons: int) -> float:
@@ -448,9 +480,11 @@ def main() -> None:
     nwin, hop, _ = gt.gtgram_strides(fcfg.sample_rate, fcfg.gt_window_time,
                                      hop_time, fcfg.num_samples)
     g = int(np.gcd(nwin, hop))
-    kmat = gt.block_system_tensor(fcfg.sample_rate, fcfg.n_filters, fcfg.gt_f_min, g, dev)
-    e_k = kgt.sub_energy(audio, kmat)
-    e_p = kgt.sub_energy_plain(audio, kmat)
+    fb = gt.filterbank(fcfg.sample_rate, fcfg.n_filters, fcfg.gt_f_min, g, dev)
+    fb64 = gt.filterbank(fcfg.sample_rate, fcfg.n_filters, fcfg.gt_f_min, g, dev, torch.float64)
+    e_k = kgt.sub_energy(audio, fb)
+    e_p = kgt.sub_energy_plain(audio, fb)
+    e_64 = kgt.sub_energy_plain(audio.double(), fb64)
     torch.cuda.synchronize()
     if not torch.isfinite(e_k).all():
         fail("B1 produced non-finite energies")
@@ -460,15 +494,23 @@ def main() -> None:
         "max_abs_err": float(b1_err.max()),
         "p99_rel_err": float(torch.quantile(b1_rel[:: max(1, b1_rel.numel() // 2**24)], 0.99)),
         "allclose": bool(torch.allclose(e_k, e_p, rtol=5e-3, atol=1e-6)),
-        "ms": cuda_ms(lambda: kgt.sub_energy(audio, kmat), reps=10),
-        "plain_ms": cuda_ms(lambda: kgt.sub_energy_plain(audio, kmat), reps=3),
-        **gtgram_bound(audio, kmat, e_k, channels=fcfg.n_filters),
+        "ms": cuda_ms(lambda: kgt.sub_energy(audio, fb), reps=10),
+        "plain_ms": cuda_ms(lambda: kgt.sub_energy_plain(audio, fb), reps=3),
+        **gtgram_bound(audio, fb, e_k),
     }
     print(f"[B1 gtgram] B=256 S=16000 C={fcfg.n_filters}: max_abs_err "
           f"{b1['max_abs_err']:.3e} p99_rel_err {b1['p99_rel_err']:.3e} "
-          f"kernel {b1['ms']:.3f} ms plain {b1['plain_ms']:.3f} ms ({card})")
+          f"kernel {b1['ms']:.3f} ms plain {b1['plain_ms']:.3f} ms bound "
+          f"{b1['bound_ms']:.3f} ms ({b1['bound_by']}) ({card})")
     if not b1["allclose"]:
         fail("B1 disagrees with its plain twin beyond rtol 5e-3 / atol 1e-6")
+    b1["float64"] = f64 = float64_errors(e_k, e_64, twin=e_p)
+    print(f"[B1 gtgram] against float64 at >= 1e-4 of each (row, channel) peak: kernel "
+          f"worst {f64['kernel_worst']:.3e} (channel {f64['kernel_worst_channel']}), twin "
+          f"worst {f64['twin_worst']:.3e} (channel {f64['twin_worst_channel']}); channels "
+          "0-3 kernel " + " ".join(f"{v:.2e}" for v in f64["kernel_by_channel"][:4])
+          + " twin " + " ".join(f"{v:.2e}" for v in f64["twin_by_channel"][:4]))
+    del e_64
 
     spikes = featurize_batch(audio, fcfg)                          # (256, 128, 400)
     _, mw = calibrate_weight(rcfg, spikes, pcfg.multiplier)
@@ -577,13 +619,13 @@ def main() -> None:
         "n": n, "wall_s_min": min(walls), "wall_s_median": statistics.median(walls),
         "utt_per_s": n / min(walls), "utt_per_s_median": n / statistics.median(walls),
         "fit_accuracy": fit_acc, "stages": stages,
-        "B1_ms_2400": cuda_ms(lambda: kgt.sub_energy(audio, kmat), reps=3),
+        "B1_ms_2400": cuda_ms(lambda: kgt.sub_energy(audio, fb), reps=3),
         "B2_ms_2400": cuda_ms(lambda: klif.lif_stats(spikes0, *ops_h, **kw_h), reps=3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    e_h = kgt.sub_energy(audio, kmat)
+    e_h = kgt.sub_energy(audio, fb)
     s_h, a_h = klif.lif_stats(spikes0, *ops_h, **kw_h)
-    hot_rec["B1_bound_2400"] = gtgram_bound(audio, kmat, e_h, channels=fcfg.n_filters)
+    hot_rec["B1_bound_2400"] = gtgram_bound(audio, fb, e_h)
     hot_rec["B2_bound_2400"] = bound(
         lif_flops(float(a_h.sum() + spikes0.sum()), n, spikes0.shape[-1], r_hot.n_neurons),
         nbytes(spikes0, *ops_h, s_h, a_h))
@@ -598,7 +640,7 @@ def main() -> None:
     laps("4 hot")
 
     # ---- 5-7. the continuous engine --------------------------------------
-    b3, b4 = chunk_kernels(dev, kmat, r_rand.dyadic(), card)
+    b3, b4 = chunk_kernels(dev, fb, fb64, r_rand.dyadic(), card)
     record["B3"], record["B4"] = b3, b4
     laps("5 chunk kernels")
     cont = continuous_slice(dev, card)
@@ -660,10 +702,11 @@ def _dummy_readout(reservoir, keys, n_classes: int = 12):
             scaler.Scaler(torch.zeros(d), torch.ones(d)))
 
 
-def chunk_kernels(dev, kmat, r_dy, card):
+def chunk_kernels(dev, fb, fb64, r_dy, card):
     """Phase 5: B3 and B4 against their plain twins at serving shapes, from
     the carried state of a flagship engine (dyadic weights) that has run a
-    few hops of 1024 streams."""
+    few hops of 1024 streams; B3 also against float64, and B1/B3 at the
+    sub-block lengths 40 and 160 (`gtgram_other_g`)."""
     from lsm_tpu_torch.config import FEATURE_SETS, FrontendConfig
     from lsm_tpu_torch.io import dataset
     from lsm_tpu_torch.models.continuous import ContinuousKWS
@@ -678,22 +721,23 @@ def chunk_kernels(dev, kmat, r_dy, card):
     # B3 chaining: ten hops threading the state == one whole-second call,
     # whose energies are also B1's (another layout).
     zero = torch.zeros(N_SERVE, 8, C, device=dev)
-    s_whole, e_whole = kgt.chunk(audio, kmat, zero)
+    s_whole, e_whole = kgt.chunk(audio, fb, zero)
     st, parts, states = zero, [], []
     for c in range(10):
-        st, e = kgt.chunk(audio[:, c * CHUNK:(c + 1) * CHUNK].contiguous(), kmat, st)
+        st, e = kgt.chunk(audio[:, c * CHUNK:(c + 1) * CHUNK].contiguous(), fb, st)
         parts.append(e)
         states.append(st)
-    e_b1 = kgt.sub_energy(audio, kmat)
+    e_b1 = kgt.sub_energy(audio, fb)
     torch.cuda.synchronize()
     chained = torch.equal(torch.cat(parts), e_whole) and torch.equal(st, s_whole)
-    as_b1 = torch.equal(e_whole.permute(0, 2, 1), e_b1)
+    as_b1 = torch.equal(e_whole, e_b1)
 
-    # B3 against its twin on one hop from a carried state.
+    # B3 against its twin and float64 on one hop from a carried state.
     hop = audio[:, 3 * CHUNK:4 * CHUNK].contiguous()
     st3 = states[2]
-    s_k, e_k = kgt.chunk(hop, kmat, st3)
-    s_p, e_p = kgt.chunk_plain(hop, kmat, st3)
+    s_k, e_k = kgt.chunk(hop, fb, st3)
+    s_p, e_p = kgt.chunk_plain(hop, fb, st3)
+    s_64, e_64 = kgt.chunk_plain(hop.double(), fb64, st3.double())
     torch.cuda.synchronize()
     err = max(float((e_k - e_p).abs().max()), float((s_k - s_p).abs().max()))
     # Energies at B1's tolerance; the state passes through zero, so its
@@ -703,10 +747,12 @@ def chunk_kernels(dev, kmat, r_dy, card):
     b3 = {
         "chained_bit_equal": bool(chained), "whole_equals_B1": bool(as_b1),
         "allclose": close, "max_abs_err": err,
-        "ms": cuda_ms(lambda: kgt.chunk(hop, kmat, st3), reps=20),
-        "plain_ms": cuda_ms(lambda: kgt.chunk_plain(hop, kmat, st3), reps=3),
-        **gtgram_bound(hop, kmat, st3, s_k, e_k, channels=C),
+        "ms": cuda_ms(lambda: kgt.chunk(hop, fb, st3), reps=20),
+        "plain_ms": cuda_ms(lambda: kgt.chunk_plain(hop, fb, st3), reps=3),
+        **gtgram_bound(hop, fb, st3, s_k, e_k),
+        "float64": float64_errors(e_k, e_64, s_k, s_64, twin=e_p),
     }
+    b3["float64"]["twin_state_max_abs_err"] = float((s_p.double() - s_64).abs().max())
     print(f"[B3 gtgram_chunk] B={N_SERVE} hop {CHUNK} C={C}: ten chained hops bit-equal "
           f"{chained}, = B1 {as_b1}; vs twin max_abs_err {err:.3e} allclose {close}; "
           f"kernel {b3['ms']:.3f} ms plain {b3['plain_ms']:.3f} ms bound "
@@ -715,6 +761,13 @@ def chunk_kernels(dev, kmat, r_dy, card):
         fail("B3's chained hops are not bit-equal to the whole-second call / B1")
     if not close:
         fail("B3 disagrees with its plain twin beyond rtol 5e-3 / atol 1e-6 (state 1e-5)")
+    f64 = b3["float64"]
+    print(f"[B3 gtgram_chunk] against float64 at >= 1e-4 of each (row, channel) peak: "
+          f"kernel worst {f64['kernel_worst']:.3e} (channel {f64['kernel_worst_channel']}), "
+          f"twin worst {f64['twin_worst']:.3e} (channel {f64['twin_worst_channel']}); final "
+          f"state max abs err kernel {f64['state_max_abs_err']:.3e} twin "
+          f"{f64['twin_state_max_abs_err']:.3e}")
+    b3["other_g"] = gtgram_other_g(dev, audio)
 
     # B4 on the spikes and LIF state of hop 6 of a warmed engine.
     keys = tuple(FEATURE_SETS["original"])
@@ -748,6 +801,62 @@ def chunk_kernels(dev, kmat, r_dy, card):
     if b4["carried_spikes"] <= 0:
         fail("B4's check carried no spike vector")
     return b3, b4
+
+
+def gtgram_other_g(dev, audio) -> dict:
+    """B1 and B3 at the sub-block lengths two FrontendConfigs give, g = 40
+    (sample_rate 8000) and g = 160 (gt_window_time 0.03): featurize_batch
+    (B1) on the card against the CPU path, B1 and B3 against their twins,
+    and B3's ten chained hops bit-equal to one whole-second call and to
+    B1. `audio` (1024, 16000) at 16 kHz; every other sample is the 8 kHz
+    signal."""
+    from lsm_tpu_torch.config import FrontendConfig
+    from lsm_tpu_torch.models.frontend import featurize_batch
+    from lsm_tpu_torch.ops import gammatone as gt
+    from lsm_tpu_torch.ops.kernels import gtgram as kgt
+
+    out = {}
+    for fcfg in (FrontendConfig(sample_rate=8000), FrontendConfig(gt_window_time=0.03)):
+        n = fcfg.num_samples
+        wave = (audio[:, ::2] if fcfg.sample_rate == 8000 else audio)[:64].contiguous()
+        nwin, hop, _ = gt.gtgram_strides(fcfg.sample_rate, fcfg.gt_window_time,
+                                         n / (fcfg.sample_rate * fcfg.time_bins), n)
+        g = int(np.gcd(nwin, hop))
+        fb = gt.filterbank(fcfg.sample_rate, fcfg.n_filters, fcfg.gt_f_min, g, dev)
+        before = kgt.launches
+        on_card = featurize_batch(wave, fcfg).cpu()
+        launched = kgt.launches - before
+        on_cpu = featurize_batch(wave.cpu(), fcfg)
+        e1 = kgt.sub_energy(wave, fb)
+        b1_close = bool(torch.allclose(e1, kgt.sub_energy_plain(wave, fb), rtol=5e-3, atol=1e-6))
+        st = torch.zeros(wave.shape[0], 8, fcfg.n_filters, device=dev)
+        s_whole, e_whole = kgt.chunk(wave, fb, st)
+        parts = []
+        for c in range(10):
+            hop_c = wave[:, c * n // 10:(c + 1) * n // 10].contiguous()
+            if c == 3:
+                s_k, e_k = kgt.chunk(hop_c, fb, st)
+                s_p, e_p = kgt.chunk_plain(hop_c, fb, st)
+                b3_close = bool(torch.allclose(e_k, e_p, rtol=5e-3, atol=1e-6)
+                                and torch.allclose(s_k, s_p, rtol=5e-3, atol=1e-5))
+            st, e = kgt.chunk(hop_c, fb, st)
+            parts.append(e)
+        torch.cuda.synchronize()
+        rec = {"g": g, "B1_launches": launched,
+               "spike_mismatch": float((on_card != on_cpu).float().mean()),
+               "B1_allclose": b1_close, "B3_allclose": b3_close,
+               "B3_chained_bit_equal": bool(torch.equal(torch.cat(parts), e_whole)
+                                            and torch.equal(st, s_whole)),
+               "B3_whole_equals_B1": bool(torch.equal(e_whole, e1))}
+        out[f"g{g}"] = rec
+        print(f"[B1/B3 g={g}] fs {fcfg.sample_rate} window {fcfg.gt_window_time}: featurize "
+              f"on the card vs CPU spikes differ at {rec['spike_mismatch']:.2e} (B1 launched "
+              f"{launched}); B1 allclose {b1_close}, B3 allclose {b3_close}, ten chained B3 "
+              f"hops bit-equal {rec['B3_chained_bit_equal']}, = B1 {rec['B3_whole_equals_B1']}")
+        if not (launched > 0 and rec["spike_mismatch"] <= 1e-3 and b1_close and b3_close
+                and rec["B3_chained_bit_equal"] and rec["B3_whole_equals_B1"]):
+            fail(f"B1/B3 at g = {g}: {rec}")
+    return out
 
 
 def continuous_slice(dev, card) -> dict:
@@ -1068,7 +1177,54 @@ def sparse_kernels(dev, spikes, card) -> dict:
           f"{carried4:.0f})")
     if not (eq2 and eq4) or dense["B2_spikes"] <= 0 or carried4 <= 0:
         fail("dense B2/B4 at N = 2048 are not bit-equal to their twins (or stayed silent)")
-    return {"B5": b5, "B6": b6, "dense_2048": dense}
+
+    # Dense B2/B4 with more input channels than padded neurons: the spikes
+    # repeated as redundancy_factor repeats them (2 at 100 neurons, C = 256
+    # > N_pad = 128; 16 at 1000 neurons, C = 2048 > N_pad = 1024).
+    wide_c = {}
+    for n_neurons, redundancy in ((100, 2), (1000, 16)):
+        rc = ReservoirConfig(num_neurons=n_neurons, num_output_neurons=min(400, n_neurons),
+                             small_world_k=int(0.2 * n_neurons), mean_weight=0.01)
+        xr = x32.repeat_interleave(redundancy, dim=1)
+        rr = res.init_reservoir(rc, xr.shape[1], device=dev).dyadic()
+        ops_r, kw_r = rr.kernel_operands()
+        ckw_r = {k: v for k, v in kw_r.items() if k != "n_win"}
+        ckw_r.update(win_len=40, n_new_win=1)
+        wide_c[xr.shape[1]] = dense_pair_equal(xr, ops_r, kw_r, ckw_r)
+    # The block body past its 8-bit refractory counter: refractory 300.
+    kw2_r, ckw2_r = {**kw2, "refractory": 300}, {**ckw2, "refractory": 300}
+    r300 = {"dense_2048": dense_pair_equal(x32, ops2, kw2_r, ckw2_r)}
+    s5k, a5k = ksp.sparse_lif_stats(x32, *ops, **{**kw, "refractory": 300})
+    s5p, a5p = ksp.sparse_lif_stats_plain(x32, *ops, **{**kw, "refractory": 300})
+    torch.cuda.synchronize()
+    eq6, _, carried6 = chained_chunks_equal(ksp.sparse_lif_chunk, ksp.sparse_lif_chunk_plain, ops,
+                                            {**ckw, "refractory": 300}, chunks, N_10K)
+    r300.update(B5_bit_equal=bool(torch.equal(s5k, s5p) and torch.equal(a5k, a5p)),
+                B5_spikes=float(a5p.sum()), B6_bit_equal=bool(eq6), B6_carried_spikes=carried6)
+    print("[B2/B4 C > N_pad] dyadic, bit_equal: " + "; ".join(
+        f"C={c} {v}" for c, v in wide_c.items()) + f"; [refractory 300] dyadic: {r300}")
+    if not all(v["B2_bit_equal"] and v["B4_bit_equal"] and v["B2_spikes"] > 0
+               for v in (*wide_c.values(), r300["dense_2048"])):
+        fail(f"dense B2/B4 at C > N_pad or refractory 300 part from their twins: {wide_c} {r300}")
+    if not (r300["B5_bit_equal"] and r300["B6_bit_equal"] and r300["B5_spikes"] > 0):
+        fail(f"B5/B6 at refractory 300 part from their twins: {r300}")
+    return {"B5": b5, "B6": b6, "dense_2048": dense, "dense_wide_channels": wide_c,
+            "refractory_300": r300}
+
+
+def dense_pair_equal(x, ops, kw, ckw) -> dict:
+    """Dense B2 over x and B4 over three chained 40-step chunks of its first
+    120 steps, each against its twin."""
+    from lsm_tpu_torch.ops.kernels import lif as klif
+
+    sk, ak = klif.lif_stats(x, *ops, **kw)
+    sp, ap = klif.lif_stats_plain(x, *ops, **kw)
+    torch.cuda.synchronize()
+    chunks = [x[..., c * 40:(c + 1) * 40].contiguous() for c in range(3)]
+    eq4, _, carried = chained_chunks_equal(klif.lif_chunk, klif.lif_chunk_plain, ops, ckw,
+                                           chunks, ops[0].shape[0])
+    return {"B2_bit_equal": bool(torch.equal(sk, sp) and torch.equal(ak, ap)),
+            "B2_spikes": float(ap.sum()), "B4_bit_equal": bool(eq4), "B4_carried_spikes": carried}
 
 
 def sparse_slice(dev, card) -> tuple:

@@ -25,7 +25,10 @@
 // channels) that fired. Spikes are 0/1, so the drive is a sum of the W rows
 // of the sources that fired: each step reads only those rows (2 KB each,
 // coalesced across the block) instead of the whole matrix. Bound: L2 load
-// latency of those row reads and the two block barriers per step.
+// latency of those row reads and the two block barriers per step. Any
+// number of input channels: thread n compacts channels n, n + Np, ... (one
+// more pair of barriers a step for each Np channels past the first), into
+// an input list of C entries in dynamic shared memory.
 // No atomics: the sums run in ascending source order, so results are
 // deterministic, and bit-equal to any order when weights are dyadic.
 // B4 compacts the carried spike vector before its first step, so that
@@ -34,6 +37,8 @@
 // reservoir of 1025-4096 padded neurons runs on the stream-tiled block body
 // of sparse_lif.cu (B5/B6) with its matrix seen as nb x nb blocks of 128,
 // in the global scratch the caller passes (unused at <= 1024 neurons).
+
+#include <algorithm>
 
 #include "lif_common.cuh"
 
@@ -64,9 +69,11 @@ struct LifArgs {
   int refractory, burst_isi_max, win_len, n_win;
 };
 
-// Block-wide stream compaction of two flag sets into ascending index lists.
-// Two barriers; on return both lists and their lengths are visible to all.
-__device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n,
+// Block-wide stream compaction of two flag sets, appended to ascending
+// index lists: neuron n to rec_list[n_rec..] where f_rec, channel ch to
+// in_list[n_in..] where f_in. Two barriers; on return both lists and their
+// grown lengths are visible to all.
+__device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n, int ch,
                                          int* rec_list, int* in_list,
                                          int* cnt_rec, int* cnt_in,
                                          int& n_rec, int& n_in) {
@@ -78,7 +85,7 @@ __device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n,
     cnt_in[warp] = __popc(bi);
   }
   __syncthreads();
-  int off_r = 0, off_i = 0, tot_r = 0, tot_i = 0;
+  int off_r = n_rec, off_i = n_in, tot_r = 0, tot_i = 0;
   for (int w = 0; w < nwarps; ++w) {
     const int a = cnt_rec[w], c = cnt_in[w];
     if (w < warp) { off_r += a; off_i += c; }
@@ -87,9 +94,9 @@ __device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n,
   }
   const unsigned below = (1u << lane) - 1u;
   if (f_rec) rec_list[off_r + __popc(br & below)] = n;
-  if (f_in) in_list[off_i + __popc(bi & below)] = n;
-  n_rec = tot_r;
-  n_in = tot_i;
+  if (f_in) in_list[off_i + __popc(bi & below)] = ch;
+  n_rec += tot_r;
+  n_in += tot_i;
   __syncthreads();
 }
 
@@ -99,7 +106,7 @@ template <bool kChunk>
 __global__ void __launch_bounds__(MAX_N, 1)
 lif_kernel(const LifArgs a) {
   __shared__ int rec_list[MAX_N];
-  __shared__ int in_list[MAX_N];
+  extern __shared__ int in_list[];          // max(C, 1) entries
   __shared__ int cnt_rec[MAX_N / 32];
   __shared__ int cnt_in[MAX_N / 32];
 
@@ -123,9 +130,18 @@ lif_kernel(const LifArgs a) {
   float* win_row = kChunk ? a.win + (size_t)b * a.n_win * no + n : nullptr;
   float allc = 0.f;
 
+  // The sources of step t: the neurons that fired before it, and the input
+  // channels on at t, in rounds of Np channels.
   int n_rec = 0, n_in = 0;
-  compact2(s_last, n < C && xb[(size_t)n * T] != 0, n, rec_list, in_list,
-           cnt_rec, cnt_in, n_rec, n_in);
+  auto compact_step = [&](bool fired, int t) {
+    n_rec = n_in = 0;
+    for (int c0 = 0; c0 == 0 || c0 < C; c0 += Np) {
+      const int ch = c0 + n;
+      compact2(c0 == 0 && fired, t < T && ch < C && xb[(size_t)ch * T + t] != 0, n, ch,
+               rec_list, in_list, cnt_rec, cnt_in, n_rec, n_in);
+    }
+  };
+  compact_step(s_last, 0);
 
   for (int t = 0; t < T; ++t) {
     float acc_r = 0.f, acc_i = 0.f;
@@ -147,8 +163,7 @@ lif_kernel(const LifArgs a) {
 
     if (!kChunk && spike) allc += 1.f;
     if (n < no) st.step(spike, t, T, isi_max, a.win_len, a.n_win, win_row, no);
-    const bool next_in = (t + 1 < T) && n < C && xb[(size_t)n * T + t + 1] != 0;
-    compact2(spike, next_in, n, rec_list, in_list, cnt_rec, cnt_in, n_rec, n_in);
+    compact_step(spike, t + 1);
   }
 
   if (kChunk) {
@@ -162,7 +177,21 @@ lif_kernel(const LifArgs a) {
 }
 
 bool bad_shape(int C, int T, int Np, int no) {
-  return Np <= 0 || Np > MAX_N || Np % 32 || C > Np || no > Np || T <= 0;
+  return Np <= 0 || Np > MAX_N || Np % 32 || C < 0 || no > Np || T <= 0;
+}
+
+// One CTA a batch row, one thread a padded neuron; the input list of C
+// entries in dynamic shared memory.
+template <bool kChunk>
+int launch_one_thread(const LifArgs& a, void* stream) {
+  const int smem = std::max(a.C, 1) * static_cast<int>(sizeof(int));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lif_kernel<kChunk>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lif_kernel<kChunk><<<a.B, a.Np, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The block body's arguments for a dense (Np, Np) matrix, row = source:
@@ -208,8 +237,7 @@ extern "C" int lsm_lif_stats(const uint8_t* x, const uint16_t* w_rec,
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
   if (Np > MAX_N) return launch_wide(a, false, scratch, stream);
-  lif_kernel<false><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_one_thread<false>(a, stream);
 }
 
 extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
@@ -233,6 +261,5 @@ extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
   if (Np > MAX_N) return launch_wide(a, true, scratch, stream);
-  lif_kernel<true><<<B, Np, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_one_thread<true>(a, stream);
 }

@@ -117,12 +117,16 @@ struct BlockLifArgs {
   int refractory, burst_isi_max, win_len, n_win;
 };
 
+// The body keeps refrac between steps in 8 bits up to refractory 255 and in
+// 16 bits above, so it takes refractory <= 65535.
+constexpr int kMaxRefractory = 65535;
+
 // Launch on `stream`; returns a cudaError_t (cudaErrorInvalidValue for a
-// shape the kernel does not take, before any launch). The body keeps refrac
-// in 8 bits between steps, so it takes refractory <= 255.
+// shape the kernel does not take, before any launch).
 int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream);
 
 // Bytes of global scratch one launch_block_lif call needs.
-size_t block_lif_scratch_bytes(int B, int C, int T, int N, int S, int no, bool chunk);
+size_t block_lif_scratch_bytes(int B, int C, int T, int N, int S, int no, bool chunk,
+                               int refractory);
 
 }  // namespace lsm

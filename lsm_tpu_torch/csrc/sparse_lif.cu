@@ -31,9 +31,10 @@
 // reads R random partner blocks, so step t + 1 waits for all of step t.
 //
 // Design. One kernel launch per step, enqueued by the C entry point (T
-// launches a call, none from Python); v (f32), refrac (uint8) and two
-// bit-packed spike planes (B, N / 32) live in global scratch between steps,
-// which the wrapper allocates. Each call first copies every slot's weight
+// launches a call, none from Python); v (f32), refrac (8 bits up to
+// refractory 255, else 16: picked at launch) and two bit-packed spike
+// planes (B, N / 32) live in global scratch between steps, which the
+// wrapper allocates. Each call first copies every slot's weight
 // block K-major into that scratch, the input projection's 128-channel
 // slices as more slots (x_t . W_in[:, block j] is one more K-slice, as on
 // the TPU), so any stride or alignment of the caller's weights will do.
@@ -59,12 +60,14 @@
 // dyadic weights every partial sum is exact in f32 and the bits are the
 // twin's.
 //
-// Limits: N a multiple of 128, T > 0 and refractory <= 255 (refrac is kept
-// in 8 bits); no limit on N, C or the outputs from shared memory, which
+// Limits: N a multiple of 128, T > 0 and refractory <= 65535 (the 16-bit
+// counter); no limit on N, C or the outputs from shared memory, which
 // holds only the weight ring (65 KB). Each slot runs one serial chain (wait
 // for the stage, barrier, eight wgmma, wait, barrier) at two or three CTAs
 // an SM, and at 1024 streams the state (52 MB) does not fit the L2 beside
 // the weights, so its traffic goes to HBM each step.
+
+#include <type_traits>
 
 #include "lif_common.cuh"
 
@@ -86,13 +89,13 @@ size_t smem_bytes() { return kStages * (size_t)kTileBytes + 1024; }
 // Global scratch, in order: the K-major weight blocks (nb, S + n_in, 128,
 // 128) of every slot (the input projection's blocks after the recurrent
 // ones), two spike planes (B, N/32), the input bits (T, B, 4 n_in), the
-// output raster (T, B, ceil(no/32)), refrac (B, N) uint8 and, for B5, v
-// (B, N) f32 (B6 keeps v in v_out).
+// output raster (T, B, ceil(no/32)), refrac (B, N) of rbytes each and, for
+// B5, v (B, N) f32 (B6 keeps v in v_out).
 struct Layout {
   size_t wt, plane, xbits, raster, refrac, v, total;
 };
 
-Layout layout(int B, int C, int T, int N, int S, int no, bool chunk) {
+Layout layout(int B, int C, int T, int N, int S, int no, bool chunk, int rbytes) {
   Layout l{};
   const size_t b = B, nb = N / kBlock, wn = N / 32, n_in = in_slices(C), now = (no + 31) / 32;
   l.wt = 0;
@@ -100,7 +103,7 @@ Layout layout(int B, int C, int T, int N, int S, int no, bool chunk) {
   l.xbits = l.plane + align256(2 * b * wn * 4);
   l.raster = l.xbits + align256((size_t)T * b * 4 * n_in * 4);
   l.refrac = l.raster + align256((size_t)T * b * now * 4);
-  l.v = l.refrac + align256(b * N);
+  l.v = l.refrac + align256(b * N * rbytes);
   l.total = l.v + (chunk ? 0 : align256(b * N * 4));
   return l;
 }
@@ -178,7 +181,7 @@ struct StepArgs {
   const uint32_t* xb;        // (B, 4 n_in) input bits of step t
   uint32_t* raster;          // (B, no_w) output-neuron bits of step t
   float* v;                  // (B, N)
-  uint8_t* refrac;           // (B, N)
+  void* refrac;              // (B, N) of R
   float* all_counts;         // B5: (B, N); B6: nullptr
   const uint16_t* wt;        // (nb, S + n_in, 128, 128) K-major blocks
   const int* src_idx;        // (nb, S) or nullptr (slot s reads block s)
@@ -190,10 +193,15 @@ struct StepArgs {
 // One step for (tile of M streams = blockIdx.x, destination block j =
 // blockIdx.y). Warpgroup wg owns rows 64 wg .. + 64 of the tile and all 128
 // lanes; its warp w rows 64 wg + 16 w .. + 16, and each thread the two rows
-// g and g + 8 of its warp's 16.
-template <int M>
+// g and g + 8 of its warp's 16. R (uint8_t or uint16_t) holds refrac.
+template <int M, typename R>
 __global__ void __launch_bounds__(2 * M, 2) block_step_kernel(const StepArgs a) {
   constexpr int kThreads = 2 * M;
+  // Two neighbours' counters in one load and store.
+  using Pair = typename std::conditional<sizeof(R) == 1, uint16_t, uint32_t>::type;
+  constexpr int kBits = 8 * sizeof(R);
+  constexpr unsigned kMask = (1u << kBits) - 1u;
+  R* const refrac_s = static_cast<R*>(a.refrac);
   extern __shared__ unsigned char smem_raw[];
   // The weight ring, aligned to the 1024-byte swizzle atom.
   unsigned char* w_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -300,7 +308,7 @@ __global__ void __launch_bounds__(2 * M, 2) block_step_kernel(const StepArgs a) 
       for (int h = 0; h < 2; ++h) {
         const size_t at = rows[h] + n0 + 8 * t;
         vv[h][t] = oks[h] ? *reinterpret_cast<const float2*>(a.v + at) : make_float2(0.f, 0.f);
-        rr[h][t] = oks[h] ? *reinterpret_cast<const uint16_t*>(a.refrac + at) : 0u;
+        rr[h][t] = oks[h] ? *reinterpret_cast<const Pair*>(refrac_s + at) : 0u;
       }
     }
 #pragma unroll
@@ -313,7 +321,7 @@ __global__ void __launch_bounds__(2 * M, 2) block_step_kernel(const StepArgs a) 
         unsigned ro = 0;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int refrac = (rr[h][t] >> (8 * e)) & 0xFFu;
+          const int refrac = (rr[h][t] >> (kBits * e)) & kMask;
           const bool active = refrac == 0;
           // No FMA contraction: the plain twin rounds the product and the sum.
           const float v_new =
@@ -322,7 +330,7 @@ __global__ void __launch_bounds__(2 * M, 2) block_step_kernel(const StepArgs a) 
                      : 0.f;
           const bool spike = active && v_new >= a.thr;
           vo[e] = spike ? 0.f : v_new;
-          ro |= static_cast<unsigned>(spike ? a.refractory : max(refrac - 1, 0)) << (8 * e);
+          ro |= static_cast<unsigned>(spike ? a.refractory : max(refrac - 1, 0)) << (kBits * e);
           if (spike) {
             word |= 1u << (t * 8 + 2 * q + e);
             if (oks[h] && a.all_counts) a.all_counts[at + e] += 1.f;
@@ -330,7 +338,7 @@ __global__ void __launch_bounds__(2 * M, 2) block_step_kernel(const StepArgs a) 
         }
         if (oks[h]) {
           *reinterpret_cast<float2*>(a.v + at) = make_float2(vo[0], vo[1]);
-          *reinterpret_cast<uint16_t*>(a.refrac + at) = static_cast<uint16_t>(ro);
+          *reinterpret_cast<Pair*>(refrac_s + at) = static_cast<Pair>(ro);
         }
       }
       word |= __shfl_xor_sync(0xffffffffu, word, 1);
@@ -389,19 +397,21 @@ __global__ void pack_input_kernel(const uint8_t* x, uint32_t* bits, int B, int C
 }
 
 // B6's carried state into the step layout: v_in -> v (v_out), refrac_in ->
-// uint8 (the wrapper holds refractory <= 255; larger carried counts
+// R (the launch picks R to hold refractory; larger carried counts
 // saturate), s_in -> spike plane 0. N % 128 == 0, so a warp is one word.
+template <typename R>
 __global__ void load_state_kernel(const float* v_in, const int* refrac_in, const float* s_in,
-                                  float* v, uint8_t* refrac, uint32_t* plane, size_t total) {
+                                  float* v, R* refrac, uint32_t* plane, size_t total) {
   const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
   if (i >= total) return;                                 // whole warps: total % 32 == 0
   v[i] = v_in[i];
-  refrac[i] = static_cast<uint8_t>(min(max(refrac_in[i], 0), 255));
+  refrac[i] = static_cast<R>(min(max(refrac_in[i], 0), (1 << (8 * sizeof(R))) - 1));
   const unsigned word = __ballot_sync(0xffffffffu, s_in[i] != 0.f);
   if ((threadIdx.x & 31) == 0) plane[i >> 5] = word;
 }
 
-__global__ void store_state_kernel(const uint8_t* refrac, const uint32_t* plane,
+template <typename R>
+__global__ void store_state_kernel(const R* refrac, const uint32_t* plane,
                                    int* refrac_out, float* s_out, size_t total) {
   const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -438,11 +448,11 @@ int block_lif_tile(int B, int N) {
   return (long long)((B + 127) / 128) * (N / kBlock) >= 2LL * sms ? 128 : 64;
 }
 
-template <int M>
+template <int M, typename R>
 int run_steps(const BlockLifArgs& a, StepArgs s, uint32_t* plane0, uint32_t* plane1,
               const uint32_t* xbits, uint32_t* raster, cudaStream_t stream) {
   const int smem = static_cast<int>(smem_bytes());
-  cudaError_t err = cudaFuncSetAttribute(block_step_kernel<M>,
+  cudaError_t err = cudaFuncSetAttribute(block_step_kernel<M, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.B + M - 1) / M, a.N / kBlock);
@@ -451,25 +461,18 @@ int run_steps(const BlockLifArgs& a, StepArgs s, uint32_t* plane0, uint32_t* pla
     s.wr = t & 1 ? plane0 : plane1;
     s.xb = xbits + (size_t)t * a.B * 4 * s.n_in;
     s.raster = raster + (size_t)t * a.B * s.no_w;
-    block_step_kernel<M><<<grid, 2 * M, smem, stream>>>(s);
+    block_step_kernel<M, R><<<grid, 2 * M, smem, stream>>>(s);
     if (t == 0 && (err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-}  // namespace
+// Bytes a refractory counter takes: 8 bits up to 255, else 16.
+int refrac_bytes(int refractory) { return refractory > 255 ? 2 : 1; }
 
-size_t block_lif_scratch_bytes(int B, int C, int T, int N, int S, int no, bool chunk) {
-  return layout(B, C, T, N, S, no, chunk).total;
-}
-
-int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
-  if (a.B <= 0) return 0;
-  if (a.N <= 0 || a.N % kBlock || a.S <= 0 || a.C < 0 || a.no <= 0 || a.no > a.N ||
-      a.T <= 0 || a.refractory < 0 || a.refractory > 255 || !a.scratch ||
-      (chunk && (a.win_len <= 0 || a.T != a.win_len * a.n_win)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L = layout(a.B, a.C, a.T, a.N, a.S, a.no, chunk);
+template <typename R>
+int launch_with(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
+  const Layout L = layout(a.B, a.C, a.T, a.N, a.S, a.no, chunk, sizeof(R));
   unsigned char* sc = static_cast<unsigned char*>(a.scratch);
   const size_t total = (size_t)a.B * a.N, wpr = a.N / 32;
   uint16_t* wt = reinterpret_cast<uint16_t*>(sc + L.wt);
@@ -477,7 +480,7 @@ int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
   uint32_t* plane1 = plane0 + (size_t)a.B * wpr;
   uint32_t* xbits = reinterpret_cast<uint32_t*>(sc + L.xbits);
   uint32_t* raster = reinterpret_cast<uint32_t*>(sc + L.raster);
-  uint8_t* refrac = sc + L.refrac;
+  R* refrac = reinterpret_cast<R*>(sc + L.refrac);
   float* v = chunk ? a.v_out : reinterpret_cast<float*>(sc + L.v);
   const int n_in = in_slices(a.C), no_w = (a.no + 31) / 32, K = a.S + n_in;
 
@@ -493,7 +496,7 @@ int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
     load_state_kernel<<<grid_1d(total, 256), 256, 0, stream>>>(a.v_in, a.refrac_in, a.s_in, v,
                                                                refrac, plane0, total);
   } else if ((err = cudaMemsetAsync(plane0, 0, (size_t)a.B * wpr * 4, stream)) != cudaSuccess ||
-             (err = cudaMemsetAsync(refrac, 0, total, stream)) != cudaSuccess ||
+             (err = cudaMemsetAsync(refrac, 0, total * sizeof(R), stream)) != cudaSuccess ||
              (err = cudaMemsetAsync(v, 0, total * 4, stream)) != cudaSuccess ||
              (err = cudaMemsetAsync(a.all_counts, 0, total * 4, stream)) != cudaSuccess) {
     return static_cast<int>(err);
@@ -506,8 +509,8 @@ int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
   s.B = a.B; s.N = a.N; s.S = a.S; s.n_in = n_in; s.no_w = no_w;
   s.refractory = a.refractory; s.thr = a.thr;
   const int rc = block_lif_tile(a.B, a.N) == 128
-                     ? run_steps<128>(a, s, plane0, plane1, xbits, raster, stream)
-                     : run_steps<64>(a, s, plane0, plane1, xbits, raster, stream);
+                     ? run_steps<128, R>(a, s, plane0, plane1, xbits, raster, stream)
+                     : run_steps<64, R>(a, s, plane0, plane1, xbits, raster, stream);
   if (rc != 0) return rc;
 
   const float isi_max = static_cast<float>(a.burst_isi_max);
@@ -522,6 +525,23 @@ int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
                                                    a.win_len, a.n_win, nullptr, a.stats);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+size_t block_lif_scratch_bytes(int B, int C, int T, int N, int S, int no, bool chunk,
+                               int refractory) {
+  return layout(B, C, T, N, S, no, chunk, refrac_bytes(refractory)).total;
+}
+
+int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
+  if (a.B <= 0) return 0;
+  if (a.N <= 0 || a.N % kBlock || a.S <= 0 || a.C < 0 || a.no <= 0 || a.no > a.N ||
+      a.T <= 0 || a.refractory < 0 || a.refractory > kMaxRefractory || !a.scratch ||
+      (chunk && (a.win_len <= 0 || a.T != a.win_len * a.n_win)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return refrac_bytes(a.refractory) == 2 ? launch_with<uint16_t>(a, chunk, stream)
+                                         : launch_with<uint8_t>(a, chunk, stream);
 }
 
 }  // namespace lsm
@@ -550,8 +570,9 @@ lsm::BlockLifArgs sparse_args(const uint8_t* x, const uint16_t* w_blocks,
 // Bytes of global scratch the block body needs for one call (the wrappers
 // allocate it).
 extern "C" long long lsm_block_lif_scratch_bytes(int B, int C, int T, int N, int S, int no,
-                                                 int chunk) {
-  return static_cast<long long>(lsm::block_lif_scratch_bytes(B, C, T, N, S, no, chunk != 0));
+                                                 int chunk, int refractory) {
+  return static_cast<long long>(
+      lsm::block_lif_scratch_bytes(B, C, T, N, S, no, chunk != 0, refractory));
 }
 
 extern "C" int lsm_sparse_lif_stats(const uint8_t* x, const uint16_t* w_blocks,

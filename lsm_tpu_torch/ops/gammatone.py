@@ -3,12 +3,13 @@
 The float64 NumPy constant builders are copied from the reference package,
 whose module imports jax: `make_erb_coeffs`, `gtgram_strides`,
 `_block_iir_matrices` and `_quadratic_matrices` (tests assert equality with
-lsm_tpu's). Slaney's 4-biquad cascade is applied in block form over
-sub-blocks of g = gcd(hop, window) samples with an 8-dim carried state; the
-per-sub-block energies come from kernel B1 (ops/kernels/gtgram.py), whose
-plain PyTorch twin is the exact block scan of lsm_tpu's `gtgram_iir`, and,
-for the continuous engine's chunks with a carried state, from kernel B3
-(`gtgram_chunk`, `gtgram_iir_scan`).
+lsm_tpu's). Slaney's 4-biquad cascade runs over sub-blocks of g = gcd(hop,
+window) samples with an 8-dim carried state; the per-sub-block energies come
+from kernel B1 (ops/kernels/gtgram.py), which runs the cascade sample by
+sample from `cascade_coeffs`, and whose plain PyTorch twin is the exact
+block scan of lsm_tpu's `gtgram_iir` on `block_system`; for the continuous
+engine's chunks with a carried state, from kernel B3 (`gtgram_chunk`,
+`gtgram_iir_scan`).
 """
 
 from __future__ import annotations
@@ -109,25 +110,48 @@ def gtgram_strides(fs: float, window_time: float, hop_time: float, n_samples: in
     return nwin, hop, n_cols
 
 
+def _section_coeffs(fs: float, channels: int, f_min: float):
+    """(n0 (C,), n1 (4, C), b1 (C,), b2 (C,)) float64: section k is
+    (n0 + n1[k] z^-1) / (1 + b1 z^-1 + b2 z^-2), the 1/gain factor split
+    evenly across the four sections (gain ~1e-12; folding it into one
+    section drives that section's state to ~1e10)."""
+    coeffs = make_erb_coeffs(fs, channels, f_min)
+    g4 = coeffs.gain ** 0.25
+    return (coeffs.a0 / g4, np.stack([coeffs.a1[k] / g4 for k in range(4)]),
+            coeffs.b1, coeffs.b2)
+
+
 @functools.lru_cache(maxsize=None)
-def _block_iir_matrices(fs: float, channels: int, f_min: float, L: int):
+def cascade_coeffs(fs: float, channels: int, f_min: float) -> np.ndarray:
+    """Kernel B1/B3's operand, (C, 11) float64: per channel n0, alpha1,
+    alpha2, beta1[0..3], beta2[0..3] of the cascade in delta-operator
+    transposed direct form II (delta = z - 1),
+
+        y = n0 x + w1;  w1 += beta1_k x - alpha1 y + w2;  w2 += beta2_k x - alpha2 y
+
+    with alpha1 = 2 + b1, alpha2 = 1 + b1 + b2, beta1_k = 2 n0 + n1_k and
+    beta2_k = n0 + n1_k, formed here in float64 so that the float32 operand
+    rounds each once. Its states relate to the TDF2 states (s1, s2) of
+    `_block_iir_matrices` by w1 = s1, w2 = s1 + s2."""
+    n0, n1, b1, b2 = _section_coeffs(fs, channels, f_min)
+    return np.stack([n0, 2.0 + b1, 1.0 + b1 + b2, *(2.0 * n0 + n1), *(n0 + n1)], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_iir_matrices64(fs: float, channels: int, f_min: float, L: int):
     """Exact block-form matrices of the 4-biquad cascade, per channel:
 
         y_block = x_block @ M_yx + s @ M_sy
         s'      = x_block @ M_xs + s @ M_ss
 
-    obtained in float64 by running the sequential filter on basis vectors
-    (L input impulses + 8 unit states). The 1/gain factor is split evenly
-    across the four stages (gain ~1e-12; folding it into one stage drives
-    that stage's state to ~1e10). Returns (M_yx (C,L,L), M_sy (C,8,L),
-    M_xs (C,L,8), M_ss (C,8,8)) float32.
+    obtained in float64 by running the sequential TDF2 filter on basis
+    vectors (L input impulses + 8 unit states; state 2k + j is section k's
+    s_{j+1}). Returns (M_yx (C,L,L), M_sy (C,8,L), M_xs (C,L,8), M_ss
+    (C,8,8)) float64.
     """
-    coeffs = make_erb_coeffs(fs, channels, f_min)
     C = channels
-    g4 = coeffs.gain ** 0.25
-    n0 = np.stack([coeffs.a0 / g4] * 4)
-    n1 = np.stack([coeffs.a1[k] / g4 for k in range(4)])
-    b1, b2 = coeffs.b1, coeffs.b2
+    a0, n1, b1, b2 = _section_coeffs(fs, channels, f_min)
+    n0 = np.stack([a0] * 4)
 
     N = L + 8
     x_basis = np.zeros((N, L))
@@ -150,12 +174,14 @@ def _block_iir_matrices(fs: float, channels: int, f_min: float, L: int):
         y_out[:, :, t] = x
 
     s_flat = state.reshape(C, N, 8)
-    return (
-        np.ascontiguousarray(y_out[:, :L]).astype(np.float32),
-        np.ascontiguousarray(y_out[:, L:]).astype(np.float32),
-        np.ascontiguousarray(s_flat[:, :L]).astype(np.float32),
-        np.ascontiguousarray(s_flat[:, L:]).astype(np.float32),
-    )
+    return (np.ascontiguousarray(y_out[:, :L]), np.ascontiguousarray(y_out[:, L:]),
+            np.ascontiguousarray(s_flat[:, :L]), np.ascontiguousarray(s_flat[:, L:]))
+
+
+@functools.lru_cache(maxsize=None)
+def _block_iir_matrices(fs: float, channels: int, f_min: float, L: int):
+    """`_block_iir_matrices64` rounded to float32, as lsm_tpu returns them."""
+    return tuple(m.astype(np.float32) for m in _block_iir_matrices64(fs, channels, f_min, L))
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,16 +203,18 @@ def _quadratic_matrices(fs: float, channels: int, f_min: float, g: int):
 
 
 @functools.lru_cache(maxsize=None)
-def block_system(fs: float, channels: int, f_min: float, g: int) -> np.ndarray:
-    """The four block matrices as ONE (C, g+8, g+8) float32 system per
-    channel, acting on z = [x_block (g); state (8)]:
+def block_system(fs: float, channels: int, f_min: float, g: int,
+                 dtype=np.float32) -> np.ndarray:
+    """The four block matrices as ONE (C, g+8, g+8) system per channel,
+    acting on z = [x_block (g); state (8)]:
 
         rows m < g:   y_m  = sum_j K[c, m, j] z_j
         rows g + t:   s'_t = sum_j K[c, g+t, j] z_j
 
-    This is kernel B1's operand (one matrix, ~31 KB per channel at g=80)."""
-    m_yx, m_sy, m_xs, m_ss = _block_iir_matrices(fs, channels, f_min, g)
-    k = np.zeros((channels, g + 8, g + 8), np.float32)
+    The plain twin's operand, in float32 (lsm_tpu's matrices) or float64
+    (the exact reference chip_smoke.py holds the kernels to)."""
+    m_yx, m_sy, m_xs, m_ss = _block_iir_matrices64(fs, channels, f_min, g)
+    k = np.zeros((channels, g + 8, g + 8), dtype)
     k[:, :g, :g] = m_yx.transpose(0, 2, 1)       # [c, m, l] = M_yx[c, l, m]
     k[:, :g, g:] = m_sy.transpose(0, 2, 1)       # [c, m, s] = M_sy[c, s, m]
     k[:, g:, :g] = m_xs.transpose(0, 2, 1)       # [c, t, l] = M_xs[c, l, t]
@@ -195,11 +223,16 @@ def block_system(fs: float, channels: int, f_min: float, g: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def block_system_tensor(fs: float, channels: int, f_min: float, g: int,
-                        device: torch.device) -> torch.Tensor:
-    """`block_system` as a tensor on `device`, uploaded once per device and
-    geometry: the hot path copies nothing to the card."""
-    return torch.as_tensor(block_system(fs, channels, f_min, g)).to(device)
+def filterbank(fs: float, channels: int, f_min: float, g: int,
+               device: torch.device, dtype: torch.dtype = torch.float32):
+    """The operands of kernels B1/B3 and their twins at sub-block length g,
+    made once per device: `cascade_coeffs` for the kernels and
+    `block_system` for the plain twins, in float32 (or float64, the
+    exact reference)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return gtgram_kernel.Filterbank(
+        torch.as_tensor(cascade_coeffs(fs, channels, f_min).astype(np_dtype)).to(device),
+        torch.as_tensor(block_system(fs, channels, f_min, g, np_dtype)).to(device))
 
 
 def gtgram_chunk(
@@ -215,8 +248,8 @@ def gtgram_chunk(
     sub-block energies (n_sub, B, C)): kernel B3 on CUDA, its plain twin on
     the CPU. Chunked calls that thread the state are bit-equal to one call
     over the whole signal."""
-    kmat = block_system_tensor(fs, channels, f_min, g, wave.device)
-    return gtgram_kernel.chunk(wave.contiguous(), kmat, state.contiguous())
+    fb = filterbank(fs, channels, f_min, g, wave.device)
+    return gtgram_kernel.chunk(wave.contiguous(), fb, state.contiguous())
 
 
 def gtgram_iir_scan(
@@ -256,12 +289,12 @@ def gtgram_iir(
     wave = wave.to(torch.float32)
     if pad:
         wave = torch.nn.functional.pad(wave, (0, pad))
-    kmat = block_system_tensor(fs, channels, f_min, g, wave.device)
-    sub = gtgram_kernel.sub_energy(wave.contiguous(), kmat)   # (n_sub, C, B)
+    fb = filterbank(fs, channels, f_min, g, wave.device)
+    sub = gtgram_kernel.sub_energy(wave.contiguous(), fb)     # (n_sub, B, C)
 
     w_per, h_per = nwin // g, hop // g
     span = (n_cols - 1) * h_per + 1
     win = sub[0:span:h_per]
     for j in range(1, w_per):
-        win = win + sub[j:j + span:h_per]                        # (n_cols, C, B)
-    return torch.sqrt(win / nwin).permute(2, 1, 0)
+        win = win + sub[j:j + span:h_per]                        # (n_cols, B, C)
+    return torch.sqrt(win / nwin).permute(1, 2, 0)

@@ -4,47 +4,63 @@ B1 replaces lsm_tpu/ops/pallas/gtgram_kernel.py:70 `_energy_kernel` (via
 `gtgram_pallas`) together with its XLA phase 1,
 lsm_tpu/ops/gammatone.py:345 `gtgram_state_energy`. B3 replaces the
 continuous-mode entry gtgram_kernel.py:205 `gtgram_chunk_two_phase`: the
-same two phases from a carried (B, 8, C) cascade state, which it returns.
-The TPU split the work into two phases only to avoid a Mosaic relayout; on
-Hopper one kernel body (templated on the carried state) runs the exact
-block recurrence: one thread per (batch row, channel) carries the 8-dim
-cascade state in registers, the channel's (g+8, g+8) block system (~31 KB
-at g=80) sits in shared memory, and each sub-block costs (g+8)^2 float32
-FMAs.
+same from a carried (B, 8, C) cascade state, which it returns. Both write
+the energies (n_sub, B, C) of every sub-block of g samples.
 
-What bounds both on an H100: float32 FMA throughput on the CUDA cores (no
-tensor cores: the state path must stay exact f32, so no TF32 and no bf16)
-and the shared-memory operand reads that feed them (one 16-byte broadcast
-load per four FMAs). The waveform is re-read once per channel; CTAs of one
-batch tile over all channels are scheduled together, so those re-reads hit
-L2. B1 at 2400 utterances does ~0.95 TFLOP of FMAs; B3 at 1024 streams
-does ~40.6 GFLOP a 100 ms hop. The function itself, Slaney's sequential
-cascade, needs ~5.8x less (17 float32 instructions a sample), and
-chip_smoke.py's bound counts that.
+The TPU ran the cascade in block form, a (g+8, g+8) matrix product per
+sub-block on the MXU. On Hopper one templated kernel body runs Slaney's
+four-section cascade itself: one thread per (batch row, channel), sample by
+sample in exact float32 on the CUDA cores, in the delta-operator form of
+the transposed direct form II (25 float32 instructions a sample against the
+block form's ~97 at g = 80; its coefficients are `Filterbank.coeffs`). What
+bounds it on an H100: float32 issue and each section's recurrence latency,
+hidden by the rows and channels in flight. The carried state is the block
+form's TDF2 state, converted in and out at every sub-block, so chunked
+calls that thread it are bit-equal to one call. No tensor cores: the state
+path stays exact float32, without TF32 or bf16. chip_smoke.py's bound
+counts Slaney's cascade (17 float32 instructions a sample).
+
+The plain twins stay the exact block scan of lsm_tpu's `gtgram_iir_scan`,
+op for op, on `Filterbank.kmat`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from lsm_tpu_torch.ops import _build
 
-G = 80                   # samples per sub-block the kernels are compiled for
-_BT = 64                 # batch rows per CTA (csrc/gtgram.cu)
+N_COEF = 11              # per channel: n0, alpha1, alpha2, beta1[4], beta2[4]
 
 launches = 0             # B1 kernel launches (the plain twin does not count)
 chunk_launches = 0       # B3 kernel launches
 
 
-def chunk_plain(wave: torch.Tensor, kmat: torch.Tensor, state: torch.Tensor):
+class Filterbank(NamedTuple):
+    """One gammatone filterbank at sub-block length g on one device
+    (ops/gammatone.py `filterbank`): the kernels' cascade coefficients
+    `coeffs` (C, N_COEF) and the plain twins' block system `kmat`
+    (C, g+8, g+8)."""
+
+    coeffs: torch.Tensor
+    kmat: torch.Tensor
+
+    @property
+    def g(self) -> int:
+        return self.kmat.shape[1] - 8
+
+
+def chunk_plain(wave: torch.Tensor, fb: Filterbank, state: torch.Tensor):
     """Plain PyTorch twin of B3: the exact block scan of lsm_tpu's
-    `gtgram_iir_scan`, op for op, from a carried state. wave (B, n_sub*g)
-    f32, kmat (C, g+8, g+8) f32, state (B, 8, C) f32 -> (final state
-    (B, 8, C), sub-block energies (n_sub, B, C)). Each step's operations
-    do not depend on where the signal was cut, so chunked calls that
-    thread the state are bit-equal to one call over the whole signal."""
+    `gtgram_iir_scan`, op for op, from a carried state. wave (B, n_sub*g),
+    state (B, 8, C), in fb.kmat's dtype -> (final state (B, 8, C),
+    sub-block energies (n_sub, B, C)). Each step's operations do not depend
+    on where the signal was cut, so chunked calls that thread the state are
+    bit-equal to one call over the whole signal."""
+    kmat = fb.kmat
     B, S = wave.shape
     C, Z, _ = kmat.shape
     g = Z - 8
@@ -56,7 +72,7 @@ def chunk_plain(wave: torch.Tensor, kmat: torch.Tensor, state: torch.Tensor):
     w_xs = kmat[:, g:, :g].permute(2, 1, 0).reshape(g, 8 * C)
     m_sy_t = kmat[:, :g, g:].permute(2, 1, 0).contiguous()      # (8, g, C)
     m_ss_t = kmat[:, g:, g:].permute(2, 1, 0).contiguous()      # (8, 8, C)
-    out = torch.empty(n_sub, B, C, dtype=torch.float32, device=wave.device)
+    out = torch.empty(n_sub, B, C, dtype=kmat.dtype, device=wave.device)
     for k in range(n_sub):
         x = blocks[k]
         y = (x @ w_yx).view(B, g, C)
@@ -70,73 +86,65 @@ def chunk_plain(wave: torch.Tensor, kmat: torch.Tensor, state: torch.Tensor):
     return state, out
 
 
-def sub_energy_plain(wave: torch.Tensor, kmat: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of B1: `chunk_plain` from a zero state, energies
-    in B1's (n_sub, C, B) layout."""
-    B = wave.shape[0]
-    state = torch.zeros(B, 8, kmat.shape[0], dtype=torch.float32, device=wave.device)
-    return chunk_plain(wave, kmat, state)[1].permute(0, 2, 1).contiguous()
+def sub_energy_plain(wave: torch.Tensor, fb: Filterbank) -> torch.Tensor:
+    """Plain PyTorch twin of B1: `chunk_plain` from a zero state."""
+    state = torch.zeros(wave.shape[0], 8, fb.kmat.shape[0], dtype=fb.kmat.dtype,
+                        device=wave.device)
+    return chunk_plain(wave, fb, state)[1]
 
 
-def _check(wave: torch.Tensor, kmat: torch.Tensor) -> None:
-    if wave.dtype != torch.float32 or kmat.dtype != torch.float32:
-        raise TypeError(f"gtgram kernels want float32, got {wave.dtype}, {kmat.dtype}")
-    if wave.dim() != 2 or kmat.dim() != 3 or kmat.shape[1] != kmat.shape[2]:
-        raise ValueError(f"bad shapes wave {tuple(wave.shape)} kmat {tuple(kmat.shape)}")
-    g = kmat.shape[1] - 8
-    if wave.shape[1] % g:
-        raise ValueError(f"wave length {wave.shape[1]} is not a multiple of g={g}")
-    if wave.device != kmat.device:
-        raise ValueError(f"wave on {wave.device}, kmat on {kmat.device}")
-    if not (wave.is_contiguous() and kmat.is_contiguous()):
+def _check(wave: torch.Tensor, fb: Filterbank) -> None:
+    coeffs, kmat = fb
+    if not all(t.dtype == torch.float32 for t in (wave, coeffs, kmat)):
+        raise TypeError(f"gtgram kernels want float32, got {wave.dtype}, "
+                        f"{coeffs.dtype}, {kmat.dtype}")
+    C = kmat.shape[0] if kmat.dim() == 3 else -1
+    if wave.dim() != 2 or C <= 0 or kmat.shape[1] != kmat.shape[2] or kmat.shape[1] <= 8 \
+            or tuple(coeffs.shape) != (C, N_COEF):
+        raise ValueError(f"bad shapes wave {tuple(wave.shape)} coeffs {tuple(coeffs.shape)} "
+                         f"kmat {tuple(kmat.shape)}")
+    if wave.shape[1] % fb.g or wave.shape[1] == 0:
+        raise ValueError(f"wave length {wave.shape[1]} is not a positive multiple of "
+                         f"g={fb.g}")
+    if not wave.device == coeffs.device == kmat.device:
+        raise ValueError(f"wave on {wave.device}, operands on {coeffs.device}, {kmat.device}")
+    if not all(t.is_contiguous() for t in (wave, coeffs, kmat)):
         raise ValueError("gtgram kernels want contiguous tensors")
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """What the compiled kernels need beyond `_check`: a CUDA device, g=80,
-    16-byte aligned operands (float4 loads)."""
-    wave, kmat = tensors[:2]
-    if wave.device.type != "cuda":
-        raise ValueError(f"unsupported device {wave.device}")
-    g = kmat.shape[1] - 8
-    if g != G:
-        raise ValueError(f"kernel {name} is compiled for g={G}, got g={g}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"kernel {name} loads float4: tensors must be 16-byte aligned")
+def _stream(dev: torch.device) -> int:
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
-def sub_energy(wave: torch.Tensor, kmat: torch.Tensor) -> torch.Tensor:
-    """Sub-block energies (n_sub, C, B) from a zero state: kernel B1 on
+def sub_energy(wave: torch.Tensor, fb: Filterbank) -> torch.Tensor:
+    """Sub-block energies (n_sub, B, C) from a zero state: kernel B1 on
     CUDA, the plain twin on CPU."""
     global launches
-    _check(wave, kmat)
+    _check(wave, fb)
     if wave.device.type == "cpu":
-        return sub_energy_plain(wave, kmat)
-    _check_cuda("B1", wave, kmat)
+        return sub_energy_plain(wave, fb)
     B, S = wave.shape
-    C = kmat.shape[0]
-    n_sub = S // G
-    out = torch.empty(n_sub, C, B, dtype=torch.float32, device=wave.device)
-    fn = _build.function("lsm_gtgram_sub_energy", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ])
+    C, g = fb.coeffs.shape[0], fb.g
+    out = torch.empty(S // g, B, C, dtype=torch.float32, device=wave.device)
+    fn = _build.function("lsm_gtgram_sub_energy", [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(wave.device):
-        stream = torch.cuda.current_stream(wave.device).cuda_stream
-        err = fn(wave.data_ptr(), kmat.data_ptr(), out.data_ptr(),
-                 B, C, n_sub, stream)
+        err = fn(wave.data_ptr(), fb.coeffs.data_ptr(), out.data_ptr(), B, C, S // g, g,
+                 _stream(wave.device))
     _build.check(err, "lsm_gtgram_sub_energy")
     launches += 1
     return out
 
 
-def chunk(wave: torch.Tensor, kmat: torch.Tensor, state: torch.Tensor):
+def chunk(wave: torch.Tensor, fb: Filterbank, state: torch.Tensor):
     """(final state (B, 8, C), energies (n_sub, B, C)) of one chunk from the
     carried state: kernel B3 on CUDA, the plain twin on CPU."""
     global chunk_launches
-    _check(wave, kmat)
-    B = wave.shape[0]
-    C = kmat.shape[0]
+    _check(wave, fb)
+    B, S = wave.shape
+    C, g = fb.coeffs.shape[0], fb.g
     if state.dtype != torch.float32:
         raise TypeError(f"cascade state must be float32, got {state.dtype}")
     if tuple(state.shape) != (B, 8, C):
@@ -144,21 +152,14 @@ def chunk(wave: torch.Tensor, kmat: torch.Tensor, state: torch.Tensor):
     if state.device != wave.device or not state.is_contiguous():
         raise ValueError(f"cascade state must be contiguous on {wave.device}")
     if wave.device.type == "cpu":
-        return chunk_plain(wave, kmat, state)
-    _check_cuda("B3", wave, kmat, state)
-    n_sub = wave.shape[1] // G
-    if n_sub == 0:
-        raise ValueError("kernel B3 needs at least one sub-block")
+        return chunk_plain(wave, fb, state)
     state_out = torch.empty_like(state)
-    out = torch.empty(n_sub, B, C, dtype=torch.float32, device=wave.device)
-    fn = _build.function("lsm_gtgram_chunk", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ])
+    out = torch.empty(S // g, B, C, dtype=torch.float32, device=wave.device)
+    fn = _build.function("lsm_gtgram_chunk", [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(wave.device):
-        stream = torch.cuda.current_stream(wave.device).cuda_stream
-        err = fn(wave.data_ptr(), kmat.data_ptr(), state.data_ptr(),
-                 state_out.data_ptr(), out.data_ptr(), B, C, n_sub, stream)
+        err = fn(wave.data_ptr(), fb.coeffs.data_ptr(), state.data_ptr(), state_out.data_ptr(),
+                 out.data_ptr(), B, C, S // g, g, _stream(wave.device))
     _build.check(err, "lsm_gtgram_chunk")
     chunk_launches += 1
     return state_out, out

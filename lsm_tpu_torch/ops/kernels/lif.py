@@ -19,8 +19,10 @@ the previous chunk's last spikes. Above 1024 padded neurons (up to 4096,
 the largest dense reservoir the port draws) the C entry points run the
 stream-tiled block body of csrc/sparse_lif.cu instead, with the dense
 matrix seen as N_pad/128 x N_pad/128 blocks, in global scratch that the
-wrapper allocates (`block_scratch`); that body keeps refrac in 8 bits
-(refractory <= 255).
+wrapper allocates (`block_scratch`); that body keeps refrac in 8 bits up
+to refractory 255 and in 16 bits above (refractory <= 65535). The
+one-thread body takes any number of input channels: thread n compacts
+channels n, n + N_pad, ...
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ STAT_KEYS = (
 SEG_KEYS = STAT_KEYS[:9]  # the segment summary B4 writes
 MAX_NEURONS = 4096       # N_pad <= 1024: one thread a neuron; above: the block body
 _ONE_THREAD_MAX = 1024
-MAX_REFRACTORY = 255     # the block body's 8-bit refractory counter
+MAX_REFRACTORY = 65535   # the block body's refractory counter: 8 bits, 16 above 255
 
 launches = 0             # B2 kernel launches (the plain twin does not count)
 chunk_launches = 0       # B4 kernel launches
@@ -159,11 +161,11 @@ def _check(x, w_rec, w_in, leak_keep, n_outputs):
 def _check_cuda(name, x, n_pad, refractory):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    B, C, T = x.shape
-    if n_pad > MAX_NEURONS or n_pad % 32 or C > n_pad or T == 0:
+    T = x.shape[2]
+    if n_pad > MAX_NEURONS or n_pad % 32 or T == 0:
         raise ValueError(
-            f"kernel {name} takes T > 0, N_pad <= {MAX_NEURONS}, N_pad % 32 == 0 "
-            f"and C <= N_pad; got T={T} N_pad={n_pad} C={C}"
+            f"kernel {name} takes T > 0, N_pad <= {MAX_NEURONS} and N_pad % 32 == 0; "
+            f"got T={T} N_pad={n_pad}"
         )
     if n_pad > _ONE_THREAD_MAX and (n_pad % 128 or not 0 <= refractory <= MAX_REFRACTORY):
         raise ValueError(
@@ -173,26 +175,26 @@ def _check_cuda(name, x, n_pad, refractory):
         )
 
 
-def block_scratch(x, n_state, n_slots, n_outputs, chunk):
+def block_scratch(x, n_state, n_slots, n_outputs, chunk, refractory):
     """The global scratch (uint8) of one call of the stream-tiled block
     body (csrc/sparse_lif.cu) on spikes x (B, C, T) at n_state neurons and
     n_slots source blocks a destination block: the K-major weight blocks,
-    spike bit planes, input bits, output raster, 8-bit refrac and, for the
-    batch kernels, v."""
+    spike bit planes, input bits, output raster, refrac (8 or 16 bits, as
+    `refractory` needs) and, for the batch kernels, v."""
     B, C, T = x.shape
-    fn = _build.function("lsm_block_lif_scratch_bytes", [ctypes.c_int] * 7)
+    fn = _build.function("lsm_block_lif_scratch_bytes", [ctypes.c_int] * 8)
     fn.restype = ctypes.c_longlong
-    n_bytes = fn(B, C, T, n_state, n_slots, n_outputs, int(chunk))
+    n_bytes = fn(B, C, T, n_state, n_slots, n_outputs, int(chunk), int(refractory))
     return torch.empty(n_bytes, dtype=torch.uint8, device=x.device)
 
 
-def _scratch_ptr(x, n_pad, n_outputs, chunk):
+def _scratch_ptr(x, n_pad, n_outputs, chunk, refractory):
     """(tensor kept alive for the call, pointer): the block body's scratch
     above one thread a neuron (the dense matrix as n_pad / 128 slots), none
     below."""
     if n_pad <= _ONE_THREAD_MAX:
         return None, None
-    sc = block_scratch(x, n_pad, n_pad // 128, n_outputs, chunk)
+    sc = block_scratch(x, n_pad, n_pad // 128, n_outputs, chunk, refractory)
     return sc, sc.data_ptr()
 
 
@@ -219,7 +221,7 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
         ctypes.c_void_p, ctypes.c_void_p,
     ])
     with torch.cuda.device(x.device):
-        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, chunk=False)
+        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, False, refractory)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
@@ -301,7 +303,7 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
         ctypes.c_void_p, ctypes.c_void_p,
     ])
     with torch.cuda.device(dev):
-        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, chunk=True)
+        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, True, refractory)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(), leak_keep.data_ptr(),
                  v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),

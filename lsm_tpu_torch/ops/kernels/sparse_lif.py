@@ -23,9 +23,9 @@ weight reads from L2, the state read and written each step, and the
 latency of each slot's serial chain of load, barrier and products. A tile
 is 128 streams when a step still has two CTAs for every SM, else 64.
 Every block reads R random partner blocks, so
-the C entry point enqueues one launch a step (T a call); v, an 8-bit
-refrac (so refractory <= 255) and two bit-packed spike planes live between
-steps in global scratch that the wrapper allocates (`lif.block_scratch`),
+the C entry point enqueues one launch a step (T a call); v, refrac (8
+bits up to refractory 255, 16 above) and two bit-packed spike planes live
+between steps in global scratch that the wrapper allocates (`lif.block_scratch`),
 and the output statistics are replayed from a bit raster after the last
 step.
 
@@ -116,15 +116,15 @@ def _check(x, w_blocks, src_idx, w_in, leak_keep, n_outputs):
 
 
 def _check_cuda(name, x, refractory):
-    """The block body's own limits, before any launch: T > 0 and an 8-bit
-    refractory counter."""
+    """The block body's own limits, before any launch: T > 0 and a
+    refractory counter of at most 16 bits."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     T = x.shape[2]
     if T == 0 or not 0 <= refractory <= MAX_REFRACTORY:
         raise ValueError(
             f"kernel {name} takes T > 0 and 0 <= refractory <= {MAX_REFRACTORY} (refrac is "
-            f"kept in 8 bits between steps); got T={T} refractory={refractory}"
+            f"kept in at most 16 bits between steps); got T={T} refractory={refractory}"
         )
 
 
@@ -147,7 +147,7 @@ def sparse_lif_stats(x, w_blocks, src_idx, w_in, leak_keep, *, threshold, refrac
     fn = _build.function("lsm_sparse_lif_stats", [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(dev):
-        scratch = block_scratch(x, nb * BLOCK, S, n_outputs, chunk=False)
+        scratch = block_scratch(x, nb * BLOCK, S, n_outputs, False, refractory)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
@@ -194,7 +194,7 @@ def sparse_lif_chunk(x, w_blocks, src_idx, w_in, leak_keep, v, refrac, s_prev, *
     fn = _build.function("lsm_sparse_lif_chunk", [ctypes.c_void_p] * 13 + [
         ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(dev):
-        scratch = block_scratch(x, n, S, n_outputs, chunk=True)
+        scratch = block_scratch(x, n, S, n_outputs, True, refractory)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
                  leak_keep.data_ptr(), v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),

@@ -92,10 +92,10 @@ def test_gtgram_chunks_bit_equal_to_whole_signal(chunks):
         parts.append(e)
     assert torch.equal(torch.cat(parts), e_full)
     assert torch.equal(st, s_full)
-    # B1's twin is the zero-state case in its (n_sub, C, B) layout.
-    kmat = tgt.block_system_tensor(FS, C, FMIN, G, torch.device("cpu"))
+    # B1's twin is the zero-state case, in the same (n_sub, B, C) layout.
+    fb = tgt.filterbank(FS, C, FMIN, G, torch.device("cpu"))
     zero = tgt.gtgram_chunk(w, torch.zeros(4, 8, C), FS, C, FMIN, G)[1]
-    assert torch.equal(kgt.sub_energy_plain(w, kmat), zero.permute(0, 2, 1))
+    assert torch.equal(kgt.sub_energy_plain(w, fb), zero)
 
 
 def test_gtgram_chunk_plain_matches_pallas_interpret(chunks):
@@ -113,17 +113,17 @@ def test_gtgram_chunk_plain_matches_pallas_interpret(chunks):
 def test_gtgram_chunk_wrapper_cpu_and_validation(chunks):
     wave, state = chunks
     w, st = torch.as_tensor(wave[:, :1600].copy()), torch.as_tensor(state)
-    kmat = tgt.block_system_tensor(FS, C, FMIN, G, torch.device("cpu"))
+    fb = tgt.filterbank(FS, C, FMIN, G, torch.device("cpu"))
     before = kgt.chunk_launches
-    s_out, e = kgt.chunk(w, kmat, st)
+    s_out, e = kgt.chunk(w, fb, st)
     assert kgt.chunk_launches == before                 # plain twin: no launch
     assert e.shape == (20, 4, C) and s_out.shape == (4, 8, C)
     with pytest.raises(TypeError):
-        kgt.chunk(w, kmat, st.double())
+        kgt.chunk(w, fb, st.double())
     with pytest.raises(ValueError, match="cascade state"):
-        kgt.chunk(w, kmat, st[:, :, :16].contiguous())
+        kgt.chunk(w, fb, st[:, :, :16].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
-        kgt.chunk(w, kmat, st.transpose(0, 2).contiguous().transpose(0, 2))
+        kgt.chunk(w, fb, st.transpose(0, 2).contiguous().transpose(0, 2))
 
 
 def test_hysteresis_step_chained_bit_equal():

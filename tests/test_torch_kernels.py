@@ -32,31 +32,59 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("batch,channels", [(70, 128), (3, 32)])
-def test_gtgram_kernel_matches_plain(cuda, batch, channels):
-    wave = torch.as_tensor(
-        (np.random.default_rng(batch).standard_normal((batch, 16000)) * 0.2).astype(np.float32)
+def _wave(cuda, batch, samples, seed):
+    return torch.as_tensor(
+        (np.random.default_rng(seed).standard_normal((batch, samples)) * 0.2).astype(np.float32)
     ).to(cuda)
-    kmat = gt.block_system_tensor(16000.0, channels, 50.0, 80, cuda)
+
+
+@pytest.mark.parametrize("batch,channels", [(70, 128), (3, 32), (5, 200)])
+def test_gtgram_kernel_matches_plain(cuda, batch, channels):
+    wave = _wave(cuda, batch, 16000, batch)
+    fb = gt.filterbank(16000.0, channels, 50.0, 80, cuda)
     before = kgt.launches
-    out = kgt.sub_energy(wave, kmat)
+    out = kgt.sub_energy(wave, fb)
     assert kgt.launches == before + 1
-    ref = kgt.sub_energy_plain(wave, kmat)
+    ref = kgt.sub_energy_plain(wave, fb)
     torch.cuda.synchronize()
-    assert out.shape == (200, channels, batch)
+    assert out.shape == (200, batch, channels)
     torch.testing.assert_close(out, ref, rtol=5e-3, atol=1e-6)
 
 
 def test_gtgram_kernel_rejects_what_it_cannot_run(cuda):
-    wave = torch.zeros(2, 16000 + 4, device=cuda)
-    kmat = torch.as_tensor(gt.block_system(16000.0, 8, 50.0, 80)).to(cuda)
+    fb = gt.filterbank(16000.0, 8, 50.0, 80, cuda)
     with pytest.raises(ValueError, match="multiple"):
-        kgt.sub_energy(torch.zeros(2, 16001, device=cuda), kmat)
-    with pytest.raises(ValueError, match="aligned"):
-        kgt.sub_energy(wave.view(-1)[1:1 + 32000].view(2, 16000), kmat)
-    with pytest.raises(ValueError, match="g=80"):
-        kgt.sub_energy(torch.zeros(2, 16000, device=cuda),
-                       torch.as_tensor(gt.block_system(16000.0, 8, 50.0, 40)).to(cuda))
+        kgt.sub_energy(torch.zeros(2, 16001, device=cuda), fb)
+    with pytest.raises(ValueError, match="multiple"):
+        kgt.sub_energy(torch.zeros(2, 0, device=cuda), fb)          # no sub-block
+    with pytest.raises(TypeError):
+        kgt.sub_energy(torch.zeros(2, 16000, device=cuda, dtype=torch.float64), fb)
+    # The cascade reads samples one float at a time: a wave that starts off
+    # any 16-byte boundary runs, bit-equal to an aligned copy.
+    wave = _wave(cuda, 2, 16001, 9)
+    shifted = wave.view(-1)[1:1 + 32000].view(2, 16000)
+    out = kgt.sub_energy(shifted, fb)
+    assert torch.equal(out, kgt.sub_energy(shifted.clone(), fb)) and out.abs().sum() > 0
+
+
+@pytest.mark.parametrize("fs,g", [(8000.0, 40), (16000.0, 80), (16000.0, 160)])
+def test_gtgram_kernels_at_any_sub_block(cuda, fs, g):
+    """B1 and B3 against their twins at the sub-block lengths that
+    FrontendConfig(sample_rate=8000) (g = 40) and gt_window_time=0.03
+    (g = 160) give."""
+    n = int(fs)
+    wave = _wave(cuda, 6, n, g)
+    fb = gt.filterbank(fs, 128, 50.0, g, cuda)
+    e1 = kgt.sub_energy(wave, fb)
+    torch.testing.assert_close(e1, kgt.sub_energy_plain(wave, fb), rtol=5e-3, atol=1e-6)
+    assert e1.shape == (n // g, 6, 128)
+    state = kgt.chunk_plain(wave[:, : n // 10], fb, torch.zeros(6, 8, 128, device=cuda))[0]
+    hop = wave[:, n // 10: n // 5].contiguous()
+    s3, e3 = kgt.chunk(hop, fb, state)
+    s_ref, e_ref = kgt.chunk_plain(hop, fb, state)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(e3, e_ref, rtol=5e-3, atol=1e-6)
+    torch.testing.assert_close(s3, s_ref, rtol=5e-3, atol=1e-5)
 
 
 @pytest.mark.parametrize("cfg,c,t,b", [
@@ -92,50 +120,46 @@ def test_featurize_on_card_matches_cpu(cuda):
 
 def _carried_state(cuda, batch, channels, seed):
     """A cascade state a stream reaches after 0.3 s of audio."""
-    wave = torch.as_tensor(
-        (np.random.default_rng(seed).standard_normal((batch, 4800)) * 0.2).astype(np.float32)
-    ).to(cuda)
-    kmat = gt.block_system_tensor(16000.0, channels, 50.0, 80, cuda)
-    return kgt.chunk_plain(wave, kmat, torch.zeros(batch, 8, channels, device=cuda))[0]
+    fb = gt.filterbank(16000.0, channels, 50.0, 80, cuda)
+    return kgt.chunk_plain(_wave(cuda, batch, 4800, seed), fb,
+                           torch.zeros(batch, 8, channels, device=cuda))[0]
 
 
 @pytest.mark.parametrize("batch,channels", [(70, 128), (3, 32)])
 def test_gtgram_chunk_kernel_matches_plain(cuda, batch, channels):
-    hop = torch.as_tensor(
-        (np.random.default_rng(batch + 1).standard_normal((batch, 1600)) * 0.2).astype(np.float32)
-    ).to(cuda)
-    kmat = gt.block_system_tensor(16000.0, channels, 50.0, 80, cuda)
+    hop = _wave(cuda, batch, 1600, batch + 1)
+    fb = gt.filterbank(16000.0, channels, 50.0, 80, cuda)
     state = _carried_state(cuda, batch, channels, batch)
     before = kgt.chunk_launches
-    s_out, e = kgt.chunk(hop, kmat, state)
+    s_out, e = kgt.chunk(hop, fb, state)
     assert kgt.chunk_launches == before + 1
-    s_ref, e_ref = kgt.chunk_plain(hop, kmat, state)
+    s_ref, e_ref = kgt.chunk_plain(hop, fb, state)
     torch.cuda.synchronize()
     assert e.shape == (20, batch, channels) and s_out.shape == (batch, 8, channels)
     torch.testing.assert_close(e, e_ref, rtol=5e-3, atol=1e-6)
     # The state passes through zero: atol 1e-5 against magnitudes ~0.4
-    # (the twin sums x @ W_xs in cuBLAS order, the kernel in one FMA chain).
+    # (the twin sums x @ W_xs in cuBLAS order, the kernel runs the cascade).
     torch.testing.assert_close(s_out, s_ref, rtol=5e-3, atol=1e-5)
 
 
-def test_gtgram_chunk_kernel_chaining_is_exact(cuda):
+@pytest.mark.parametrize("fs,g", [(16000.0, 80), (8000.0, 40), (16000.0, 160)])
+def test_gtgram_chunk_kernel_chaining_is_exact(cuda, fs, g):
     """Ten B3 hops threading the state are bit-equal to one whole-second B3
-    call, whose energies are B1's (in B1's layout)."""
-    wave = torch.as_tensor(
-        (np.random.default_rng(4).standard_normal((66, 16000)) * 0.2).astype(np.float32)
-    ).to(cuda)
-    kmat = gt.block_system_tensor(16000.0, 128, 50.0, 80, cuda)
+    call, whose energies are B1's."""
+    n = int(fs)
+    wave = _wave(cuda, 66, n, 4)
+    fb = gt.filterbank(fs, 128, 50.0, g, cuda)
     st = torch.zeros(66, 8, 128, device=cuda)
-    s_whole, e_whole = kgt.chunk(wave, kmat, st)
+    s_whole, e_whole = kgt.chunk(wave, fb, st)
     parts = []
     for c in range(10):
-        st, e = kgt.chunk(wave[:, c * 1600:(c + 1) * 1600].contiguous(), kmat, st)
+        st, e = kgt.chunk(wave[:, c * n // 10:(c + 1) * n // 10].contiguous(), fb, st)
         parts.append(e)
-    e_b1 = kgt.sub_energy(wave, kmat)
+    e_b1 = kgt.sub_energy(wave, fb)
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(parts), e_whole)
     assert torch.equal(st, s_whole)
-    assert torch.equal(e_whole.permute(0, 2, 1), e_b1)
+    assert torch.equal(e_whole, e_b1)
 
 
 @pytest.mark.parametrize("n_new_win", [1, 2])
@@ -167,17 +191,25 @@ def test_lif_chunk_kernel_bit_equal_over_chained_chunks(cuda, n_new_win):
 
 
 def test_chunk_kernels_refuse_what_they_cannot_run(cuda):
-    kmat = gt.block_system_tensor(16000.0, 16, 50.0, 80, cuda)
+    fb = gt.filterbank(16000.0, 16, 50.0, 80, cuda)
     hop = torch.zeros(2, 1600, device=cuda)
     st = torch.zeros(2, 8, 16, device=cuda)
     with pytest.raises(TypeError):
-        kgt.chunk(hop, kmat, st.double())
+        kgt.chunk(hop, fb, st.double())
     with pytest.raises(ValueError, match="cascade state"):
-        kgt.chunk(hop, kmat, torch.zeros(2, 8, 8, device=cuda))
+        kgt.chunk(hop, fb, torch.zeros(2, 8, 8, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
-        kgt.chunk(hop, kmat, st.cpu())
-    with pytest.raises(ValueError, match="g=80"):
-        kgt.chunk(hop, gt.block_system_tensor(16000.0, 16, 50.0, 40, cuda), st)
+        kgt.chunk(hop, fb, st.cpu())
+    with pytest.raises(ValueError, match="multiple"):
+        kgt.chunk(hop[:, :0], fb, st)                           # no sub-block
+    # Any sub-block length runs: g = 40 from a carried state, as the twin.
+    fb40 = gt.filterbank(16000.0, 16, 50.0, 40, cuda)
+    wave = _wave(cuda, 2, 3200, 5)
+    st40 = kgt.chunk_plain(wave[:, :1600], fb40, st)[0]
+    out_k = kgt.chunk(wave[:, 1600:].contiguous(), fb40, st40)
+    out_p = kgt.chunk_plain(wave[:, 1600:].contiguous(), fb40, st40)
+    torch.testing.assert_close(out_k[1], out_p[1], rtol=5e-3, atol=1e-6)
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=5e-3, atol=1e-5)
 
     r = res.init_reservoir(ReservoirConfig(num_neurons=256, num_output_neurons=128,
                                            small_world_k=32, mean_weight=0.02), 32,
@@ -251,6 +283,84 @@ def test_wide_dense_lif_kernels_bit_equal(cuda, n_neurons):
         torch.cuda.synchronize()
         assert all(torch.equal(a, p) for a, p in zip(out_k, out_p))
         state_k, state_p = out_k[:3], out_p[:3]
+
+
+def _dense_both_bit_equal(cuda, r, x, kw_over=None):
+    """B2 over x and B4 over three chained chunks of it, each bit-equal to
+    its twin; returns the twin's spike total."""
+    ops, kw = r.kernel_operands()
+    kw.update(kw_over or {})
+    before = klif.launches
+    stats, counts = klif.lif_stats(x, *ops, **kw)
+    assert klif.launches == before + 1
+    ref_stats, ref_counts = klif.lif_stats_plain(x, *ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(stats, ref_stats) and torch.equal(counts, ref_counts)
+    del kw["n_win"]
+    kw.update(win_len=40, n_new_win=1)
+    b, n_pad = x.shape[0], ops[0].shape[0]
+    state_k = state_p = (torch.zeros(b, n_pad, device=cuda),
+                         torch.zeros(b, n_pad, dtype=torch.int32, device=cuda),
+                         torch.zeros(b, n_pad, device=cuda))
+    for c in range(3):
+        xc = x[..., c * 40:(c + 1) * 40].contiguous()
+        out_k = klif.lif_chunk(xc, *ops, *state_k, **kw)
+        out_p = klif.lif_chunk_plain(xc, *ops, *state_p, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, q) for a, q in zip(out_k, out_p))
+        state_k, state_p = out_k[:3], out_p[:3]
+    return float(ref_counts.sum())
+
+
+@pytest.mark.parametrize("n_neurons,channels", [
+    (100, 256),      # --num-neurons 100 --n-filters 256: C = 256 > N_pad = 128
+    (1000, 2048),    # redundancy_factor=16 at 1000 neurons: C = 2048 > N_pad = 1024
+])
+def test_dense_lif_kernels_take_more_channels_than_neurons(cuda, n_neurons, channels):
+    """Dense B2/B4 with more input channels than padded neurons (thread n
+    compacts channels n, n + N_pad, ...), bit-equal on dyadic weights."""
+    cfg = ReservoirConfig(num_neurons=n_neurons, num_output_neurons=min(400, n_neurons),
+                          small_world_k=int(0.2 * n_neurons), mean_weight=0.01)
+    r = res.init_reservoir(cfg, channels, device=cuda).dyadic()
+    assert r.kernel_operands()[0][0].shape[0] < channels
+    x = torch.as_tensor((np.random.default_rng(channels).random((5, channels, 120)) < 0.05)
+                        .astype(np.uint8)).to(cuda)
+    assert _dense_both_bit_equal(cuda, r, x) > 0
+
+
+@pytest.mark.parametrize("n_neurons", [1100, 2048])
+def test_block_body_bit_equal_at_refractory_300(cuda, n_neurons):
+    """A refractory period past the 8-bit counter (the 16-bit one): dense
+    B2/B4 above 1024 padded neurons, B5, and B6 over chained chunks, each
+    bit-equal on dyadic weights; the carried counts cross chunk ends."""
+    cfg = ReservoirConfig(num_neurons=n_neurons, small_world_k=int(0.2 * n_neurons),
+                          mean_weight=0.01, refractory_period=300)
+    x = torch.as_tensor((np.random.default_rng(7).random((4, 128, 120)) < 0.1)
+                        .astype(np.uint8)).to(cuda)
+    r = res.init_reservoir(cfg, 128, device=cuda).dyadic()
+    assert r.kernel_operands()[1]["refractory"] == 300
+    assert _dense_both_bit_equal(cuda, r, x) > 0
+    sr = _sparse(cuda, 1024, 204, 4, 128, 0.01)
+    ops, kw = sr.kernel_operands()
+    kw["refractory"] = 300
+    stats, counts = ksp.sparse_lif_stats(x, *ops, **kw)
+    ref_stats, ref_counts = ksp.sparse_lif_stats_plain(x, *ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(stats, ref_stats) and torch.equal(counts, ref_counts)
+    assert counts.sum() > 0
+    del kw["n_win"]
+    kw.update(win_len=40, n_new_win=1)
+    state_k = state_p = (torch.zeros(4, 1024, device=cuda),
+                         torch.zeros(4, 1024, dtype=torch.int32, device=cuda),
+                         torch.zeros(4, 1024, device=cuda))
+    for c in range(3):
+        xc = x[..., c * 40:(c + 1) * 40].contiguous()
+        out_k = ksp.sparse_lif_chunk(xc, *ops, *state_k, **kw)
+        out_p = ksp.sparse_lif_chunk_plain(xc, *ops, *state_p, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, q) for a, q in zip(out_k, out_p))
+        state_k, state_p = out_k[:3], out_p[:3]
+    assert int(state_k[1].max()) > 255          # a count the 8-bit counter could not hold
 
 
 def _sparse(cuda, n, k, r, c, mean_weight, seed=3):
@@ -366,9 +476,14 @@ def test_sparse_kernels_refuse_what_they_cannot_run(cuda):
     stats, counts = ksp.sparse_lif_stats(x, *wide, **kw)
     torch.cuda.synchronize()
     assert counts.shape == (2, nb * 128) and not counts.any() and not stats[0].any()
-    # Its real limit: refrac is kept in 8 bits between steps.
+    # Its real limit: refrac is kept in at most 16 bits between steps; 256,
+    # past the 8-bit counter, runs on the 16-bit one.
     with pytest.raises(ValueError, match="refractory"):
-        ksp.sparse_lif_stats(x, *ops, **{**kw, "refractory": 256})
+        ksp.sparse_lif_stats(x, *ops, **{**kw, "refractory": 65536})
+    wide_r = ksp.sparse_lif_stats(x, *ops, **{**kw, "refractory": 256})
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(
+        wide_r, ksp.sparse_lif_stats_plain(x, *ops, **{**kw, "refractory": 256})))
     # Weights at any alignment (each call copies the blocks K-major first).
     flat = torch.zeros(ops[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
     flat[1:] = ops[0].flatten()

@@ -134,11 +134,62 @@ def test_block_system_layout():
         np.testing.assert_allclose(k[c, 80:] @ z, x @ m_xs[c] + s @ m_ss[c], rtol=1e-5, atol=1e-8)
 
 
+@pytest.mark.parametrize("g", [40, 80])
+def test_cascade_coeffs_describe_the_block_form_filter(g):
+    """Kernel B1/B3's operand, the delta-operator TDF2 coefficients, comes
+    from lsm_tpu's make_erb_coeffs with the gain^(1/4) split; run in float64
+    on basis vectors, with the TDF2 state converted in (w2 = s1 + s2) and out
+    (s2 = w2 - w1) as the kernel converts it, it reproduces the block-form
+    matrices: the kernel's operand and the twin's describe one filter."""
+    co = jgt.make_erb_coeffs(FS, C, FMIN)
+    g4 = co.gain ** 0.25
+    n0, n1 = co.a0 / g4, np.stack([co.a1[k] / g4 for k in range(4)])
+    q = tgt.cascade_coeffs(FS, C, FMIN)
+    assert q.shape == (C, 11) and q.dtype == np.float64
+    np.testing.assert_array_equal(q[:, 0], n0)
+    np.testing.assert_array_equal(q[:, 1], 2.0 + co.b1)
+    np.testing.assert_array_equal(q[:, 2], 1.0 + co.b1 + co.b2)
+    np.testing.assert_array_equal(q[:, 3:7], (2.0 * n0 + n1).T)
+    np.testing.assert_array_equal(q[:, 7:11], (n0 + n1).T)
+
+    # Basis runs: g input impulses, then the 8 unit TDF2 states.
+    nb = g + 8
+    x = np.zeros((nb, g))
+    x[:g] = np.eye(g)
+    s = np.zeros((C, nb, 8))
+    s[:, g:] = np.eye(8)
+    w1 = s[..., 0::2].copy()                                # (C, nb, 4)
+    w2 = s[..., 0::2] + s[..., 1::2]
+    y_out = np.zeros((C, nb, g))
+    for t in range(g):
+        xt = np.broadcast_to(x[:, t], (C, nb))
+        for k in range(4):
+            y = q[:, 0, None] * xt + w1[..., k]
+            w1[..., k] += q[:, 3 + k, None] * xt - q[:, 1, None] * y + w2[..., k]
+            w2[..., k] += q[:, 7 + k, None] * xt - q[:, 2, None] * y
+            xt = y
+        y_out[..., t] = xt
+    s_out = np.zeros((C, nb, 8))
+    s_out[..., 0::2], s_out[..., 1::2] = w1, w2 - w1
+    got = (y_out[:, :g], y_out[:, g:], s_out[:, :g], s_out[:, g:])
+    for a, ref, ref32 in zip(got, tgt._block_iir_matrices64(FS, C, FMIN, g),
+                             jgt._block_iir_matrices(FS, C, FMIN, g)):
+        scale = np.abs(ref).max(axis=(1, 2), keepdims=True)
+        assert np.abs(a - ref).max() <= 1e-10 * scale.max()
+        assert (np.abs(a - ref) <= 1e-10 * scale).all()
+        np.testing.assert_array_equal(ref.astype(np.float32), ref32)
+
+
 def test_block_system_tensor_is_made_once():
+    """The kernels' and twins' operands are made once per device and
+    geometry: the hot path copies nothing to the card."""
     dev = torch.device("cpu")
-    k = tgt.block_system_tensor(FS, 4, FMIN, 80, dev)
-    assert tgt.block_system_tensor(FS, 4, FMIN, 80, dev) is k
-    np.testing.assert_array_equal(k.numpy(), tgt.block_system(FS, 4, FMIN, 80))
+    fb = tgt.filterbank(FS, 4, FMIN, 80, dev)
+    assert tgt.filterbank(FS, 4, FMIN, 80, dev) is fb
+    np.testing.assert_array_equal(fb.kmat.numpy(), tgt.block_system(FS, 4, FMIN, 80))
+    np.testing.assert_array_equal(fb.coeffs.numpy(),
+                                  tgt.cascade_coeffs(FS, 4, FMIN).astype(np.float32))
+    assert fb.g == 80
 
 
 def test_plain_gtgram_matches_gtgram_iir(wave, jax_gtgram):
@@ -159,17 +210,19 @@ def test_plain_gtgram_matches_pallas_interpret(wave, jax_gtgram):
 def test_sub_energy_wrapper_cpu_takes_plain_twin(wave):
     """On CPU tensors the wrapper runs the plain twin and counts no launch;
     malformed operands raise before any dispatch."""
-    kmat = torch.as_tensor(tgt.block_system(FS, 8, FMIN, 80))
+    fb = tgt.filterbank(FS, 8, FMIN, 80, torch.device("cpu"))
     x = torch.as_tensor(wave)
     before = kgt.launches
-    out = kgt.sub_energy(x, kmat)
+    out = kgt.sub_energy(x, fb)
     assert kgt.launches == before
-    assert torch.equal(out, kgt.sub_energy_plain(x, kmat))
-    assert out.shape == (200, 8, 4)
+    assert torch.equal(out, kgt.sub_energy_plain(x, fb))
+    assert out.shape == (200, 4, 8)
     with pytest.raises(TypeError):
-        kgt.sub_energy(x.double(), kmat)
+        kgt.sub_energy(x.double(), fb)
     with pytest.raises(ValueError):
-        kgt.sub_energy(x[:, :1000], kmat)                   # not a multiple of g
+        kgt.sub_energy(x[:, :1000], fb)                     # not a multiple of g
+    with pytest.raises(ValueError):
+        kgt.sub_energy(x[:, :0], fb)                        # no sub-block
 
 
 def _near_levels(values, cfg, tol=1e-4):
