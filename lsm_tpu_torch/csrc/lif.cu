@@ -27,8 +27,9 @@
 // coalesced across the block) instead of the whole matrix. Bound: L2 load
 // latency of those row reads and the two block barriers per step. Any
 // number of input channels: thread n compacts channels n, n + Np, ... (one
-// more pair of barriers a step for each Np channels past the first), into
-// an input list of C entries in dynamic shared memory.
+// more pair of barriers a step for each Np channels past the first); with C
+// > Np a second instantiation keeps the input list, C entries, in dynamic
+// shared memory, and C <= Np keeps the fixed one.
 // No atomics: the sums run in ascending source order, so results are
 // deterministic, and bit-equal to any order when weights are dyadic.
 // B4 compacts the carried spike vector before its first step, so that
@@ -37,8 +38,6 @@
 // reservoir of 1025-4096 padded neurons runs on the stream-tiled block body
 // of sparse_lif.cu (B5/B6) with its matrix seen as nb x nb blocks of 128,
 // in the global scratch the caller passes (unused at <= 1024 neurons).
-
-#include <algorithm>
 
 #include "lif_common.cuh"
 
@@ -69,11 +68,10 @@ struct LifArgs {
   int refractory, burst_isi_max, win_len, n_win;
 };
 
-// Block-wide stream compaction of two flag sets, appended to ascending
-// index lists: neuron n to rec_list[n_rec..] where f_rec, channel ch to
-// in_list[n_in..] where f_in. Two barriers; on return both lists and their
-// grown lengths are visible to all.
-__device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n, int ch,
+// Block-wide stream compaction of two flag sets into ascending index lists:
+// neuron n to rec_list where f_rec, channel n to in_list where f_in. Two
+// barriers; on return both lists and their lengths are visible to all.
+__device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n,
                                          int* rec_list, int* in_list,
                                          int* cnt_rec, int* cnt_in,
                                          int& n_rec, int& n_in) {
@@ -85,7 +83,7 @@ __device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n, int ch,
     cnt_in[warp] = __popc(bi);
   }
   __syncthreads();
-  int off_r = n_rec, off_i = n_in, tot_r = 0, tot_i = 0;
+  int off_r = 0, off_i = 0, tot_r = 0, tot_i = 0;
   for (int w = 0; w < nwarps; ++w) {
     const int a = cnt_rec[w], c = cnt_in[w];
     if (w < warp) { off_r += a; off_i += c; }
@@ -94,19 +92,49 @@ __device__ __forceinline__ void compact2(bool f_rec, bool f_in, int n, int ch,
   }
   const unsigned below = (1u << lane) - 1u;
   if (f_rec) rec_list[off_r + __popc(br & below)] = n;
-  if (f_in) in_list[off_i + __popc(bi & below)] = ch;
-  n_rec += tot_r;
-  n_in += tot_i;
+  if (f_in) in_list[off_i + __popc(bi & below)] = n;
+  n_rec = tot_r;
+  n_in = tot_i;
   __syncthreads();
+}
+
+// Appends channel ch to in_list[n_in..] where f_in, in ascending order: the
+// input channels past the first Np. Two barriers, as compact2.
+__device__ __forceinline__ void compact_more(bool f_in, int n, int ch, int* in_list,
+                                             int* cnt_in, int& n_in) {
+  const int lane = n & 31, warp = n >> 5, nwarps = blockDim.x >> 5;
+  const unsigned bi = __ballot_sync(0xffffffffu, f_in);
+  if (lane == 0) cnt_in[warp] = __popc(bi);
+  __syncthreads();
+  int off = n_in, tot = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    const int c = cnt_in[w];
+    if (w < warp) off += c;
+    tot += c;
+  }
+  if (f_in) in_list[off + __popc(bi & ((1u << lane) - 1u))] = ch;
+  n_in += tot;
+  __syncthreads();
+}
+
+// The input channels past the first Np that are on at step t, appended to
+// in_list in rounds of Np (thread n: channels n + Np, n + 2 Np, ...).
+__device__ __forceinline__ void compact_rest(const uint8_t* xb, int t, int T, int C, int Np,
+                                             int n, int* in_list, int* cnt_in, int& n_in) {
+  for (int ch = n + Np; ch - n < C; ch += Np)
+    compact_more(t < T && ch < C && xb[(size_t)ch * T + t] != 0, n, ch, in_list, cnt_in, n_in);
 }
 
 // kChunk = false: B2 (zero state, window moments, all_counts).
 // kChunk = true:  B4 (carried state, segment summary, window counts).
-template <bool kChunk>
+// kManyIn: C > Np, the input list in C entries of dynamic shared memory.
+template <bool kChunk, bool kManyIn>
 __global__ void __launch_bounds__(MAX_N, 1)
 lif_kernel(const LifArgs a) {
   __shared__ int rec_list[MAX_N];
-  extern __shared__ int in_list[];          // max(C, 1) entries
+  __shared__ int in_fixed[kManyIn ? 1 : MAX_N];
+  extern __shared__ int in_many[];
+  int* const in_list = kManyIn ? in_many : in_fixed;
   __shared__ int cnt_rec[MAX_N / 32];
   __shared__ int cnt_in[MAX_N / 32];
 
@@ -130,18 +158,10 @@ lif_kernel(const LifArgs a) {
   float* win_row = kChunk ? a.win + (size_t)b * a.n_win * no + n : nullptr;
   float allc = 0.f;
 
-  // The sources of step t: the neurons that fired before it, and the input
-  // channels on at t, in rounds of Np channels.
   int n_rec = 0, n_in = 0;
-  auto compact_step = [&](bool fired, int t) {
-    n_rec = n_in = 0;
-    for (int c0 = 0; c0 == 0 || c0 < C; c0 += Np) {
-      const int ch = c0 + n;
-      compact2(c0 == 0 && fired, t < T && ch < C && xb[(size_t)ch * T + t] != 0, n, ch,
-               rec_list, in_list, cnt_rec, cnt_in, n_rec, n_in);
-    }
-  };
-  compact_step(s_last, 0);
+  compact2(s_last, n < C && xb[(size_t)n * T] != 0, n, rec_list, in_list,
+           cnt_rec, cnt_in, n_rec, n_in);
+  if (kManyIn) compact_rest(xb, 0, T, C, Np, n, in_list, cnt_in, n_in);
 
   for (int t = 0; t < T; ++t) {
     float acc_r = 0.f, acc_i = 0.f;
@@ -163,7 +183,9 @@ lif_kernel(const LifArgs a) {
 
     if (!kChunk && spike) allc += 1.f;
     if (n < no) st.step(spike, t, T, isi_max, a.win_len, a.n_win, win_row, no);
-    compact_step(spike, t + 1);
+    const bool next_in = (t + 1 < T) && n < C && xb[(size_t)n * T + t + 1] != 0;
+    compact2(spike, next_in, n, rec_list, in_list, cnt_rec, cnt_in, n_rec, n_in);
+    if (kManyIn) compact_rest(xb, t + 1, T, C, Np, n, in_list, cnt_in, n_in);
   }
 
   if (kChunk) {
@@ -180,17 +202,22 @@ bool bad_shape(int C, int T, int Np, int no) {
   return Np <= 0 || Np > MAX_N || Np % 32 || C < 0 || no > Np || T <= 0;
 }
 
-// One CTA a batch row, one thread a padded neuron; the input list of C
-// entries in dynamic shared memory.
+// One CTA a batch row, one thread a padded neuron. With more channels than
+// neurons the input list takes C entries of dynamic shared memory.
 template <bool kChunk>
 int launch_one_thread(const LifArgs& a, void* stream) {
-  const int smem = std::max(a.C, 1) * static_cast<int>(sizeof(int));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.C <= a.Np) {
+    lif_kernel<kChunk, false><<<a.B, a.Np, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int smem = a.C * static_cast<int>(sizeof(int));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lif_kernel<kChunk>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lif_kernel<kChunk, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lif_kernel<kChunk><<<a.B, a.Np, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  lif_kernel<kChunk, true><<<a.B, a.Np, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
