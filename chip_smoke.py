@@ -1067,7 +1067,6 @@ def sparse_kernels(dev, spikes, card) -> dict:
     from lsm_tpu_torch.models import reservoir as res
     from lsm_tpu_torch.models import sparse
     from lsm_tpu_torch.models.calibration import calibrate_weight
-    from lsm_tpu_torch.ops.kernels import lif as klif
     from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
     B, C, T = spikes.shape
@@ -1161,21 +1160,11 @@ def sparse_kernels(dev, spikes, card) -> dict:
     _, mw2 = calibrate_weight(rcfg2, spikes, 0.6)
     d2 = res.init_reservoir(rcfg2, C, mean_weight=mw2, device=dev).dyadic()
     ops2, kw2 = d2.kernel_operands()
-    s2k, a2k = klif.lif_stats(x32, *ops2, **kw2)
-    s2p, a2p = klif.lif_stats_plain(x32, *ops2, **kw2)
-    torch.cuda.synchronize()
-    eq2 = torch.equal(s2k, s2p) and torch.equal(a2k, a2p)
-    ckw2 = {k: v for k, v in kw2.items() if k != "n_win"}
-    ckw2.update(win_len=40, n_new_win=1)
-    eq4, err4, carried4 = chained_chunks_equal(klif.lif_chunk, klif.lif_chunk_plain, ops2,
-                                               ckw2, chunks, ops2[0].shape[0])
-    dense = {"B2_bit_equal": bool(eq2), "B2_spikes": float(a2p.sum()),
-             "B4_bit_equal": bool(eq4), "B4_carried_spikes": carried4,
-             "max_abs_err": max(finite_err(s2k, s2p), err4)}
-    print(f"[B2/B4 dense N=2048] dyadic: B2 B=32 bit_equal {eq2} ({dense['B2_spikes']:.0f} "
-          f"spikes); B4 three chained chunks of 64 streams bit_equal {eq4} (carried "
-          f"{carried4:.0f})")
-    if not (eq2 and eq4) or dense["B2_spikes"] <= 0 or carried4 <= 0:
+    dense = dense_pair_equal(x32, chunks, ops2, kw2)
+    print(f"[B2/B4 dense N=2048] dyadic: B2 B=32 bit_equal {dense['B2_bit_equal']} "
+          f"({dense['B2_spikes']:.0f} spikes); B4 three chained chunks of 64 streams bit_equal "
+          f"{dense['B4_bit_equal']} (carried {dense['B4_carried_spikes']:.0f})")
+    if not dense_held(dense):
         fail("dense B2/B4 at N = 2048 are not bit-equal to their twins (or stayed silent)")
 
     # Dense B2/B4 with more input channels than padded neurons: the spikes
@@ -1187,13 +1176,11 @@ def sparse_kernels(dev, spikes, card) -> dict:
                              small_world_k=int(0.2 * n_neurons), mean_weight=0.01)
         xr = x32.repeat_interleave(redundancy, dim=1)
         rr = res.init_reservoir(rc, xr.shape[1], device=dev).dyadic()
-        ops_r, kw_r = rr.kernel_operands()
-        ckw_r = {k: v for k, v in kw_r.items() if k != "n_win"}
-        ckw_r.update(win_len=40, n_new_win=1)
-        wide_c[xr.shape[1]] = dense_pair_equal(xr, ops_r, kw_r, ckw_r)
+        wide_c[xr.shape[1]] = dense_pair_equal(
+            xr, [xr[..., c * 40:(c + 1) * 40].contiguous() for c in range(3)],
+            *rr.kernel_operands())
     # The block body past its 8-bit refractory counter: refractory 300.
-    kw2_r, ckw2_r = {**kw2, "refractory": 300}, {**ckw2, "refractory": 300}
-    r300 = {"dense_2048": dense_pair_equal(x32, ops2, kw2_r, ckw2_r)}
+    r300 = {"dense_2048": dense_pair_equal(x32, chunks, ops2, {**kw2, "refractory": 300})}
     s5k, a5k = ksp.sparse_lif_stats(x32, *ops, **{**kw, "refractory": 300})
     s5p, a5p = ksp.sparse_lif_stats_plain(x32, *ops, **{**kw, "refractory": 300})
     torch.cuda.synchronize()
@@ -1203,8 +1190,7 @@ def sparse_kernels(dev, spikes, card) -> dict:
                 B5_spikes=float(a5p.sum()), B6_bit_equal=bool(eq6), B6_carried_spikes=carried6)
     print("[B2/B4 C > N_pad] dyadic, bit_equal: " + "; ".join(
         f"C={c} {v}" for c, v in wide_c.items()) + f"; [refractory 300] dyadic: {r300}")
-    if not all(v["B2_bit_equal"] and v["B4_bit_equal"] and v["B2_spikes"] > 0
-               for v in (*wide_c.values(), r300["dense_2048"])):
+    if not all(dense_held(v) for v in (*wide_c.values(), r300["dense_2048"])):
         fail(f"dense B2/B4 at C > N_pad or refractory 300 part from their twins: {wide_c} {r300}")
     if not (r300["B5_bit_equal"] and r300["B6_bit_equal"] and r300["B5_spikes"] > 0):
         fail(f"B5/B6 at refractory 300 part from their twins: {r300}")
@@ -1212,19 +1198,27 @@ def sparse_kernels(dev, spikes, card) -> dict:
             "refractory_300": r300}
 
 
-def dense_pair_equal(x, ops, kw, ckw) -> dict:
-    """Dense B2 over x and B4 over three chained 40-step chunks of its first
-    120 steps, each against its twin."""
+def dense_pair_equal(x, chunks, ops, kw) -> dict:
+    """Dense B2 over x and B4 over `chunks` (40-step chunks chained from a
+    zero state), each against its twin."""
     from lsm_tpu_torch.ops.kernels import lif as klif
 
     sk, ak = klif.lif_stats(x, *ops, **kw)
     sp, ap = klif.lif_stats_plain(x, *ops, **kw)
     torch.cuda.synchronize()
-    chunks = [x[..., c * 40:(c + 1) * 40].contiguous() for c in range(3)]
-    eq4, _, carried = chained_chunks_equal(klif.lif_chunk, klif.lif_chunk_plain, ops, ckw,
-                                           chunks, ops[0].shape[0])
+    ckw = {k: v for k, v in kw.items() if k != "n_win"}
+    ckw.update(win_len=40, n_new_win=1)
+    eq4, err4, carried = chained_chunks_equal(klif.lif_chunk, klif.lif_chunk_plain, ops, ckw,
+                                              chunks, ops[0].shape[0])
     return {"B2_bit_equal": bool(torch.equal(sk, sp) and torch.equal(ak, ap)),
-            "B2_spikes": float(ap.sum()), "B4_bit_equal": bool(eq4), "B4_carried_spikes": carried}
+            "B2_spikes": float(ap.sum()), "B4_bit_equal": bool(eq4), "B4_carried_spikes": carried,
+            "max_abs_err": max(finite_err(sk, sp), err4)}
+
+
+def dense_held(rec) -> bool:
+    """Both dense kernels bit-equal to their twins, and neither silent."""
+    return (rec["B2_bit_equal"] and rec["B4_bit_equal"] and rec["B2_spikes"] > 0
+            and rec["B4_carried_spikes"] > 0)
 
 
 def sparse_slice(dev, card) -> tuple:

@@ -253,43 +253,10 @@ def test_chunk_kernels_refuse_what_they_cannot_run(cuda):
                        torch.zeros(2, n_w, device=cuda), **kw_b, win_len=40, n_new_win=1)
 
 
-@pytest.mark.parametrize("n_neurons", [1100, 2048])
-def test_wide_dense_lif_kernels_bit_equal(cuda, n_neurons):
-    """Dense reservoirs above 1024 padded neurons (B2 and B4 on the block
-    body) against their twins on dyadic weights."""
-    cfg = ReservoirConfig(num_neurons=n_neurons, small_world_k=int(0.2 * n_neurons),
-                          mean_weight=0.01)
-    r = res.init_reservoir(cfg, 128, device=cuda).dyadic()
-    ops, kw = r.kernel_operands()
-    rng = np.random.default_rng(n_neurons)
-    x = torch.as_tensor((rng.random((4, 128, 120)) < 0.1).astype(np.uint8)).to(cuda)
-    before = klif.launches
-    stats, counts = klif.lif_stats(x, *ops, **kw)
-    assert klif.launches == before + 1
-    ref_stats, ref_counts = klif.lif_stats_plain(x, *ops, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(stats, ref_stats) and torch.equal(counts, ref_counts)
-    assert counts.sum() > 0
-    del kw["n_win"]
-    kw.update(win_len=40, n_new_win=1)
-    n_pad = ops[0].shape[0]
-    state_k = state_p = (torch.zeros(4, n_pad, device=cuda),
-                         torch.zeros(4, n_pad, dtype=torch.int32, device=cuda),
-                         torch.zeros(4, n_pad, device=cuda))
-    for c in range(3):
-        xc = x[..., c * 40:(c + 1) * 40].contiguous()
-        out_k = klif.lif_chunk(xc, *ops, *state_k, **kw)
-        out_p = klif.lif_chunk_plain(xc, *ops, *state_p, **kw)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, p) for a, p in zip(out_k, out_p))
-        state_k, state_p = out_k[:3], out_p[:3]
-
-
-def _dense_both_bit_equal(cuda, r, x, kw_over=None):
+def _dense_both_bit_equal(cuda, r, x):
     """B2 over x and B4 over three chained chunks of it, each bit-equal to
     its twin; returns the twin's spike total."""
     ops, kw = r.kernel_operands()
-    kw.update(kw_over or {})
     before = klif.launches
     stats, counts = klif.lif_stats(x, *ops, **kw)
     assert klif.launches == before + 1
@@ -310,6 +277,18 @@ def _dense_both_bit_equal(cuda, r, x, kw_over=None):
         assert all(torch.equal(a, q) for a, q in zip(out_k, out_p))
         state_k, state_p = out_k[:3], out_p[:3]
     return float(ref_counts.sum())
+
+
+@pytest.mark.parametrize("n_neurons", [1100, 2048])
+def test_wide_dense_lif_kernels_bit_equal(cuda, n_neurons):
+    """Dense reservoirs above 1024 padded neurons (B2 and B4 on the block
+    body) against their twins on dyadic weights."""
+    cfg = ReservoirConfig(num_neurons=n_neurons, small_world_k=int(0.2 * n_neurons),
+                          mean_weight=0.01)
+    r = res.init_reservoir(cfg, 128, device=cuda).dyadic()
+    rng = np.random.default_rng(n_neurons)
+    x = torch.as_tensor((rng.random((4, 128, 120)) < 0.1).astype(np.uint8)).to(cuda)
+    assert _dense_both_bit_equal(cuda, r, x) > 0
 
 
 @pytest.mark.parametrize("n_neurons,channels", [
