@@ -45,7 +45,7 @@
 // Energies are written (n_sub, B, C), coalesced across channels. Any g, C
 // and B; the operands need only float32 alignment.
 //
-// Bound: float32 issue, 25 instructions a sample, and the latency of each
+// Bound: float32 instruction throughput, 25 a sample, and the latency of each
 // section's three-operation recurrence, hidden by the four sections and
 // the unrolled samples in flight and by the other warps of the SM. No tensor
 // cores, TF32 or bf16 on the state path, and no fast math: subnormals are

@@ -13,12 +13,13 @@ four-section cascade itself: one thread per (batch row, channel), sample by
 sample in exact float32 on the CUDA cores, in the delta-operator form of
 the transposed direct form II (25 float32 instructions a sample against the
 block form's ~97 at g = 80; its coefficients are `Filterbank.coeffs`). What
-bounds it on an H100: float32 issue and each section's recurrence latency,
-hidden by the rows and channels in flight. The carried state is the block
-form's TDF2 state, converted in and out at every sub-block, so chunked
-calls that thread it are bit-equal to one call. No tensor cores: the state
-path stays exact float32, without TF32 or bf16. chip_smoke.py's bound
-counts Slaney's cascade (17 float32 instructions a sample).
+bounds it on an H100: float32 instruction throughput and each section's
+recurrence latency, hidden by the rows and channels in flight. The carried
+state is the block form's TDF2 state, converted in and out at every
+sub-block, so chunked calls that thread it are bit-equal to one call. No
+tensor cores: the state path stays exact float32, without TF32 or bf16.
+chip_smoke.py's bound counts Slaney's cascade (17 float32 instructions a
+sample).
 
 The plain twins stay the exact block scan of lsm_tpu's `gtgram_iir_scan`,
 op for op, on `Filterbank.kmat`.
