@@ -17,34 +17,84 @@
 // neuron; B4 writes each rate window's count (one every win_len steps, no
 // folding) and the final v, refrac and spike vector.
 //
-// Design: the TPU kept W_rec (2 MB bf16) resident in VMEM; a Hopper SM has
-// 227 KB of shared memory, so W streams from L2 (50 MB) instead. One CTA
-// owns one batch row for all T steps, one thread per neuron: v, refrac
-// and the statistics live in registers, and each step's spike vector is
-// compacted in shared memory into a list of the neurons (and input
-// channels) that fired. Spikes are 0/1, so the drive is a sum of the W rows
-// of the sources that fired: each step reads only those rows (2 KB each,
-// coalesced across the block) instead of the whole matrix. Bound: L2 load
-// latency of those row reads and the two block barriers per step. Any
-// number of input channels: thread n compacts channels n, n + Np, ... (one
-// more pair of barriers a step for each Np channels past the first); with C
-// > Np a second instantiation keeps the input list, C entries, in dynamic
-// shared memory, and C <= Np keeps the fixed one.
-// No atomics: the sums run in ascending source order, so results are
-// deterministic, and bit-equal to any order when weights are dyadic.
-// B4 compacts the carried spike vector before its first step, so that
-// step's recurrent drive comes from the previous chunk's last spikes.
-// One thread per neuron caps this body at 1024 padded neurons; a dense
-// reservoir of 1025-4096 padded neurons runs on the stream-tiled block body
-// of sparse_lif.cu (B5/B6) with its matrix seen as nb x nb blocks of 128,
-// in the global scratch the caller passes (unused at <= 1024 neurons).
+// Spikes are 0/1, so the drive is a sum of the W rows of the sources that
+// fired, in ascending source order: the recurrent rows into one f32
+// accumulator, the input rows into another, then their sum. Every body below
+// keeps that order, so all of them give the same bits on any weights (and
+// the plain twin's on dyadic ones, where every order gives the same sum).
+// The host picks the body and its tiling (ops/kernels/lif.py dense_plan);
+// the C entry points check the plan and run it, and compute none of it.
+//
+// The cluster body (N_pad = 64 K, K = 2..16, when the slices below fit).
+// The TPU kept W_rec (2 MB bf16) resident in VMEM; an SM has 227 KB of
+// shared memory, a thread-block cluster of 16 SMs 16 times that. CTA k of a
+// cluster owns destination neurons 64 k .. 64 k + 63 and copies its slice of
+// W_rec (N_pad rows x 64 columns, 128 KB at N_pad 1024) and of W_in (C rows)
+// into shared memory once per call, each row as 32 words that pack columns
+// l and l + 32 of the slice, so one 4-byte load gives a lane both of its
+// neurons' weights and a warp reads 128 contiguous bytes, free of bank
+// conflicts. A cluster takes M streams a round (one warp a stream, M <= 16)
+// and walks rounds until the batch is done; the grid is as many clusters as
+// the card holds at once. Per step each warp walks its stream's input bit
+// words and then its recurrent spike words in ascending bit order (__ffs),
+// adding one shared-memory row per set bit; runs the LIF update and the
+// output statistics in registers; ballots its 64 spikes into two words and
+// stores them into the spike buffer of every CTA of the cluster (distributed
+// shared memory); and arrives at the cluster barrier. The spike buffer is
+// double-buffered by step parity: a CTA waits for step t's arrivals only
+// before reading step t's spikes, after its input walk for step t + 1, and
+// a reader of a buffer has finished with it before it arrives, so one
+// barrier a step is enough. Input bit words are built per warp for blocks
+// of 32 steps (a lane reads one channel's 32 consecutive steps, 32 ballots
+// transpose them). B4 builds step 0's recurrent words from the carried
+// spike vector in each CTA, from global memory, so no extra barrier.
+// What bounds it: per step, the issue of ~10 instructions per fired source
+// row and warp (the bit walk, a shared-memory load, two adds) and the
+// latency of the cluster barrier; not bytes (each weight is read from global
+// memory once per CTA per call) and not FLOPs. Budget at the flagship (N_pad
+// 1024, C = 128, M = 16): 159,744 bytes of shared memory (W_rec 131,072,
+// W_in 16,384, spike words 4,096, input words 8,192) and one CTA of 512
+// threads an SM, so each thread may hold 128 registers: v, refrac and the
+// 13-float OutputStats of its two neurons stay in registers (check ptxas's
+// spill line in the build log, which chip_smoke.py prints).
+//
+// The one-thread body keeps the shapes whose slices do not fit the cluster
+// (W_in of 2048 channels at redundancy 16 is 256 KB a CTA) or whose N_pad is
+// not a multiple of 64 of at least 128: one CTA owns one stream for all T
+// steps, one thread a neuron, and compacts each step's spike vector into a
+// list of the sources that fired (two block barriers a step); with C >
+// N_pad a second instantiation keeps the input list, C entries, in dynamic
+// shared memory. It also serves as the reference the cluster body is held
+// to on non-dyadic weights (chip_smoke.py and the kernel tests force it
+// through the plan).
+//
+// Above 1024 padded neurons (up to 4096) dense B2/B4 run on the
+// stream-tiled block body of sparse_lif.cu (B5/B6) with the matrix seen as
+// nb x nb blocks of 128, in the global scratch the caller passes (unused at
+// <= 1024 neurons).
+
+#include <cooperative_groups.h>
 
 #include "lif_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int MAX_N = 1024;       // this body: one thread per padded neuron
+constexpr int MAX_N = 1024;       // the one-thread body: one thread per padded neuron
 constexpr int MAX_WIDE_N = 4096;  // the block body: the largest dense draw
+constexpr int kSlice = 64;        // the cluster body: destination neurons a CTA
+constexpr int kMaxCluster = 16;   // the largest (non-portable) cluster
+constexpr int kMaxStreams = 16;   // streams a cluster round, one warp each
+constexpr int kStepBlock = 32;    // steps of input bit words built at a time
+constexpr int kSmemLimit = 232448;
+
+// The plan's bodies, as ops/kernels/lif.py numbers them.
+enum Body { kOneThread = 0, kCluster = 1, kBlock = 2 };
+
+struct Plan {
+  int body, K, M, threads, smem, clusters;
+};
 
 using lsm::bf16_bits_to_float;
 
@@ -67,6 +117,8 @@ struct LifArgs {
   float thr;
   int refractory, burst_isi_max, win_len, n_win;
 };
+
+// ---- the one-thread body ---------------------------------------------------
 
 // Block-wide stream compaction of two flag sets into ascending index lists:
 // neuron n to rec_list where f_rec, channel n to in_list where f_in. Two
@@ -205,8 +257,7 @@ bool bad_shape(int C, int T, int Np, int no) {
 // One CTA a batch row, one thread a padded neuron. With more channels than
 // neurons the input list takes C entries of dynamic shared memory.
 template <bool kChunk>
-int launch_one_thread(const LifArgs& a, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+int launch_one_thread(const LifArgs& a, cudaStream_t s) {
   if (a.C <= a.Np) {
     lif_kernel<kChunk, false><<<a.B, a.Np, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
@@ -220,6 +271,267 @@ int launch_one_thread(const LifArgs& a, void* stream) {
   lif_kernel<kChunk, true><<<a.B, a.Np, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---- the cluster body ------------------------------------------------------
+
+// Bytes of dynamic shared memory the cluster body lays out for M streams a
+// round: the W_rec slice (Np rows of 32 words), the W_in slice (C rounded
+// up to 32 rows), two spike buffers of M x Np/32 words and the input words
+// of kStepBlock steps, M streams and ceil(C / 32) words. dense_plan in
+// ops/kernels/lif.py sizes its plan by the same layout.
+size_t cluster_smem_bytes(int Np, int C, int M) {
+  const size_t nw = Np / 32, cw = (C + 31) / 32;
+  return 128 * (size_t)Np + 4096 * cw + 8 * (size_t)M * nw + 4 * (size_t)kStepBlock * M * cw;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Columns col0 .. col0 + 63 of rows 0 .. rows-1 of a bf16 (rows, ld) matrix
+// into dst (rows, 32) words: word l of a row packs column col0 + l (low
+// half) and column col0 + 32 + l (high half). Sixteen-byte loads when the
+// matrix is so aligned (ld is a multiple of 64, col0 of 64), else two bytes.
+__device__ void load_slice(const uint16_t* src, int rows, int ld, int col0, uint32_t* dst) {
+  const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  for (int i = threadIdx.x; i < rows * 4; i += blockDim.x) {
+    const int r = i >> 2, q = i & 3;
+    const uint16_t* s = src + (size_t)r * ld + col0 + 8 * q;
+    uint32_t lo[4], hi[4];
+    if (vec) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(s));
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(s + 32));
+      lo[0] = a.x; lo[1] = a.y; lo[2] = a.z; lo[3] = a.w;
+      hi[0] = b.x; hi[1] = b.y; hi[2] = b.z; hi[3] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lo[j] = s[2 * j] | static_cast<uint32_t>(s[2 * j + 1]) << 16;
+        hi[j] = s[32 + 2 * j] | static_cast<uint32_t>(s[33 + 2 * j]) << 16;
+      }
+    }
+    // lo[j] holds columns 8q + 2j (low half) and 8q + 2j + 1 (high half).
+    uint4 o[2];
+    uint32_t* ow = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ow[2 * j] = __byte_perm(lo[j], hi[j], 0x5410);
+      ow[2 * j + 1] = __byte_perm(lo[j], hi[j], 0x7632);
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + (size_t)r * 32 + 8 * q);
+    d[0] = o[0];
+    d[1] = o[1];
+  }
+}
+
+// Adds to (a0, a1) the rows of w (32 words a row) that the set bits of
+// words[0 .. n) name, in ascending row order. The words are the same for
+// the whole warp, so the walk is uniform.
+__device__ __forceinline__ void walk_rows(const uint32_t* words, int n, const uint32_t* w,
+                                          int lane, float& a0, float& a1) {
+  for (int k = 0; k < n; ++k) {
+    uint32_t bits = words[k];
+    const uint32_t* rows = w + (size_t)k * 1024 + lane;
+    while (bits) {
+      const int s = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const uint32_t p = rows[s * 32];
+      a0 += __uint_as_float(p << 16);
+      a1 += __uint_as_float(p & 0xffff0000u);
+    }
+  }
+}
+
+// One warp: the input bit words of one stream for steps t0 .. t0 + 31,
+// word cw of step t0 + j to dst[j * stride + cw]. Lane l reads channel
+// 32 cw + l over the 32 steps; the 32 ballots transpose them.
+__device__ __forceinline__ void build_inputs(const uint8_t* xb, bool live, int C, int T,
+                                             int t0, int lane, int cw_n, uint32_t* dst,
+                                             int stride) {
+  for (int cw = 0; cw < cw_n; ++cw) {
+    const int c = cw * 32 + lane;
+    const bool on = live && c < C;
+    const uint8_t* xc = xb + (size_t)c * T;
+    uint32_t mine = 0;
+#pragma unroll
+    for (int j = 0; j < kStepBlock; ++j) {
+      const bool f = on && t0 + j < T && xc[t0 + j] != 0;
+      const uint32_t word = __ballot_sync(0xffffffffu, f);
+      if (lane == j) mine = word;
+    }
+    dst[lane * stride + cw] = mine;
+  }
+}
+
+// The cluster body of B2 (kChunk = false) and B4 (kChunk = true). Lane l of
+// warp w holds neurons 64 rank + l and 64 rank + 32 + l of stream
+// (round first + w).
+template <bool kChunk>
+__global__ void __launch_bounds__(kMaxStreams * 32, 1)
+lif_cluster_kernel(const LifArgs a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int M = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = a.C, T = a.T, Np = a.Np, no = a.no;
+  const int nw = Np >> 5, cw = (C + 31) >> 5;
+  uint32_t* const w_rec = smem;                               // Np x 32
+  uint32_t* const w_in = w_rec + (size_t)Np * 32;             // 32 cw x 32
+  uint32_t* const spk = w_in + (size_t)cw * 1024;             // [2][M][nw]
+  uint32_t* const inw = spk + 2 * M * nw;                     // [kStepBlock][M][cw]
+  const int col0 = rank * kSlice;
+  const int n0 = col0 + lane, n1 = n0 + 32;
+
+  load_slice(a.w_rec, Np, Np, col0, w_rec);
+  load_slice(a.w_in, C, Np, col0, w_in);
+  const float lk0 = a.leak_keep[n0], lk1 = a.leak_keep[n1];
+  const float isi_max = static_cast<float>(a.burst_isi_max);
+  // Every CTA of the cluster runs, and has its slices, before any spike
+  // word crosses.
+  cluster_arrive();
+  cluster_wait();
+
+  const int n_clusters = gridDim.x / K;
+  for (int first = (blockIdx.x / K) * M; first < a.B; first += n_clusters * M) {
+    const int b = first + warp;
+    const bool live = b < a.B;                 // the last round may be ragged
+    const size_t row = (size_t)(live ? b : 0) * Np;
+    const uint8_t* xb = a.x + (size_t)(live ? b : 0) * C * T;
+    float v0 = 0.f, v1 = 0.f;
+    int r0 = 0, r1 = 0;
+    bool s0 = false, s1 = false;
+    if (kChunk) {
+      if (live) {
+        v0 = a.v_in[row + n0];
+        v1 = a.v_in[row + n1];
+        r0 = a.refrac_in[row + n0];
+        r1 = a.refrac_in[row + n1];
+      }
+      // Step 0's recurrent words: the carried spike vector, read whole by
+      // every CTA, into buffer 0 (no other CTA writes it before step 1).
+      uint32_t* const carried = spk + warp * nw;
+      for (int k = 0; k < nw; ++k) {
+        const uint32_t word = __ballot_sync(0xffffffffu, live && a.s_in[row + k * 32 + lane] != 0.f);
+        if (lane == 0) carried[k] = word;
+      }
+      __syncwarp();
+    }
+    lsm::OutputStats<kChunk> st0, st1;
+    float allc0 = 0.f, allc1 = 0.f;
+    const bool o0 = live && n0 < no, o1 = live && n1 < no;
+    float* const win0 = kChunk && o0 ? a.win + (size_t)b * a.n_win * no + n0 : nullptr;
+    float* const win1 = kChunk && o1 ? a.win + (size_t)b * a.n_win * no + n1 : nullptr;
+
+    for (int t = 0; t < T; ++t) {
+      const int j = t % kStepBlock;
+      if (j == 0) {
+        build_inputs(xb, live, C, T, t, lane, cw, inw + warp * cw, M * cw);
+        __syncwarp();
+      }
+      float ai0 = 0.f, ai1 = 0.f, ar0 = 0.f, ar1 = 0.f;
+      walk_rows(inw + (j * M + warp) * cw, cw, w_in, lane, ai0, ai1);
+      if (t > 0) cluster_wait();               // step t - 1's spikes have landed
+      if (kChunk || t > 0)
+        walk_rows(spk + ((t & 1) * M + warp) * nw, nw, w_rec, lane, ar0, ar1);
+
+      // The one-thread body's update, for each of the lane's two neurons.
+      const bool act0 = r0 == 0, act1 = r1 == 0;
+      const float vn0 = act0 ? __fadd_rn(__fmul_rn(v0, lk0), ar0 + ai0) : 0.f;
+      const float vn1 = act1 ? __fadd_rn(__fmul_rn(v1, lk1), ar1 + ai1) : 0.f;
+      s0 = act0 && vn0 >= a.thr;
+      s1 = act1 && vn1 >= a.thr;
+      v0 = s0 ? 0.f : vn0;
+      v1 = s1 ? 0.f : vn1;
+      r0 = s0 ? a.refractory : max(r0 - 1, 0);
+      r1 = s1 ? a.refractory : max(r1 - 1, 0);
+
+      // Words 2 rank and 2 rank + 1 of step t + 1's buffer, in every CTA.
+      const uint32_t lo = __ballot_sync(0xffffffffu, s0);
+      const uint32_t hi = __ballot_sync(0xffffffffu, s1);
+      if (t + 1 < T && lane < 2 * K) {
+        uint32_t* dst = cluster.map_shared_rank(
+            spk + (((t + 1) & 1) * M + warp) * nw + 2 * rank + (lane & 1), lane >> 1);
+        *dst = (lane & 1) ? hi : lo;
+      }
+      cluster_arrive();
+
+      if (!kChunk) {
+        allc0 += s0 ? 1.f : 0.f;
+        allc1 += s1 ? 1.f : 0.f;
+      }
+      if (o0) st0.step(s0, t, T, isi_max, a.win_len, a.n_win, win0, no);
+      if (o1) st1.step(s1, t, T, isi_max, a.win_len, a.n_win, win1, no);
+    }
+    cluster_wait();                            // nobody reads this round's buffers now
+
+    if (live) {
+      if (kChunk) {
+        a.v_out[row + n0] = v0;
+        a.v_out[row + n1] = v1;
+        a.refrac_out[row + n0] = r0;
+        a.refrac_out[row + n1] = r1;
+        a.s_out[row + n0] = s0 ? 1.f : 0.f;
+        a.s_out[row + n1] = s1 ? 1.f : 0.f;
+      } else {
+        a.all_counts[row + n0] = allc0;
+        a.all_counts[row + n1] = allc1;
+      }
+    }
+    float* const dst = kChunk ? a.seg : a.stats;
+    if (o0) st0.write(dst, (size_t)a.B * no, (size_t)b * no + n0);
+    if (o1) st1.write(dst, (size_t)a.B * no, (size_t)b * no + n1);
+  }
+}
+
+template <bool kChunk>
+cudaError_t cluster_attributes(int smem) {
+  cudaError_t err = cudaFuncSetAttribute(lif_cluster_kernel<kChunk>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(lif_cluster_kernel<kChunk>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// A launch configuration of `clusters` clusters of K CTAs; attr must outlive it.
+cudaLaunchConfig_t cluster_config(int K, int threads, int smem, int clusters,
+                                  cudaStream_t s, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = K;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(clusters * K);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool bad_cluster_plan(const LifArgs& a, const Plan& p) {
+  return p.K < 2 || p.K > kMaxCluster || p.K * kSlice != a.Np || p.M < 1 ||
+         p.M > kMaxStreams || p.threads != 32 * p.M || p.clusters < 1 ||
+         p.smem > kSmemLimit || (size_t)p.smem < cluster_smem_bytes(a.Np, a.C, p.M);
+}
+
+template <bool kChunk>
+int launch_cluster(const LifArgs& a, const Plan& p, cudaStream_t s) {
+  const cudaError_t err = cluster_attributes<kChunk>(p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p.K, p.threads, p.smem, p.clusters, s, &attr);
+  cudaLaunchKernelEx(&cfg, lif_cluster_kernel<kChunk>, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the block body (above 1024 padded neurons) ----------------------------
 
 // The block body's arguments for a dense (Np, Np) matrix, row = source:
 // Np / 128 slots, slot s reading source block s.
@@ -239,32 +551,52 @@ lsm::BlockLifArgs wide_args(const LifArgs& d, void* scratch) {
   return a;
 }
 
-// B2/B4 above 1024 padded neurons: the block body (up to MAX_WIDE_N).
-int launch_wide(const LifArgs& d, bool chunk, void* scratch, void* stream) {
-  if (d.Np > MAX_WIDE_N) return static_cast<int>(cudaErrorInvalidValue);
-  return lsm::launch_block_lif(wide_args(d, scratch), chunk,
-                               static_cast<cudaStream_t>(stream));
+// Runs the body the plan names, or returns cudaErrorInvalidValue for a plan
+// this shape cannot run.
+template <bool kChunk>
+int launch(const LifArgs& a, const Plan& p, void* scratch, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if ((p.body == kBlock) != (a.Np > MAX_N)) return invalid;
+  if (p.body == kBlock)
+    return a.Np > MAX_WIDE_N ? invalid
+                             : lsm::launch_block_lif(wide_args(a, scratch), kChunk, s);
+  if (bad_shape(a.C, a.T, a.Np, a.no)) return invalid;
+  if (p.body == kOneThread) return launch_one_thread<kChunk>(a, s);
+  if (p.body == kCluster && !bad_cluster_plan(a, p)) return launch_cluster<kChunk>(a, p, s);
+  return invalid;
 }
 
 }  // namespace
+
+// How many clusters of K CTAs of the cluster body (`threads` threads and
+// `smem` bytes of dynamic shared memory each) the card holds at once.
+extern "C" int lsm_lif_cluster_capacity(int chunk, int K, int threads, int smem, int* out) {
+  *out = 0;
+  const cudaError_t err = chunk ? cluster_attributes<true>(smem) : cluster_attributes<false>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(K, threads, smem, 1, nullptr, &attr);
+  return static_cast<int>(
+      chunk ? cudaOccupancyMaxActiveClusters(out, lif_cluster_kernel<true>, &cfg)
+            : cudaOccupancyMaxActiveClusters(out, lif_cluster_kernel<false>, &cfg));
+}
 
 extern "C" int lsm_lif_stats(const uint8_t* x, const uint16_t* w_rec,
                              const uint16_t* w_in, const float* leak_keep,
                              float* stats, float* all_counts, int B, int C,
                              int T, int Np, int no, float thr, int refractory,
                              int burst_isi_max, int win_len, int n_win,
-                             void* scratch, void* stream) {
+                             int body, int K, int M, int threads, int smem,
+                             int clusters, void* scratch, void* stream) {
   if (B <= 0) return 0;
-  if (Np <= MAX_N && bad_shape(C, T, Np, no))
-    return static_cast<int>(cudaErrorInvalidValue);
   LifArgs a{};
   a.x = x; a.w_rec = w_rec; a.w_in = w_in; a.leak_keep = leak_keep;
   a.stats = stats; a.all_counts = all_counts;
   a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
-  if (Np > MAX_N) return launch_wide(a, false, scratch, stream);
-  return launch_one_thread<false>(a, stream);
+  return launch<false>(a, Plan{body, K, M, threads, smem, clusters}, scratch, stream);
 }
 
 extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
@@ -274,11 +606,10 @@ extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
                              float* s_out, float* seg, float* win, int B,
                              int C, int T, int Np, int no, float thr,
                              int refractory, int burst_isi_max, int win_len,
-                             int n_win, void* scratch, void* stream) {
+                             int n_win, int body, int K, int M, int threads,
+                             int smem, int clusters, void* scratch, void* stream) {
   if (B <= 0) return 0;
-  if ((Np <= MAX_N && bad_shape(C, T, Np, no)) || win_len <= 0 ||
-      T != win_len * n_win)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (win_len <= 0 || T != win_len * n_win) return static_cast<int>(cudaErrorInvalidValue);
   LifArgs a{};
   a.x = x; a.w_rec = w_rec; a.w_in = w_in; a.leak_keep = leak_keep;
   a.v_in = v_in; a.refrac_in = refrac_in; a.s_in = s_in;
@@ -287,6 +618,5 @@ extern "C" int lsm_lif_chunk(const uint8_t* x, const uint16_t* w_rec,
   a.B = B; a.C = C; a.T = T; a.Np = Np; a.no = no; a.thr = thr;
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
   a.win_len = win_len; a.n_win = n_win;
-  if (Np > MAX_N) return launch_wide(a, true, scratch, stream);
-  return launch_one_thread<true>(a, stream);
+  return launch<true>(a, Plan{body, K, M, threads, smem, clusters}, scratch, stream);
 }

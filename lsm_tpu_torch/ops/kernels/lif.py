@@ -6,28 +6,47 @@ B2 replaces lsm_tpu/ops/pallas/lif_kernel.py:46 `_lif_kernel` (entry
 `_lif_chunk_kernel` (entry `simulate_chunk_pallas`), one continuous-mode
 chunk with v, refrac and the spike vector carried in and out, a segment
 summary with segment-relative times and per-window counts, and no
-all_counts. Both are one templated kernel body. The TPU kept W_rec (2 MB
-bf16) resident in VMEM; a Hopper SM has 227 KB of shared memory, so the
-kernel streams W from the 50 MB L2 instead: one CTA per batch row, one thread per neuron, the state
-and statistics in registers, and each step reads only the W rows of the
-neurons and input channels that fired (spikes are 0/1). What bounds it on
-an H100: the L2 latency of those row reads and two block barriers per
-step, not FLOPs (the TPU formulation's dense (B, N) x (N, N) matmul does
-~50x more work at a ~2 % firing rate). B4 compacts the carried spike
-vector before its first step, so that step's recurrent drive comes from
-the previous chunk's last spikes. Above 1024 padded neurons (up to 4096,
-the largest dense reservoir the port draws) the C entry points run the
-stream-tiled block body of csrc/sparse_lif.cu instead, with the dense
-matrix seen as N_pad/128 x N_pad/128 blocks, in global scratch that the
-wrapper allocates (`block_scratch`); that body keeps refrac in 8 bits up
-to refractory 255 and in 16 bits above (refractory <= 65535). The
-one-thread body takes any number of input channels: thread n compacts
-channels n, n + N_pad, ...
+all_counts. Spikes are 0/1, so each step's drive is the sum of the W rows
+of the sources that fired, in ascending source order (recurrent rows, then
+input rows, into two f32 accumulators): every body gives the same bits on
+any weights, and the plain twin's on dyadic ones.
+
+`dense_plan` picks the body of a call and its tiling, in this one place;
+the C entry points check the plan and run it:
+
+- the cluster body (N_pad = 64 K, K = 2..16): the TPU kept W_rec (2 MB
+  bf16) resident in VMEM; here a thread-block cluster of K CTAs keeps it
+  resident in shared memory, 64 destination columns a CTA (128 KB at
+  N_pad 1024, plus W_in's 128 bytes a channel). A cluster takes M streams
+  a round, one warp a stream, two neurons a lane; a step walks the
+  stream's input and spike bit words and adds one shared-memory row per
+  set bit, runs the LIF update and statistics in registers, sends its
+  spike words to every CTA of the cluster and arrives at one cluster
+  barrier. What bounds it is the latency of a step, not bytes or FLOPs:
+  the instructions of the row walk (~10 per fired row and warp) and the
+  barrier. Budget: at most 232,448 bytes of shared memory and 16 streams
+  (512 threads, one CTA an SM, up to 128 registers a thread, so the
+  state and the 13-float OutputStats of two neurons stay in registers);
+- the one-thread body, one CTA a stream, one thread a neuron, the fired
+  sources compacted into lists each step (two block barriers a step): the
+  shapes whose slices do not fit a cluster (C = 2048 channels at
+  redundancy 16 is 256 KB of W_in a CTA) or whose N_pad is not a multiple
+  of 64 of at least 128. It takes any number of input channels (thread n
+  compacts channels n, n + N_pad, ...);
+- the block body above 1024 padded neurons (up to 4096, the largest dense
+  reservoir the port draws): the stream-tiled body of csrc/sparse_lif.cu
+  with the dense matrix seen as N_pad/128 x N_pad/128 blocks, in global
+  scratch that the wrapper allocates (`block_scratch`); it keeps refrac in
+  8 bits up to refractory 255 and in 16 bits above (refractory <= 65535).
+
+A CUDA tensor always launches the body its plan names, or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
@@ -38,12 +57,20 @@ STAT_KEYS = (
     "sum_isi2", "bursts", "win_sum", "win_sum2",
 )
 SEG_KEYS = STAT_KEYS[:9]  # the segment summary B4 writes
-MAX_NEURONS = 4096       # N_pad <= 1024: one thread a neuron; above: the block body
+MAX_NEURONS = 4096       # N_pad <= 1024: the cluster or one-thread body; above: the block body
 _ONE_THREAD_MAX = 1024
 MAX_REFRACTORY = 65535   # the block body's refractory counter: 8 bits, 16 above 255
+# The cluster body (csrc/lif.cu): 64 destination neurons a CTA, at most 16
+# CTAs a cluster and 16 streams (warps) a round, input bit words built 32
+# steps at a time, within an SM's 232,448 bytes of shared memory.
+CLUSTER_SLICE, MAX_CLUSTER, MAX_CLUSTER_STREAMS, STEP_BLOCK = 64, 16, 16, 32
+SMEM_LIMIT = 232_448
+ONE_THREAD, CLUSTER, BLOCK = "one_thread", "cluster", "block"
+_BODY_CODE = {ONE_THREAD: 0, CLUSTER: 1, BLOCK: 2}     # as csrc/lif.cu numbers them
 
 launches = 0             # B2 kernel launches (the plain twin does not count)
 chunk_launches = 0       # B4 kernel launches
+body_launches = dict.fromkeys(_BODY_CODE, 0)   # B2 and B4 launches by body
 
 
 def _lif_update(v, refrac, drive, leak_keep, threshold, refractory):
@@ -158,21 +185,126 @@ def _check(x, w_rec, w_in, leak_keep, n_outputs):
         raise ValueError("lif_stats wants contiguous tensors")
 
 
-def _check_cuda(name, x, n_pad, refractory):
+def _check_cuda(name, x):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    T = x.shape[2]
-    if n_pad > MAX_NEURONS or n_pad % 32 or T == 0:
-        raise ValueError(
-            f"kernel {name} takes T > 0, N_pad <= {MAX_NEURONS} and N_pad % 32 == 0; "
-            f"got T={T} N_pad={n_pad}"
-        )
-    if n_pad > _ONE_THREAD_MAX and (n_pad % 128 or not 0 <= refractory <= MAX_REFRACTORY):
-        raise ValueError(
-            f"kernel {name} above {_ONE_THREAD_MAX} padded neurons takes N_pad % 128 == 0 "
-            f"and 0 <= refractory <= {MAX_REFRACTORY}; got N_pad={n_pad} "
-            f"refractory={refractory}"
-        )
+    if x.shape[2] == 0:
+        raise ValueError(f"kernel {name} takes T > 0")
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """How one dense B2/B4 call runs: its body and, for the cluster body,
+    K CTAs a cluster (`cluster_size`, K x 64 = N_pad), M streams a round
+    (`streams`, one warp each: `threads` = 32 M), its bytes of dynamic
+    shared memory, the clusters launched, the rounds the busiest cluster
+    walks, and the clusters the card holds at once (`co_resident`)."""
+
+    body: str
+    cluster_size: int = 0
+    streams: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+    clusters: int = 0
+    rounds: int = 0
+    co_resident: int = 0
+
+    def c_args(self) -> tuple:
+        """The six ints the C entry points take: body, K, M, threads,
+        shared-memory bytes, clusters."""
+        return (_BODY_CODE[self.body], self.cluster_size, self.streams, self.threads,
+                self.smem_bytes, self.clusters)
+
+
+def cluster_smem_bytes(n_pad: int, channels: int, streams: int) -> int:
+    """The cluster body's shared memory a CTA (csrc/lif.cu's layout): the
+    W_rec slice (N_pad rows of 128 bytes), the W_in slice (channels rounded
+    up to 32 rows), two spike buffers of `streams` x N_pad/32 words, and the
+    input words of 32 steps."""
+    nw, cw = n_pad // 32, -(-channels // 32)
+    return 128 * n_pad + 4096 * cw + 8 * streams * nw + 4 * STEP_BLOCK * streams * cw
+
+
+def max_cluster_streams(n_pad: int, channels: int) -> int:
+    """The most streams a cluster round takes (<= 16) with the slices in
+    shared memory, or 0 where the cluster body does not take the shape."""
+    if n_pad % CLUSTER_SLICE or not 2 <= n_pad // CLUSTER_SLICE <= MAX_CLUSTER:
+        return 0
+    return max((m for m in range(1, MAX_CLUSTER_STREAMS + 1)
+                if cluster_smem_bytes(n_pad, channels, m) <= SMEM_LIMIT), default=0)
+
+
+def dense_plan(batch: int, channels: int, n_pad: int, refractory: int,
+               co_resident: Callable[[int, int, int], int],
+               body: Optional[str] = None) -> DensePlan:
+    """The body and tiling of a dense B2/B4 call on `batch` streams of
+    `channels` input channels at `n_pad` padded neurons. The cluster body
+    wherever its slices fit, else the one-thread body, and the block body
+    above 1024 padded neurons; `body` asks for one of them, and raises if
+    it cannot take the shape. co_resident(K, threads, smem_bytes) is how
+    many such clusters the card holds at once (`cluster_capacity` asks the
+    card). The rounds are as few as those clusters allow, and M as small
+    as those rounds allow: M = ceil(B / (clusters x rounds))."""
+    if not 0 < n_pad <= MAX_NEURONS or n_pad % 32:
+        raise ValueError(f"dense B2/B4 take 0 < N_pad <= {MAX_NEURONS} and N_pad % 32 == 0; "
+                         f"got N_pad={n_pad}")
+    if body not in (None, *_BODY_CODE):
+        raise ValueError(f"unknown body {body!r}")
+    if n_pad > _ONE_THREAD_MAX:
+        if n_pad % 128 or not 0 <= refractory <= MAX_REFRACTORY:
+            raise ValueError(
+                f"dense B2/B4 above {_ONE_THREAD_MAX} padded neurons take N_pad % 128 == 0 "
+                f"and 0 <= refractory <= {MAX_REFRACTORY}; got N_pad={n_pad} "
+                f"refractory={refractory}")
+        if body not in (None, BLOCK):
+            raise ValueError(f"N_pad={n_pad} runs only on the block body, not {body}")
+        return DensePlan(BLOCK)
+    m_cap = max_cluster_streams(n_pad, channels)
+    if body == BLOCK or (body == CLUSTER and not m_cap):
+        raise ValueError(f"N_pad={n_pad} with {channels} channels has no {body} body")
+    if body == ONE_THREAD or not m_cap:
+        return DensePlan(ONE_THREAD)
+    k = n_pad // CLUSTER_SLICE
+    co = int(co_resident(k, 32 * m_cap, cluster_smem_bytes(n_pad, channels, m_cap)))
+    if co < 1:
+        raise ValueError(f"the card holds no cluster of {k} CTAs of the cluster body")
+    b = max(int(batch), 1)
+    rounds = -(-b // (co * m_cap))
+    m = -(-b // (co * rounds))
+    clusters = -(-b // (m * rounds))
+    # The kernel hands round slots first, first + clusters, ... to a cluster.
+    rounds = -(-(-(-b // m)) // clusters)
+    return DensePlan(CLUSTER, k, m, 32 * m, cluster_smem_bytes(n_pad, channels, m),
+                     clusters, rounds, co)
+
+
+_capacity: dict = {}
+
+
+def cluster_capacity(device: torch.device, chunk: bool, k: int, threads: int,
+                     smem_bytes: int) -> int:
+    """The clusters of k CTAs of the cluster body (B4's if `chunk`, else
+    B2's) that `device` holds at once (cudaOccupancyMaxActiveClusters),
+    asked once per shape."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, bool(chunk), k, threads, smem_bytes)
+    if key not in _capacity:
+        fn = _build.function("lsm_lif_cluster_capacity",
+                             [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = fn(int(chunk), k, threads, smem_bytes, ctypes.byref(out))
+        _build.check(err, "lsm_lif_cluster_capacity")
+        _capacity[key] = out.value
+    return _capacity[key]
+
+
+def card_plan(x: torch.Tensor, n_pad: int, refractory: int, chunk: bool,
+              body: Optional[str] = None) -> DensePlan:
+    """`dense_plan` for spikes x (B, C, T) on their card: B2's plan, or
+    B4's if `chunk`."""
+    return dense_plan(x.shape[0], x.shape[1], n_pad, refractory,
+                      lambda k, th, sm: cluster_capacity(x.device, chunk, k, th, sm), body)
 
 
 def block_scratch(x, n_state, n_slots, n_outputs, chunk, refractory):
@@ -188,20 +320,19 @@ def block_scratch(x, n_state, n_slots, n_outputs, chunk, refractory):
     return torch.empty(n_bytes, dtype=torch.uint8, device=x.device)
 
 
-def _scratch_ptr(x, n_pad, n_outputs, chunk, refractory):
+def _scratch_ptr(x, plan, n_pad, n_outputs, chunk, refractory):
     """(tensor kept alive for the call, pointer): the block body's scratch
-    above one thread a neuron (the dense matrix as n_pad / 128 slots), none
-    below."""
-    if n_pad <= _ONE_THREAD_MAX:
+    (the dense matrix as n_pad / 128 slots), none for the other bodies."""
+    if plan.body != BLOCK:
         return None, None
     sc = block_scratch(x, n_pad, n_pad // 128, n_outputs, chunk, refractory)
     return sc, sc.data_ptr()
 
 
 def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
-              burst_isi_max, n_outputs, n_win):
-    """(stats (11, B, no), all_counts (B, Np)): kernel B2 on CUDA, the plain
-    twin on CPU."""
+              burst_isi_max, n_outputs, n_win, plan: Optional[DensePlan] = None):
+    """(stats (11, B, no), all_counts (B, Np)): kernel B2 on CUDA, on the
+    body `plan` names (default: `card_plan`'s), the plain twin on CPU."""
     global launches
     _check(x, w_rec, w_in, leak_keep, n_outputs)
     kw = dict(threshold=threshold, refractory=refractory,
@@ -209,7 +340,8 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
     if x.device.type == "cpu":
         return lif_stats_plain(x, w_rec, w_in, leak_keep, **kw)
     n_pad = w_rec.shape[0]
-    _check_cuda("B2", x, n_pad, refractory)
+    _check_cuda("B2", x)
+    plan = plan or card_plan(x, n_pad, refractory, chunk=False)
     B, C, T = x.shape
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=x.device)
     all_counts = torch.empty(B, n_pad, dtype=torch.float32, device=x.device)
@@ -218,17 +350,19 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 6, ctypes.c_void_p, ctypes.c_void_p,
     ])
     with torch.cuda.device(x.device):
-        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, False, refractory)
+        _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, False, refractory)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), max(1, T // n_win), int(n_win), scratch, stream)
+                 int(burst_isi_max), max(1, T // n_win), int(n_win), *plan.c_args(),
+                 scratch, stream)
     _build.check(err, "lsm_lif_stats")
     launches += 1
+    body_launches[plan.body] += 1
     return stats, all_counts
 
 
@@ -268,9 +402,11 @@ def chunk_scan(x, recurrent, w_in, leak_keep, v, refrac, s_prev, *, threshold,
 
 
 def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
-              refractory, burst_isi_max, n_outputs, win_len, n_new_win):
+              refractory, burst_isi_max, n_outputs, win_len, n_new_win,
+              plan: Optional[DensePlan] = None):
     """One carried-state chunk: (v, refrac, s_prev, seg (9, B, no),
-    win (B, n_new_win, no)). Kernel B4 on CUDA, the plain twin on CPU."""
+    win (B, n_new_win, no)). Kernel B4 on CUDA, on the body `plan` names
+    (default: `card_plan`'s), the plain twin on CPU."""
     global chunk_launches
     _check(x, w_rec, w_in, leak_keep, n_outputs)
     B, C, T = x.shape
@@ -290,7 +426,8 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
               n_outputs=n_outputs, win_len=win_len, n_new_win=n_new_win)
     if x.device.type == "cpu":
         return lif_chunk_plain(x, w_rec, w_in, leak_keep, v, refrac, s_prev, **kw)
-    _check_cuda("B4", x, n_pad, refractory)
+    _check_cuda("B4", x)
+    plan = plan or card_plan(x, n_pad, refractory, chunk=True)
     dev = x.device
     v_out = torch.empty_like(v)
     refrac_out = torch.empty_like(refrac)
@@ -300,17 +437,19 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
     fn = _build.function("lsm_lif_chunk", [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 6, ctypes.c_void_p, ctypes.c_void_p,
     ])
     with torch.cuda.device(dev):
-        _keep, scratch = _scratch_ptr(x, n_pad, n_outputs, True, refractory)
+        _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, True, refractory)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(), leak_keep.data_ptr(),
                  v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
                  v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
                  seg.data_ptr(), win.data_ptr(),
                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), int(win_len), int(n_new_win), scratch, stream)
+                 int(burst_isi_max), int(win_len), int(n_new_win), *plan.c_args(),
+                 scratch, stream)
     _build.check(err, "lsm_lif_chunk")
     chunk_launches += 1
+    body_launches[plan.body] += 1
     return v_out, refrac_out, s_out, seg, win
