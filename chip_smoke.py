@@ -14,14 +14,21 @@ Phases (any failure exits non-zero):
                (the twin's block form in float64): on the sub-block
                energies at >= 1e-4 of their (row, channel) peak its largest
                relative error must stay <= 1e-3 in every channel and its
-               worst channel no worse than the twin's.
+               worst channel no worse than the twin's. B2's plan must name
+               the cluster body with K = 16; on the calibrated (non-dyadic)
+               weights its statistics must be bit-equal to the one-thread
+               body's (the same sums in the same order), and it is timed
+               beside the one-thread body and on all-zero spikes (the
+               per-step floor: signalling, word scans, update, statistics).
   3. slice   - lsm_tpu_torch.pipeline.run_pipeline_arrays on the frozen hard
                corpus (30 x 12, seed 42, batch 64): regime EDGE OF CHAOS,
                accuracy inside the band (0.76, 0.90), and both kernels'
-               launch counters > 0 for this run.
+               launch counters > 0 for this run, every B2 launch on the
+               cluster body.
   4. hot     - the inference path at 2400 synthetic utterances with the
                audio already on the card: featurize, extract, scale,
-               predict; utterances/s beside the card's name and power limit.
+               predict; utterances/s beside the card's name and power limit;
+               B2's plan at 2400 rows and its share of the wall.
   5. chunk kernels - B3 and B4 against their plain twins at serving shapes
                (1024 streams, one 100 ms hop from a carried state, flagship
                config): B3 at rtol 5e-3 / atol 1e-6 (its state, which
@@ -38,14 +45,17 @@ Phases (any failure exits non-zero):
                (20 x 12, seed 42, batch 64) for the exact accuracy, then
                fit_continuous_readout and carry-in serving of the test split
                through ContinuousKWS in 100 ms chunks: matched accuracy
-               >= 0.60 and exact - matched <= 0.15; B3 and B4 launched.
+               >= 0.60 and exact - matched <= 0.15; B3 and B4 launched, B2
+               and B4 on the cluster body.
   7. serving - ContinuousKWS.step at 1024 streams (flagship reservoir of
                phase 6), int16 wire, after one 1 s window of warm-up, state
                carried: host wall per hop (median, min), stream-chunks/s,
                real-time factor, CUDA-event stage split, device busy share
                and top device ops from torch.profiler, peak memory; B4's
                time and bound at the serving weights from the carried
-               state (the kernels line takes these).
+               state (the kernels line takes these), its plan (the cluster
+               body, K = 16), its fired source rows a stream-step, and its
+               outputs bit-equal to the one-thread body's on every hop.
   8. sparse kernels - BASELINE configs[3] width (N=10240, k=2048, R=4,
                C=128, T=400), weights calibrated at multiplier 1.6 on the
                phase-2 spikes: B5 bit-equal to its twin on the dyadic copy
@@ -285,6 +295,7 @@ def chunk_measure(hops, ops, kw, kernel, plain, flops) -> dict:
         "ms": cuda_ms(run(kernel), reps=max(1, 20 // n)) / n,
         "plain_ms": cuda_ms(run(plain), reps=1 if n > 1 else 3) / n,
         "source_rows": rows / n, "spikes_per_step": spikes / n,
+        "source_rows_per_stream_step": rows / (n * hops[0][0].shape[0] * hops[0][0].shape[-1]),
         "spike_total_rel_gap": gap,
         **bound(n_flops / n, n_bytes / n),
     }
@@ -362,6 +373,7 @@ def reset_launches() -> None:
 
     kgt.launches = kgt.chunk_launches = klif.launches = klif.chunk_launches = 0
     ksp.launches = ksp.chunk_launches = 0
+    klif.body_launches.update(dict.fromkeys(klif.body_launches, 0))
 
 
 def read_launches() -> dict:
@@ -371,7 +383,40 @@ def read_launches() -> dict:
 
     return {"B1": kgt.launches, "B2": klif.launches,
             "B3": kgt.chunk_launches, "B4": klif.chunk_launches,
-            "B5": ksp.launches, "B6": ksp.chunk_launches}
+            "B5": ksp.launches, "B6": ksp.chunk_launches,
+            "dense_bodies": dict(klif.body_launches)}
+
+
+def on_cluster_body(launches: dict) -> bool:
+    """Every dense B2/B4 launch of a flagship run went through the cluster
+    body, and there was one."""
+    n = launches["B2"] + launches["B4"]
+    return n > 0 and launches["dense_bodies"]["cluster"] == n
+
+
+def flagship_plan(plan, what: str) -> None:
+    """A flagship B2/B4 call must take the cluster body at K = 16."""
+    if plan.body != "cluster" or plan.cluster_size != 16:
+        fail(f"{what}: the flagship shape planned {plan}, not the cluster body at K = 16")
+
+
+def dense_timing(plan, ms: float, batch: int, steps: int) -> dict:
+    """A dense B2/B4 call's plan, stream-steps per microsecond and
+    microseconds a step (a cluster body round is `steps` steps; the
+    one-thread body runs every stream at once)."""
+    import dataclasses
+
+    rounds = plan.rounds if plan.body == "cluster" else 1
+    return {"plan": dataclasses.asdict(plan),
+            "stream_steps_per_us": batch * steps / (ms * 1e3),
+            "us_per_step": ms * 1e3 / (rounds * steps)}
+
+
+def plan_text(t: dict) -> str:
+    p = t["plan"]
+    return (f"{p['body']} body K={p['cluster_size']} M={p['streams']} clusters={p['clusters']} "
+            f"(co-resident {p['co_resident']}) rounds={p['rounds']}: "
+            f"{t['stream_steps_per_us']:.1f} stream-steps/us, {t['us_per_step']:.3f} us a step")
 
 
 def finite_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -531,12 +576,27 @@ def main() -> None:
         dict(zip(klif.STAT_KEYS, klif.lif_stats_plain(spikes, *ops_r, **kw_r)[0].unbind(0)),
              n_win_used=float(rcfg.n_rate_windows)), keys)
     rand_rel = float(((f_k - f_p).abs() / f_p.abs().clamp_min(1e-6)).max())
+    # The cluster body against the one-thread body on the calibrated
+    # weights: the same sums in the same order, so the same bits.
+    plan2 = klif.card_plan(spikes, ops[0].shape[0], kw["refractory"], chunk=False)
+    one2 = klif.card_plan(spikes, ops[0].shape[0], kw["refractory"], chunk=False,
+                          body=klif.ONE_THREAD)
+    flagship_plan(plan2, "B2 at B=256")
+    c_out = klif.lif_stats(spikes, *ops_r, **kw_r)
+    o_out = klif.lif_stats(spikes, *ops_r, **kw_r, plan=one2)
+    torch.cuda.synchronize()
+    eq_one = all(torch.equal(a, b) for a, b in zip(c_out, o_out))
+    zeros = torch.zeros_like(spikes)
     b2 = {
         "bit_equal_dyadic": bool(equal),
         "max_abs_err": b2_abs,
         "random_weight_feature_max_rel_err": rand_rel,
         "spikes_per_step": float(a_p.sum() / (256 * spikes.shape[-1])),
+        "bit_equal_one_thread_calibrated": bool(eq_one),
         "ms": cuda_ms(lambda: klif.lif_stats(spikes, *ops, **kw), reps=5),
+        "one_thread_ms": cuda_ms(lambda: klif.lif_stats(spikes, *ops, **kw, plan=one2), reps=5),
+        "calibrated_ms": cuda_ms(lambda: klif.lif_stats(spikes, *ops_r, **kw_r), reps=5),
+        "zero_input_ms": cuda_ms(lambda: klif.lif_stats(zeros, *ops, **kw), reps=5),
         "plain_ms": cuda_ms(lambda: klif.lif_stats_plain(spikes, *ops, **kw), reps=2),
         # Source rows: every reservoir spike (the last step's, <= 1/T of
         # them, included) and every input spike.
@@ -544,11 +604,23 @@ def main() -> None:
                           r_rand.n_neurons),
                 nbytes(spikes, *ops, s_k, a_k)),
     }
+    T2 = spikes.shape[-1]
+    b2.update(dense_timing(plan2, b2["ms"], 256, T2))
+    b2["zero_input_us_per_step"] = b2["zero_input_ms"] * 1e3 / (plan2.rounds * T2)
     print(f"[B2 lif] B=256 C=128 N=1000 T=400 dyadic: bit_equal {equal} "
           f"max_abs_err {b2_abs:.3e}; random weights feature max rel err "
-          f"{rand_rel:.3e}; kernel {b2['ms']:.3f} ms plain {b2['plain_ms']:.3f} ms ({card})")
+          f"{rand_rel:.3e}; kernel {b2['ms']:.3f} ms plain {b2['plain_ms']:.3f} ms bound "
+          f"{b2['bound_ms']:.4f} ms ({b2['bound_by']}), {b2['spikes_per_step']:.1f} spikes a "
+          f"stream-step ({card})")
+    print(f"[B2 lif] plan: {plan_text(b2)}; one-thread body {b2['one_thread_ms']:.3f} ms; "
+          f"all-zero spikes {b2['zero_input_ms']:.3f} ms ({b2['zero_input_us_per_step']:.3f} us "
+          f"a step: signalling, word scans, update, statistics; the row walk the other "
+          f"{b2['ms'] - b2['zero_input_ms']:.3f} ms); calibrated weights {b2['calibrated_ms']:.3f} "
+          f"ms, bit-equal to the one-thread body {eq_one}")
     if not equal:
         fail("B2 statistics are not bit-equal to the plain twin on dyadic weights")
+    if not eq_one:
+        fail("B2's cluster body is not bit-equal to its one-thread body on calibrated weights")
     record["B1"], record["B2"] = b1, b2
     laps("2 kernels")
 
@@ -561,25 +633,28 @@ def main() -> None:
     )
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
-    launches = {k: v for k, v in read_launches().items() if k in ("B1", "B2")}
+    every = read_launches()
+    launches = {k: v for k, v in every.items() if k in ("B1", "B2")}
     record["slice"] = {
         "seconds": slice_s, "accuracy": result.accuracy,
         "regime": ext.diagnostics.regime,
         "avg_participation": ext.diagnostics.avg_participation,
         "mean_weight": ext.mean_weight, "lbfgs_iters": result.n_iters,
-        "launches": launches,
+        "launches": launches, "dense_bodies": every["dense_bodies"],
     }
     print(ext.diagnostics.render())
     print(result.report.render())
     print(f"[slice] hard corpus 360 utt: accuracy {result.accuracy:.4f} regime "
           f"{ext.diagnostics.regime} lbfgs_iters {result.n_iters} launches "
-          f"{launches} wall {slice_s:.2f} s")
+          f"{launches} (dense bodies {every['dense_bodies']}) wall {slice_s:.2f} s")
     if ext.diagnostics.regime != "EDGE OF CHAOS":
         fail(f"regime {ext.diagnostics.regime}")
     if not ACC_BAND[0] <= result.accuracy <= ACC_BAND[1]:
         fail(f"accuracy {result.accuracy:.4f} outside {ACC_BAND}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the path was not launched: {launches}")
+    if not on_cluster_body(every):
+        fail(f"B2 did not run on the cluster body: {every['dense_bodies']}")
     laps("3 slice")
 
     # ---- 4. hot inference path at 2400 utterances ------------------------
@@ -625,6 +700,10 @@ def main() -> None:
     }
     e_h = kgt.sub_energy(audio, fb)
     s_h, a_h = klif.lif_stats(spikes0, *ops_h, **kw_h)
+    plan_h = klif.card_plan(spikes0, ops_h[0].shape[0], kw_h["refractory"], chunk=False)
+    flagship_plan(plan_h, f"B2 at B={n}")
+    hot_rec["B2_2400"] = dense_timing(plan_h, hot_rec["B2_ms_2400"], n, spikes0.shape[-1])
+    hot_rec["B2_share_of_min_wall"] = hot_rec["B2_ms_2400"] / (min(walls) * 1e3)
     hot_rec["B1_bound_2400"] = gtgram_bound(audio, fb, e_h)
     hot_rec["B2_bound_2400"] = bound(
         lif_flops(float(a_h.sum() + spikes0.sum()), n, spikes0.shape[-1], r_hot.n_neurons),
@@ -636,6 +715,8 @@ def main() -> None:
           + " ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f"; B1 {hot_rec['B1_ms_2400']:.2f} ms B2 {hot_rec['B2_ms_2400']:.2f} ms "
           f"at B={n}; fit accuracy {fit_acc:.3f} ({card})")
+    print(f"[hot] B2 at B={n}: {plan_text(hot_rec['B2_2400'])}; "
+          f"{100 * hot_rec['B2_share_of_min_wall']:.1f} % of the min wall")
 
     laps("4 hot")
 
@@ -906,6 +987,8 @@ def continuous_slice(dev, card) -> dict:
              f"within {CONT_MAX_DELTA} of exact {result.accuracy:.4f})")
     if min(launches["B3"], launches["B4"]) <= 0:
         fail(f"a kernel of the continuous path was not launched: {launches}")
+    if not on_cluster_body(launches):
+        fail(f"B2/B4 did not run on the cluster body: {launches['dense_bodies']}")
     rec["engine_args"] = (ext.reservoir, ro, sc)
     return rec
 
@@ -965,6 +1048,12 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
         b, c, t = ck_hops[0][0].shape
         ck.update(tensor_core_bound(b, t, kws.reservoir.n_neurons,
                                     kws.reservoir.src_idx.shape[1], c))
+    else:
+        if not on_cluster_body(launches):
+            fail(f"B4 did not serve on the cluster body: {launches['dense_bodies']}")
+        ck.update(b4_against_one_thread(ck_hops, ops, kw, ck["ms"]))
+        if not ck["bit_equal_one_thread"]:
+            fail("B4's cluster body is not bit-equal to its one-thread body at serving weights")
     del ck_hops
     dchunk = torch.as_tensor(hops[0]).to(dev)
 
@@ -1023,12 +1112,42 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
           f"plain {ck['plain_ms']:.3f} ms bound {ck['bound_ms']:.4f} ms ({ck['bound_by']}){tc}, "
           f"{ck['spikes_per_step']:.1f} spikes a stream-step, spike totals within "
           f"{ck['spike_total_rel_gap']:.2e} of the twin's; launches {launches} ({card})")
+    if name == "B4":
+        print(f"[serving] B4 plan: {plan_text(ck)}; {ck['source_rows_per_stream_step']:.2f} "
+              f"fired source rows a stream-step; one-thread body {ck['one_thread_ms']:.3f} ms, "
+              f"bit-equal to it on every hop {ck['bit_equal_one_thread']}")
     for k, ms in ck.get("device_ms_by_kernel", {}).items():
         print(f"[serving]   {name} {ms:8.4f} ms/hop  {k[:100]}")
     for t in rec["top_device"]:
         print(f"[serving]   {t['us'] / 1e3 / prof['calls']:8.3f} ms/hop x{t['count'] // prof['calls']:4d}"
               f"  {t['name']}")
     return rec
+
+
+def b4_against_one_thread(hops, ops, kw, ms: float) -> dict:
+    """B4 at serving shapes over `hops` (x, carried state): its plan (the
+    cluster body at K = 16) and timing from `ms`, its outputs bit-equal to
+    the one-thread body's on every hop (calibrated weights), the one-thread
+    body's time a hop, and the fired source rows (carried and recurrent
+    spikes, input spikes) a stream-step from `chunk_measure`'s count."""
+    from lsm_tpu_torch.ops.kernels import lif as klif
+
+    x0 = hops[0][0]
+    b, _, t = x0.shape
+    plan = klif.card_plan(x0, ops[0].shape[0], kw["refractory"], chunk=True)
+    one = klif.card_plan(x0, ops[0].shape[0], kw["refractory"], chunk=True,
+                         body=klif.ONE_THREAD)
+    flagship_plan(plan, f"B4 at {b} streams")
+    equal = True
+    for x, carried in hops:
+        out_c = klif.lif_chunk(x, *ops, *carried, **kw)
+        out_o = klif.lif_chunk(x, *ops, *carried, **kw, plan=one)
+        equal = equal and all(torch.equal(c, o) for c, o in zip(out_c, out_o))
+    torch.cuda.synchronize()
+    one_ms = cuda_ms(lambda: [klif.lif_chunk(x, *ops, *c, **kw, plan=one) for x, c in hops],
+                     reps=2) / len(hops)
+    return {"bit_equal_one_thread": bool(equal), "one_thread_ms": one_ms,
+            **dense_timing(plan, ms, b, t)}
 
 
 def chained_chunks_equal(kernel, plain, ops, kw, chunks, width: int) -> tuple:

@@ -85,7 +85,7 @@ constexpr int MAX_N = 1024;       // the one-thread body: one thread per padded 
 constexpr int MAX_WIDE_N = 4096;  // the block body: the largest dense draw
 constexpr int kSlice = 64;        // the cluster body: destination neurons a CTA
 constexpr int kMaxCluster = 16;   // the largest (non-portable) cluster
-constexpr int kMaxStreams = 16;   // streams a cluster round, one warp each
+constexpr int kMaxStreams = 24;   // streams a cluster round, one warp each
 constexpr int kStepBlock = 32;    // steps of input bit words built at a time
 constexpr int kSmemLimit = 232448;
 
@@ -274,22 +274,66 @@ int launch_one_thread(const LifArgs& a, cudaStream_t s) {
 
 // ---- the cluster body ------------------------------------------------------
 
+// A warp's source list: room for every neuron or input channel (a multiple
+// of 32 either way, so a list of 16-bit entries stays 16-byte aligned).
+__host__ __device__ inline int list_len(int Np, int C) {
+  return max(Np, 32 * ((C + 31) / 32));
+}
+
 // Bytes of dynamic shared memory the cluster body lays out for M streams a
-// round: the W_rec slice (Np rows of 32 words), the W_in slice (C rounded
-// up to 32 rows), two spike buffers of M x Np/32 words and the input words
-// of kStepBlock steps, M streams and ceil(C / 32) words. dense_plan in
+// round: two barriers (16 bytes), the W_rec slice (Np rows of 32 words), the W_in slice (C rounded
+// up to 32 rows), two spike buffers of M x Np/32 words, the input words
+// of kStepBlock steps, M streams and ceil(C / 32) words, and M source
+// lists of list_len 16-bit entries. dense_plan in
 // ops/kernels/lif.py sizes its plan by the same layout.
 size_t cluster_smem_bytes(int Np, int C, int M) {
   const size_t nw = Np / 32, cw = (C + 31) / 32;
-  return 128 * (size_t)Np + 4096 * cw + 8 * (size_t)M * nw + 4 * (size_t)kStepBlock * M * cw;
+  return 16 + 128 * (size_t)Np + 4096 * cw + 8 * (size_t)M * nw +
+         4 * (size_t)kStepBlock * M * cw + 2 * (size_t)M * list_len(Np, C);
 }
 
-__device__ __forceinline__ void cluster_arrive() {
+__device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address of this CTA's shared-memory word `a` in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
+}
+
+// The one arrival of the barrier's phase, which then waits for `bytes`.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Two words into another CTA's shared memory, counted by its barrier.
+__device__ __forceinline__ void st_async2(uint32_t addr, uint32_t lo, uint32_t hi, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];\n"
+      :: "r"(addr), "r"(lo), "r"(hi), "r"(bar) : "memory");
 }
 
 // Columns col0 .. col0 + 63 of rows 0 .. rows-1 of a bf16 (rows, ld) matrix
@@ -328,40 +372,103 @@ __device__ void load_slice(const uint16_t* src, int rows, int ld, int col0, uint
   }
 }
 
-// Adds to (a0, a1) the rows of w (32 words a row) that the set bits of
-// words[0 .. n) name, in ascending row order. The words are the same for
-// the whole warp, so the walk is uniform.
-__device__ __forceinline__ void walk_rows(const uint32_t* words, int n, const uint32_t* w,
-                                          int lane, float& a0, float& a1) {
-  for (int k = 0; k < n; ++k) {
-    uint32_t bits = words[k];
-    const uint32_t* rows = w + (size_t)k * 1024 + lane;
-    while (bits) {
-      const int s = __ffs(bits) - 1;
-      bits &= bits - 1;
-      const uint32_t p = rows[s * 32];
-      a0 += __uint_as_float(p << 16);
-      a1 += __uint_as_float(p & 0xffff0000u);
+// One warp: the indices of the set bits of words[0 .. n), in ascending
+// order, into list (16 bits each); returns their count. Lane k takes word
+// k of each 32, a warp scan of the popcounts gives each lane its offset.
+__device__ __forceinline__ int compact_bits(const uint32_t* words, int n, int lane,
+                                            uint16_t* list) {
+  __syncwarp();                               // the list's last walk is done
+  int total = 0;
+  for (int base = 0; base < n; base += 32) {
+    const uint32_t mine = base + lane < n ? words[base + lane] : 0u;
+    if (__ballot_sync(0xffffffffu, mine != 0u) == 0u) continue;
+    const int c = __popc(mine);
+    int incl = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
     }
+    int off = total + incl - c;
+    for (uint32_t bits = mine; bits; bits &= bits - 1)
+      list[off++] = static_cast<uint16_t>((base + lane) * 32 + __ffs(bits) - 1);
+    total += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  __syncwarp();
+  return total;
+}
+
+__device__ __forceinline__ void add_row(uint32_t p, float& a0, float& a1) {
+  a0 += __uint_as_float(p << 16);
+  a1 += __uint_as_float(p & 0xffff0000u);
+}
+
+// Adds to (a0, a1) the rows of w (32 words a row) that list[0 .. n) names,
+// in list order: eight indices in one load, then their eight rows, then
+// the adds, so the loads' latencies overlap and the adds keep their order.
+// The list has room for reading up to 7 entries past n.
+__device__ __forceinline__ void walk_list(const uint16_t* list, int n, const uint32_t* w,
+                                          int lane, float& a0, float& a1) {
+  const uint32_t* const col = w + lane;
+  int i = 0;
+  for (; i + 8 <= n; i += 8) {
+    const uint4 q = *reinterpret_cast<const uint4*>(list + i);
+    const uint32_t pairs[4] = {q.x, q.y, q.z, q.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) p[u] = col[((pairs[u >> 1] >> (16 * (u & 1))) & 0xffffu) * 32];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) add_row(p[u], a0, a1);
+  }
+  if (i < n) {
+    const uint4 q = *reinterpret_cast<const uint4*>(list + i);
+    const uint32_t pairs[4] = {q.x, q.y, q.z, q.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      // Entries past n are stale: read row 0 for them, and add nothing.
+      const uint32_t idx = i + u < n ? (pairs[u >> 1] >> (16 * (u & 1))) & 0xffffu : 0u;
+      p[u] = col[idx * 32];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i + u < n) add_row(p[u], a0, a1);
   }
 }
 
 // One warp: the input bit words of one stream for steps t0 .. t0 + 31,
 // word cw of step t0 + j to dst[j * stride + cw]. Lane l reads channel
-// 32 cw + l over the 32 steps; the 32 ballots transpose them.
+// 32 cw + l over the 32 steps (four 8-byte loads where the block lies
+// inside T and is so aligned, else a byte a step); 32 ballots transpose
+// them.
 __device__ __forceinline__ void build_inputs(const uint8_t* xb, bool live, int C, int T,
                                              int t0, int lane, int cw_n, uint32_t* dst,
                                              int stride) {
+  const bool whole = t0 + kStepBlock <= T &&
+                     ((reinterpret_cast<uintptr_t>(xb + t0) | static_cast<uintptr_t>(T)) & 7) == 0;
   for (int cw = 0; cw < cw_n; ++cw) {
     const int c = cw * 32 + lane;
     const bool on = live && c < C;
-    const uint8_t* xc = xb + (size_t)c * T;
+    const uint8_t* xc = xb + (size_t)c * T + t0;
     uint32_t mine = 0;
+    if (whole) {
+      uint2 v[4];
 #pragma unroll
-    for (int j = 0; j < kStepBlock; ++j) {
-      const bool f = on && t0 + j < T && xc[t0 + j] != 0;
-      const uint32_t word = __ballot_sync(0xffffffffu, f);
-      if (lane == j) mine = word;
+      for (int k = 0; k < 4; ++k)
+        v[k] = on ? __ldg(reinterpret_cast<const uint2*>(xc) + k) : make_uint2(0u, 0u);
+#pragma unroll
+      for (int j = 0; j < kStepBlock; ++j) {
+        const uint32_t four = (j & 4) ? v[j >> 3].y : v[j >> 3].x;
+        const uint32_t word = __ballot_sync(0xffffffffu, (four >> (8 * (j & 3))) & 0xffu);
+        if (lane == j) mine = word;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kStepBlock; ++j) {
+        const bool f = on && t0 + j < T && xc[j] != 0;
+        const uint32_t word = __ballot_sync(0xffffffffu, f);
+        if (lane == j) mine = word;
+      }
     }
     dst[lane * stride + cw] = mine;
   }
@@ -369,7 +476,13 @@ __device__ __forceinline__ void build_inputs(const uint8_t* xb, bool live, int C
 
 // The cluster body of B2 (kChunk = false) and B4 (kChunk = true). Lane l of
 // warp w holds neurons 64 rank + l and 64 rank + 32 + l of stream
-// (round first + w).
+// (round first + w). Spike words of step t travel to step t + 1's buffer,
+// (t + 1) & 1, of every CTA with st.async, each counted by that buffer's
+// barrier; a CTA reads a buffer once its barrier has counted all K M word
+// pairs. Why a buffer is free again when the next words arrive: a CTA
+// sends step t + 1's words only after its barrier counted step t's words
+// of every warp, and each warp sends those only after reading its stream's
+// slot of the same buffer at step t - 1.
 template <bool kChunk>
 __global__ void __launch_bounds__(kMaxStreams * 32, 1)
 lif_cluster_kernel(const LifArgs a) {
@@ -381,22 +494,34 @@ lif_cluster_kernel(const LifArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int C = a.C, T = a.T, Np = a.Np, no = a.no;
   const int nw = Np >> 5, cw = (C + 31) >> 5;
-  uint32_t* const w_rec = smem;                               // Np x 32
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem);    // one per buffer
+  uint32_t* const w_rec = smem + 4;                           // Np x 32
   uint32_t* const w_in = w_rec + (size_t)Np * 32;             // 32 cw x 32
   uint32_t* const spk = w_in + (size_t)cw * 1024;             // [2][M][nw]
   uint32_t* const inw = spk + 2 * M * nw;                     // [kStepBlock][M][cw]
+  uint16_t* const list = reinterpret_cast<uint16_t*>(inw + kStepBlock * M * cw) +
+                         warp * list_len(Np, C);              // this warp's sources
   const int col0 = rank * kSlice;
   const int n0 = col0 + lane, n1 = n0 + 32;
+  const uint32_t bar0 = smem_addr(&bars[0]), bar1 = smem_addr(&bars[1]);
+  const uint32_t tx_bytes = 8u * K * M;      // two words from each warp of each CTA
 
+  if (threadIdx.x == 0) {
+    mbar_init(bar0);
+    mbar_init(bar1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bar0, tx_bytes);
+    mbar_expect(bar1, tx_bytes);
+  }
   load_slice(a.w_rec, Np, Np, col0, w_rec);
   load_slice(a.w_in, C, Np, col0, w_in);
   const float lk0 = a.leak_keep[n0], lk1 = a.leak_keep[n1];
   const float isi_max = static_cast<float>(a.burst_isi_max);
-  // Every CTA of the cluster runs, and has its slices, before any spike
-  // word crosses.
-  cluster_arrive();
-  cluster_wait();
+  // Every CTA of the cluster runs, with its slices and barriers, before
+  // any spike word crosses.
+  cluster_sync();
 
+  uint32_t parity = 0;                       // bit p: the phase buffer p waits for
   const int n_clusters = gridDim.x / K;
   for (int first = (blockIdx.x / K) * M; first < a.B; first += n_clusters * M) {
     const int b = first + warp;
@@ -425,8 +550,10 @@ lif_cluster_kernel(const LifArgs a) {
     lsm::OutputStats<kChunk> st0, st1;
     float allc0 = 0.f, allc1 = 0.f;
     const bool o0 = live && n0 < no, o1 = live && n1 < no;
+    // Window w of this stream's output neurons: win0 + w no (B4).
     float* const win0 = kChunk && o0 ? a.win + (size_t)b * a.n_win * no + n0 : nullptr;
     float* const win1 = kChunk && o1 ? a.win + (size_t)b * a.n_win * no + n1 : nullptr;
+    int to_edge = a.win_len, windows = 0;     // steps to the next window edge, edges passed
 
     for (int t = 0; t < T; ++t) {
       const int j = t % kStepBlock;
@@ -435,10 +562,18 @@ lif_cluster_kernel(const LifArgs a) {
         __syncwarp();
       }
       float ai0 = 0.f, ai1 = 0.f, ar0 = 0.f, ar1 = 0.f;
-      walk_rows(inw + (j * M + warp) * cw, cw, w_in, lane, ai0, ai1);
-      if (t > 0) cluster_wait();               // step t - 1's spikes have landed
+      walk_list(list, compact_bits(inw + (j * M + warp) * cw, cw, lane, list), w_in, lane,
+                ai0, ai1);
+      const int p = t & 1;
+      const uint32_t bar = p ? bar1 : bar0;
+      if (t > 0) {                             // step t - 1's words have all landed
+        mbar_wait(bar, (parity >> p) & 1u);
+        parity ^= 1u << p;
+        if (threadIdx.x == 0) mbar_expect(bar, tx_bytes);   // its next phase
+      }
       if (kChunk || t > 0)
-        walk_rows(spk + ((t & 1) * M + warp) * nw, nw, w_rec, lane, ar0, ar1);
+        walk_list(list, compact_bits(spk + (p * M + warp) * nw, nw, lane, list), w_rec, lane,
+                  ar0, ar1);
 
       // The one-thread body's update, for each of the lane's two neurons.
       const bool act0 = r0 == 0, act1 = r1 == 0;
@@ -451,24 +586,32 @@ lif_cluster_kernel(const LifArgs a) {
       r0 = s0 ? a.refractory : max(r0 - 1, 0);
       r1 = s1 ? a.refractory : max(r1 - 1, 0);
 
-      // Words 2 rank and 2 rank + 1 of step t + 1's buffer, in every CTA.
+      // Words 2 rank and 2 rank + 1 of this stream's slot in step t + 1's
+      // buffer, lane r to CTA r.
       const uint32_t lo = __ballot_sync(0xffffffffu, s0);
       const uint32_t hi = __ballot_sync(0xffffffffu, s1);
-      if (t + 1 < T && lane < 2 * K) {
-        uint32_t* dst = cluster.map_shared_rank(
-            spk + (((t + 1) & 1) * M + warp) * nw + 2 * rank + (lane & 1), lane >> 1);
-        *dst = (lane & 1) ? hi : lo;
+      if (t + 1 < T && lane < K) {
+        const int q = p ^ 1;
+        st_async2(map_rank(smem_addr(spk + (q * M + warp) * nw + 2 * rank), lane), lo, hi,
+                  map_rank(q ? bar1 : bar0, lane));
       }
-      cluster_arrive();
 
       if (!kChunk) {
         allc0 += s0 ? 1.f : 0.f;
         allc1 += s1 ? 1.f : 0.f;
       }
-      if (o0) st0.step(s0, t, T, isi_max, a.win_len, a.n_win, win0, no);
-      if (o1) st1.step(s1, t, T, isi_max, a.win_len, a.n_win, win1, no);
+      // OutputStats::step's window edges, counted instead of divided.
+      const bool edge = --to_edge == 0;
+      if (edge) {
+        to_edge = a.win_len;
+        ++windows;
+      }
+      const bool boundary = kChunk ? edge : (edge && windows < a.n_win) || t == T - 1;
+      const size_t slot = kChunk ? (size_t)(windows - 1) * no : 0;
+      const float tf = static_cast<float>(t);
+      if (o0) st0.step_at(s0, tf, isi_max, boundary, win0 + slot);
+      if (o1) st1.step_at(s1, tf, isi_max, boundary, win1 + slot);
     }
-    cluster_wait();                            // nobody reads this round's buffers now
 
     if (live) {
       if (kChunk) {
@@ -487,6 +630,8 @@ lif_cluster_kernel(const LifArgs a) {
     if (o0) st0.write(dst, (size_t)a.B * no, (size_t)b * no + n0);
     if (o1) st1.write(dst, (size_t)a.B * no, (size_t)b * no + n1);
   }
+  // No CTA leaves while another may still address its shared memory.
+  cluster_sync();
 }
 
 template <bool kChunk>

@@ -32,7 +32,21 @@ struct OutputStats {
   __device__ __forceinline__ void step(bool spike, int t, int T, float isi_max,
                                        int win_len, int n_win, float* win,
                                        int no) {
-    const float tf = static_cast<float>(t);
+    bool boundary;
+    if (kChunk) {
+      boundary = (t + 1) % win_len == 0;
+      if (boundary) win += (size_t)((t + 1) / win_len - 1) * no;
+    } else {
+      boundary = (((t + 1) % win_len == 0) && ((t + 1) / win_len < n_win)) || t == T - 1;
+    }
+    step_at(spike, static_cast<float>(t), isi_max, boundary, win);
+  }
+
+  // step() with the window boundary given: at a boundary B4/B6 write the
+  // window's count to *win (this window's element), B2/B5 fold it into
+  // the window moments.
+  __device__ __forceinline__ void step_at(bool spike, float tf, float isi_max, bool boundary,
+                                          float* win) {
     if (spike) {
       counts += 1.f;
       sum_t += tf;
@@ -49,20 +63,14 @@ struct OutputStats {
       prev_t = tf;
       c_cur += 1.f;
     }
-    if (kChunk) {
-      if ((t + 1) % win_len == 0) {
-        win[(size_t)((t + 1) / win_len - 1) * no] = c_cur;
-        c_cur = 0.f;
-      }
-    } else {
-      const bool boundary =
-          (((t + 1) % win_len == 0) && ((t + 1) / win_len < n_win)) ||
-          t == T - 1;
-      if (boundary) {
+    if (boundary) {
+      if (kChunk) {
+        *win = c_cur;
+      } else {
         win_sum += c_cur;
         win_sum2 += c_cur * c_cur;
-        c_cur = 0.f;
       }
+      c_cur = 0.f;
     }
   }
 

@@ -61,9 +61,9 @@ MAX_NEURONS = 4096       # N_pad <= 1024: the cluster or one-thread body; above:
 _ONE_THREAD_MAX = 1024
 MAX_REFRACTORY = 65535   # the block body's refractory counter: 8 bits, 16 above 255
 # The cluster body (csrc/lif.cu): 64 destination neurons a CTA, at most 16
-# CTAs a cluster and 16 streams (warps) a round, input bit words built 32
+# CTAs a cluster and 24 streams (warps) a round, input bit words built 32
 # steps at a time, within an SM's 232,448 bytes of shared memory.
-CLUSTER_SLICE, MAX_CLUSTER, MAX_CLUSTER_STREAMS, STEP_BLOCK = 64, 16, 16, 32
+CLUSTER_SLICE, MAX_CLUSTER, MAX_CLUSTER_STREAMS, STEP_BLOCK = 64, 16, 24, 32
 SMEM_LIMIT = 232_448
 ONE_THREAD, CLUSTER, BLOCK = "one_thread", "cluster", "block"
 _BODY_CODE = {ONE_THREAD: 0, CLUSTER: 1, BLOCK: 2}     # as csrc/lif.cu numbers them
@@ -217,16 +217,18 @@ class DensePlan:
 
 
 def cluster_smem_bytes(n_pad: int, channels: int, streams: int) -> int:
-    """The cluster body's shared memory a CTA (csrc/lif.cu's layout): the
-    W_rec slice (N_pad rows of 128 bytes), the W_in slice (channels rounded
-    up to 32 rows), two spike buffers of `streams` x N_pad/32 words, and the
-    input words of 32 steps."""
+    """The cluster body's shared memory a CTA (csrc/lif.cu's layout): two
+    barriers (16 bytes), the W_rec slice (N_pad rows of 128 bytes), the W_in slice (channels rounded
+    up to 32 rows), two spike buffers of `streams` x N_pad/32 words, the
+    input words of 32 steps, and a source list a stream (16-bit entries, one
+    for each neuron or input channel)."""
     nw, cw = n_pad // 32, -(-channels // 32)
-    return 128 * n_pad + 4096 * cw + 8 * streams * nw + 4 * STEP_BLOCK * streams * cw
+    return (16 + 128 * n_pad + 4096 * cw + 8 * streams * nw + 4 * STEP_BLOCK * streams * cw
+            + 2 * streams * max(n_pad, 32 * cw))
 
 
 def max_cluster_streams(n_pad: int, channels: int) -> int:
-    """The most streams a cluster round takes (<= 16) with the slices in
+    """The most streams a cluster round takes (<= 24) with the slices in
     shared memory, or 0 where the cluster body does not take the shape."""
     if n_pad % CLUSTER_SLICE or not 2 <= n_pad // CLUSTER_SLICE <= MAX_CLUSTER:
         return 0

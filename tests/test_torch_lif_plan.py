@@ -70,7 +70,7 @@ def test_flagship_plans():
     assert (small.streams, small.clusters, small.rounds) == (10, 7, 1)
     full = klif.dense_plan(256, 128, 1024, 2, h100_like)
     assert (full.streams, full.clusters, full.rounds, full.threads) == (13, 7, 3, 416)
-    assert full.smem_bytes == 131_072 + 16_384 + 8 * 13 * 32 + 4 * 32 * 13 * 4
+    assert full.smem_bytes == 16 + 131_072 + 16_384 + 8 * 13 * 32 + 4 * 32 * 13 * 4
 
 
 def test_dense_plan_asks_the_card_at_the_largest_round():
