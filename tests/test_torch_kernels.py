@@ -279,6 +279,104 @@ def _dense_both_bit_equal(cuda, r, x):
     return float(ref_counts.sum())
 
 
+def _chained_chunks(cuda, r, x, run, reference):
+    """Three chained 40-step B4 chunks of x from a zero state through run
+    and reference (each called as lif_chunk is): (every output bit-equal,
+    spikes carried into the second and third chunk)."""
+    ops, kw = r.kernel_operands()
+    del kw["n_win"]
+    kw.update(win_len=40, n_new_win=1)
+    b, n_pad = x.shape[0], ops[0].shape[0]
+    state_k = state_p = (torch.zeros(b, n_pad, device=cuda),
+                         torch.zeros(b, n_pad, dtype=torch.int32, device=cuda),
+                         torch.zeros(b, n_pad, device=cuda))
+    equal, carried = True, 0.0
+    for c in range(3):
+        xc = x[..., c * 40:(c + 1) * 40].contiguous()
+        carried += float(state_k[2].sum())
+        out_k = run(xc, *ops, *state_k, **kw)
+        out_p = reference(xc, *ops, *state_p, **kw)
+        torch.cuda.synchronize()
+        equal = equal and all(torch.equal(a, q) for a, q in zip(out_k, out_p))
+        state_k, state_p = out_k[:3], out_p[:3]
+    return equal, carried
+
+
+def _dense_cfg(n_neurons, mean_weight=None):
+    return ReservoirConfig(num_neurons=n_neurons, num_output_neurons=min(400, n_neurons),
+                           small_world_k=int(0.2 * n_neurons),
+                           mean_weight=mean_weight or (0.0114 if n_neurons >= 1000 else 0.02))
+
+
+@pytest.mark.parametrize("n_neurons,channels,batch", [
+    (100, 32, 9),       # N_pad 128: K = 2
+    (300, 32, 37),      # N_pad 384: K = 6, not a power of two
+    (1000, 128, 1),     # the flagship width, one stream
+    (1000, 128, 200),   # the flagship width, a ragged last round
+])
+def test_cluster_body_bit_equal_on_dyadic_weights(cuda, n_neurons, channels, batch):
+    """The cluster body (B2, and B4 over three chained chunks with the
+    spike vector carried) against the twins on dyadic weights."""
+    r = res.init_reservoir(_dense_cfg(n_neurons), channels, device=cuda).dyadic()
+    x = torch.as_tensor((np.random.default_rng(batch).random((batch, channels, 120)) < 0.1)
+                        .astype(np.uint8)).to(cuda)
+    ops, kw = r.kernel_operands()
+    n_pad = ops[0].shape[0]
+    plan = klif.card_plan(x, n_pad, kw["refractory"], chunk=False)
+    assert plan.body == klif.CLUSTER and plan.cluster_size * 64 == n_pad
+    if batch == 200:
+        assert batch % plan.streams                  # the last round is ragged
+    before = klif.body_launches[klif.CLUSTER]
+    stats, counts = klif.lif_stats(x, *ops, **kw)
+    ref_stats, ref_counts = klif.lif_stats_plain(x, *ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(stats, ref_stats) and torch.equal(counts, ref_counts)
+    assert counts.sum() > 0
+    equal, carried = _chained_chunks(cuda, r, x, klif.lif_chunk, klif.lif_chunk_plain)
+    assert equal and carried > 0
+    assert klif.body_launches[klif.CLUSTER] == before + 4
+
+
+def test_cluster_body_equals_one_thread_body_on_calibrated_weights(cuda):
+    """On weights that are not dyadic the sums round, so only the same
+    sums in the same order give the same bits: the cluster body and the
+    one-thread body at the flagship shape, B2 and three chained B4 chunks."""
+    r = res.init_reservoir(ReservoirConfig(mean_weight=0.0114), 128, device=cuda)
+    x = torch.as_tensor((np.random.default_rng(11).random((70, 128, 400)) < 0.05)
+                        .astype(np.uint8)).to(cuda)
+    ops, kw = r.kernel_operands()
+    one = klif.card_plan(x, 1024, kw["refractory"], chunk=False, body=klif.ONE_THREAD)
+    assert klif.card_plan(x, 1024, kw["refractory"], chunk=False).cluster_size == 16
+    out = klif.lif_stats(x, *ops, **kw)
+    ref = klif.lif_stats(x, *ops, **kw, plan=one)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, q) for a, q in zip(out, ref)) and out[1].sum() > 0
+
+    def one_thread(xc, *args, **kws):
+        plan = klif.card_plan(xc, 1024, kws["refractory"], chunk=True, body=klif.ONE_THREAD)
+        return klif.lif_chunk(xc, *args, **kws, plan=plan)
+
+    before = klif.body_launches[klif.CLUSTER]
+    equal, carried = _chained_chunks(cuda, r, x, klif.lif_chunk, one_thread)
+    assert klif.body_launches[klif.CLUSTER] == before + 3
+    assert equal and carried > 0
+
+
+@pytest.mark.parametrize("n_neurons,channels,body", [
+    (1000, 2048, klif.ONE_THREAD),   # redundancy 16: W_in's 256 KB slice does not fit
+    (1100, 128, klif.BLOCK),         # N_pad 1152: above one CTA's 1024 neurons
+])
+def test_dense_plan_boundaries_launch_their_bodies(cuda, n_neurons, channels, body):
+    r = res.init_reservoir(_dense_cfg(n_neurons, 0.01), channels, device=cuda).dyadic()
+    x = torch.as_tensor((np.random.default_rng(channels).random((3, channels, 120)) < 0.05)
+                        .astype(np.uint8)).to(cuda)
+    ops, kw = r.kernel_operands()
+    assert klif.card_plan(x, ops[0].shape[0], kw["refractory"], chunk=False).body == body
+    before = klif.body_launches[body]
+    assert _dense_both_bit_equal(cuda, r, x) > 0
+    assert klif.body_launches[body] == before + 4
+
+
 @pytest.mark.parametrize("n_neurons", [1100, 2048])
 def test_wide_dense_lif_kernels_bit_equal(cuda, n_neurons):
     """Dense reservoirs above 1024 padded neurons (B2 and B4 on the block

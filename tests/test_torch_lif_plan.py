@@ -65,12 +65,13 @@ def test_cluster_tiling_covers_the_batch(batch, n_pad, channels):
 
 def test_flagship_plans():
     """The flagship shapes on a card that holds 7 clusters of 16: B = 64
-    (the slices' batch) takes short rounds, B = 256 two full ones."""
+    (the slices' batch) takes one round of 10 streams, B = 256 two of 19."""
     small = klif.dense_plan(64, 128, 1024, 2, h100_like)
     assert (small.streams, small.clusters, small.rounds) == (10, 7, 1)
     full = klif.dense_plan(256, 128, 1024, 2, h100_like)
-    assert (full.streams, full.clusters, full.rounds, full.threads) == (13, 7, 3, 416)
-    assert full.smem_bytes == 16 + 131_072 + 16_384 + 8 * 13 * 32 + 4 * 32 * 13 * 4
+    assert (full.streams, full.clusters, full.rounds, full.threads) == (19, 7, 2, 608)
+    # barriers, W_rec and W_in slices, spike words, input words, source lists
+    assert full.smem_bytes == 16 + 131_072 + 16_384 + 8 * 19 * 32 + 4 * 32 * 19 * 4 + 2 * 19 * 1024
 
 
 def test_dense_plan_asks_the_card_at_the_largest_round():
@@ -81,7 +82,7 @@ def test_dense_plan_asks_the_card_at_the_largest_round():
         return 8
 
     plan = klif.dense_plan(5, 128, 1024, 2, co)
-    assert asked == [(16, 512, klif.cluster_smem_bytes(1024, 128, 16))]
+    assert asked == [(16, 768, klif.cluster_smem_bytes(1024, 128, 24))]
     assert (plan.streams, plan.clusters, plan.rounds) == (1, 5, 1)
 
 
