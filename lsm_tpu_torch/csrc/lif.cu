@@ -33,30 +33,36 @@
 // into shared memory once per call, each row as 32 words that pack columns
 // l and l + 32 of the slice, so one 4-byte load gives a lane both of its
 // neurons' weights and a warp reads 128 contiguous bytes, free of bank
-// conflicts. A cluster takes M streams a round (one warp a stream, M <= 16)
+// conflicts. A cluster takes M streams a round (one warp a stream, M <= 24)
 // and walks rounds until the batch is done; the grid is as many clusters as
-// the card holds at once. Per step each warp walks its stream's input bit
-// words and then its recurrent spike words in ascending bit order (__ffs),
-// adding one shared-memory row per set bit; runs the LIF update and the
-// output statistics in registers; ballots its 64 spikes into two words and
-// stores them into the spike buffer of every CTA of the cluster (distributed
-// shared memory); and arrives at the cluster barrier. The spike buffer is
-// double-buffered by step parity: a CTA waits for step t's arrivals only
-// before reading step t's spikes, after its input walk for step t + 1, and
-// a reader of a buffer has finished with it before it arrives, so one
-// barrier a step is enough. Input bit words are built per warp for blocks
-// of 32 steps (a lane reads one channel's 32 consecutive steps, 32 ballots
-// transpose them). B4 builds step 0's recurrent words from the carried
-// spike vector in each CTA, from global memory, so no extra barrier.
-// What bounds it: per step, the issue of ~10 instructions per fired source
-// row and warp (the bit walk, a shared-memory load, two adds) and the
-// latency of the cluster barrier; not bytes (each weight is read from global
-// memory once per CTA per call) and not FLOPs. Budget at the flagship (N_pad
-// 1024, C = 128, M = 16): 159,744 bytes of shared memory (W_rec 131,072,
-// W_in 16,384, spike words 4,096, input words 8,192) and one CTA of 512
-// threads an SM, so each thread may hold 128 registers: v, refrac and the
-// 13-float OutputStats of its two neurons stay in registers (check ptxas's
-// spill line in the build log, which chip_smoke.py prints).
+// the card holds at once (7 of 16 CTAs on a 132-SM H100). Per step each
+// warp compacts its stream's input bit words, then (once they have landed)
+// its recurrent spike words, into a list of source indices in ascending
+// order (a warp scan of the words' popcounts), and adds one shared-memory
+// row per listed source, eight row loads in flight before their adds; runs
+// the LIF update and the output statistics in registers (window edges
+// counted, not divided); ballots its 64 spikes into two words and sends
+// them with st.async into the spike buffer of every CTA of the cluster,
+// where each CTA's mbarrier for that buffer counts the bytes. The spike
+// buffer is double-buffered by step parity, and no cluster-wide barrier
+// runs per step: a CTA waits only for the K M word pairs of the step it
+// reads (the proof that a buffer is free again is at the kernel). Input
+// bit words are built per warp for blocks of 32 steps (a lane reads one
+// channel's 32 steps in four 8-byte loads, 32 ballots transpose them). B4
+// builds step 0's recurrent words from the carried spike vector in each
+// CTA, from global memory, so it waits on nothing.
+// What bounds it: the issue of ~10 instructions per fired source row, warp
+// and CTA (every CTA walks the same list for its own 64 columns) and, per
+// step, the latency of the walk after the words land plus the st.async
+// round trip (tools/lif_cluster_probe.py times steps on all-zero spikes
+// against M); not bytes (each
+// weight is read from global memory once per CTA per call) and not FLOPs.
+// Budget at the flagship (N_pad 1024, C = 128, M = 24): 215,056 bytes of
+// shared memory (W_rec 131,072, W_in 16,384, spike words 6,144, input
+// words 12,288, source lists 49,152, barriers 16) and one CTA of 768
+// threads an SM, so at most 80 registers a thread: v, refrac and the
+// OutputStats of a lane's two neurons stay in registers (chip_smoke.py
+// prints ptxas's register and spill lines).
 //
 // The one-thread body keeps the shapes whose slices do not fit the cluster
 // (W_in of 2048 channels at redundancy 16 is 256 KB a CTA) or whose N_pad is

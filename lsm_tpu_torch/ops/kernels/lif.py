@@ -18,15 +18,16 @@ the C entry points check the plan and run it:
   bf16) resident in VMEM; here a thread-block cluster of K CTAs keeps it
   resident in shared memory, 64 destination columns a CTA (128 KB at
   N_pad 1024, plus W_in's 128 bytes a channel). A cluster takes M streams
-  a round, one warp a stream, two neurons a lane; a step walks the
-  stream's input and spike bit words and adds one shared-memory row per
-  set bit, runs the LIF update and statistics in registers, sends its
-  spike words to every CTA of the cluster and arrives at one cluster
-  barrier. What bounds it is the latency of a step, not bytes or FLOPs:
-  the instructions of the row walk (~10 per fired row and warp) and the
-  barrier. Budget: at most 232,448 bytes of shared memory and 16 streams
-  (512 threads, one CTA an SM, up to 128 registers a thread, so the
-  state and the 13-float OutputStats of two neurons stay in registers);
+  a round, one warp a stream, two neurons a lane; a step compacts the
+  stream's input and spike bit words into lists of source indices and
+  adds one shared-memory row per source, runs the LIF update and
+  statistics in registers, and sends its spike words to every CTA of the
+  cluster with st.async, counted there by an mbarrier (no cluster-wide
+  barrier a step). What bounds it is instruction issue (~10 a fired row,
+  warp and CTA) and a step's latency, not bytes or FLOPs. Budget: at most
+  232,448 bytes of shared memory and 24 streams (768 threads, one CTA an
+  SM, up to 80 registers a thread, so the state and OutputStats of two
+  neurons stay in registers);
 - the one-thread body, one CTA a stream, one thread a neuron, the fired
   sources compacted into lists each step (two block barriers a step): the
   shapes whose slices do not fit a cluster (C = 2048 channels at
