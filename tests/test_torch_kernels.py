@@ -254,8 +254,9 @@ def test_chunk_kernels_refuse_what_they_cannot_run(cuda):
 
 
 def _dense_both_bit_equal(cuda, r, x):
-    """B2 over x and B4 over three chained chunks of it, each bit-equal to
-    its twin; returns the twin's spike total."""
+    """B2 over x and B4 over three chained chunks of it (a spike vector
+    carried between them), each bit-equal to its twin; returns the twin's
+    spike total."""
     ops, kw = r.kernel_operands()
     before = klif.launches
     stats, counts = klif.lif_stats(x, *ops, **kw)
@@ -263,19 +264,8 @@ def _dense_both_bit_equal(cuda, r, x):
     ref_stats, ref_counts = klif.lif_stats_plain(x, *ops, **kw)
     torch.cuda.synchronize()
     assert torch.equal(stats, ref_stats) and torch.equal(counts, ref_counts)
-    del kw["n_win"]
-    kw.update(win_len=40, n_new_win=1)
-    b, n_pad = x.shape[0], ops[0].shape[0]
-    state_k = state_p = (torch.zeros(b, n_pad, device=cuda),
-                         torch.zeros(b, n_pad, dtype=torch.int32, device=cuda),
-                         torch.zeros(b, n_pad, device=cuda))
-    for c in range(3):
-        xc = x[..., c * 40:(c + 1) * 40].contiguous()
-        out_k = klif.lif_chunk(xc, *ops, *state_k, **kw)
-        out_p = klif.lif_chunk_plain(xc, *ops, *state_p, **kw)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, q) for a, q in zip(out_k, out_p))
-        state_k, state_p = out_k[:3], out_p[:3]
+    equal, carried = _chained_chunks(cuda, r, x, klif.lif_chunk, klif.lif_chunk_plain)
+    assert equal and carried > 0
     return float(ref_counts.sum())
 
 
@@ -327,13 +317,7 @@ def test_cluster_body_bit_equal_on_dyadic_weights(cuda, n_neurons, channels, bat
     if batch == 200:
         assert batch % plan.streams                  # the last round is ragged
     before = klif.body_launches[klif.CLUSTER]
-    stats, counts = klif.lif_stats(x, *ops, **kw)
-    ref_stats, ref_counts = klif.lif_stats_plain(x, *ops, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(stats, ref_stats) and torch.equal(counts, ref_counts)
-    assert counts.sum() > 0
-    equal, carried = _chained_chunks(cuda, r, x, klif.lif_chunk, klif.lif_chunk_plain)
-    assert equal and carried > 0
+    assert _dense_both_bit_equal(cuda, r, x) > 0
     assert klif.body_launches[klif.CLUSTER] == before + 4
 
 
