@@ -1115,7 +1115,8 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
     if name == "B4":
         print(f"[serving] B4 plan: {plan_text(ck)}; {ck['source_rows_per_stream_step']:.2f} "
               f"fired source rows a stream-step; one-thread body {ck['one_thread_ms']:.3f} ms, "
-              f"bit-equal to it on every hop {ck['bit_equal_one_thread']}")
+              f"bit-equal to it on every hop {ck['bit_equal_one_thread']}; host "
+              f"{ck['host_us_per_call']:.1f} us a call")
     for k, ms in ck.get("device_ms_by_kernel", {}).items():
         print(f"[serving]   {name} {ms:8.4f} ms/hop  {k[:100]}")
     for t in rec["top_device"]:
@@ -1146,8 +1147,17 @@ def b4_against_one_thread(hops, ops, kw, ms: float) -> dict:
     torch.cuda.synchronize()
     one_ms = cuda_ms(lambda: [klif.lif_chunk(x, *ops, *c, **kw, plan=one) for x, c in hops],
                      reps=2) / len(hops)
+    # The host's share of a serving launch: lif_chunk from its checks to the
+    # enqueued kernel (plan, outputs, ctypes call), the card not waited on.
+    x, carried = hops[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        klif.lif_chunk(x, *ops, *carried, **kw)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
     return {"bit_equal_one_thread": bool(equal), "one_thread_ms": one_ms,
-            **dense_timing(plan, ms, b, t)}
+            "host_us_per_call": host_us, **dense_timing(plan, ms, b, t)}
 
 
 def chained_chunks_equal(kernel, plain, ops, kw, chunks, width: int) -> tuple:

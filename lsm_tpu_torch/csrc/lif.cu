@@ -46,7 +46,9 @@
 // where each CTA's mbarrier for that buffer counts the bytes. The spike
 // buffer is double-buffered by step parity, and no cluster-wide barrier
 // runs per step: a CTA waits only for the K M word pairs of the step it
-// reads (the proof that a buffer is free again is at the kernel). Input
+// reads (the proof that a buffer is free again is at the kernel); one
+// cluster barrier ends each round, since a round's step 0 waits on
+// nothing. Input
 // bit words are built per warp for blocks of 32 steps (a lane reads one
 // channel's 32 steps in four 8-byte loads, 32 ballots transpose them). B4
 // builds step 0's recurrent words from the carried spike vector in each
@@ -54,9 +56,9 @@
 // What bounds it: the issue of ~10 instructions per fired source row, warp
 // and CTA (every CTA walks the same list for its own 64 columns) and, per
 // step, the latency of the walk after the words land plus the st.async
-// round trip (tools/lif_cluster_probe.py times steps on all-zero spikes
-// against M); not bytes (each
-// weight is read from global memory once per CTA per call) and not FLOPs.
+// round trip (chip_smoke.py times B2 on all-zero spikes, the step without
+// the walk); not bytes (each weight is read from global memory once per
+// CTA per call) and not FLOPs.
 // Budget at the flagship (N_pad 1024, C = 128, M = 24): 215,056 bytes of
 // shared memory (W_rec 131,072, W_in 16,384, spike words 6,144, input
 // words 12,288, source lists 49,152, barriers 16) and one CTA of 768
@@ -78,6 +80,8 @@
 // stream-tiled block body of sparse_lif.cu (B5/B6) with the matrix seen as
 // nb x nb blocks of 128, in the global scratch the caller passes (unused at
 // <= 1024 neurons).
+
+#include <atomic>
 
 #include <cooperative_groups.h>
 
@@ -290,8 +294,8 @@ __host__ __device__ inline int list_len(int Np, int C) {
 // round: two barriers (16 bytes), the W_rec slice (Np rows of 32 words), the W_in slice (C rounded
 // up to 32 rows), two spike buffers of M x Np/32 words, the input words
 // of kStepBlock steps, M streams and ceil(C / 32) words, and M source
-// lists of list_len 16-bit entries. dense_plan in
-// ops/kernels/lif.py sizes its plan by the same layout.
+// lists of list_len 16-bit entries. dense_plan in ops/kernels/lif.py
+// sizes its plan by it (lsm_lif_cluster_smem).
 size_t cluster_smem_bytes(int Np, int C, int M) {
   const size_t nw = Np / 32, cw = (C + 31) / 32;
   return 16 + 128 * (size_t)Np + 4096 * cw + 8 * (size_t)M * nw +
@@ -488,7 +492,11 @@ __device__ __forceinline__ void build_inputs(const uint8_t* xb, bool live, int C
 // pairs. Why a buffer is free again when the next words arrive: a CTA
 // sends step t + 1's words only after its barrier counted step t's words
 // of every warp, and each warp sends those only after reading its stream's
-// slot of the same buffer at step t - 1.
+// slot of the same buffer at step t - 1. Step 0 of a round waits on no
+// barrier, yet sends step 1's words; so a cluster barrier ends every
+// round: no CTA sends into a buffer, or counts on a barrier, that another
+// CTA still reads, or still waits on, for the round before. Every CTA of a
+// cluster walks the same rounds.
 template <bool kChunk>
 __global__ void __launch_bounds__(kMaxStreams * 32, 1)
 lif_cluster_kernel(const LifArgs a) {
@@ -635,18 +643,31 @@ lif_cluster_kernel(const LifArgs a) {
     float* const dst = kChunk ? a.seg : a.stats;
     if (o0) st0.write(dst, (size_t)a.B * no, (size_t)b * no + n0);
     if (o1) st1.write(dst, (size_t)a.B * no, (size_t)b * no + n1);
+    // Every word of this round has landed and been read before any CTA
+    // starts the next round; after the last round, no CTA leaves while
+    // another may still address its shared memory.
+    cluster_sync();
   }
-  // No CTA leaves while another may still address its shared memory.
-  cluster_sync();
 }
 
+// The cluster body's function attributes (any plan's shared memory, up to
+// kSmemLimit, and clusters of 16), set once per device: every call sets
+// the same values, so two threads that race here do no harm.
 template <bool kChunk>
-cudaError_t cluster_attributes(int smem) {
-  cudaError_t err = cudaFuncSetAttribute(lif_cluster_kernel<kChunk>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t cluster_attributes() {
+  constexpr int kDevices = 64;
+  static std::atomic<bool> set[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(lif_cluster_kernel<kChunk>,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (dev < kDevices && set[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+  err = cudaFuncSetAttribute(lif_cluster_kernel<kChunk>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(lif_cluster_kernel<kChunk>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < kDevices) set[dev].store(true, std::memory_order_relaxed);
+  return err;
 }
 
 // A launch configuration of `clusters` clusters of K CTAs; attr must outlive it.
@@ -674,7 +695,7 @@ bool bad_cluster_plan(const LifArgs& a, const Plan& p) {
 
 template <bool kChunk>
 int launch_cluster(const LifArgs& a, const Plan& p, cudaStream_t s) {
-  const cudaError_t err = cluster_attributes<kChunk>(p.smem);
+  const cudaError_t err = cluster_attributes<kChunk>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(p.K, p.threads, p.smem, p.clusters, s, &attr);
@@ -720,11 +741,17 @@ int launch(const LifArgs& a, const Plan& p, void* scratch, void* stream) {
 
 }  // namespace
 
+// Bytes of dynamic shared memory a CTA of the cluster body lays out at Np
+// padded neurons, C input channels and M streams a round.
+extern "C" long long lsm_lif_cluster_smem(int Np, int C, int M) {
+  return static_cast<long long>(cluster_smem_bytes(Np, C, M));
+}
+
 // How many clusters of K CTAs of the cluster body (`threads` threads and
 // `smem` bytes of dynamic shared memory each) the card holds at once.
 extern "C" int lsm_lif_cluster_capacity(int chunk, int K, int threads, int smem, int* out) {
   *out = 0;
-  const cudaError_t err = chunk ? cluster_attributes<true>(smem) : cluster_attributes<false>(smem);
+  const cudaError_t err = chunk ? cluster_attributes<true>() : cluster_attributes<false>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(K, threads, smem, 1, nullptr, &attr);

@@ -23,7 +23,7 @@ the C entry points check the plan and run it:
   adds one shared-memory row per source, runs the LIF update and
   statistics in registers, and sends its spike words to every CTA of the
   cluster with st.async, counted there by an mbarrier (no cluster-wide
-  barrier a step). What bounds it is instruction issue (~10 a fired row,
+  barrier a step; one ends each round). What bounds it is instruction issue (~10 a fired row,
   warp and CTA) and a step's latency, not bytes or FLOPs. Budget: at most
   232,448 bytes of shared memory and 24 streams (768 threads, one CTA an
   SM, up to 80 registers a thread, so the state and OutputStats of two
@@ -46,6 +46,7 @@ A CUDA tensor always launches the body its plan names, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -61,10 +62,10 @@ SEG_KEYS = STAT_KEYS[:9]  # the segment summary B4 writes
 MAX_NEURONS = 4096       # N_pad <= 1024: the cluster or one-thread body; above: the block body
 _ONE_THREAD_MAX = 1024
 MAX_REFRACTORY = 65535   # the block body's refractory counter: 8 bits, 16 above 255
-# The cluster body (csrc/lif.cu): 64 destination neurons a CTA, at most 16
-# CTAs a cluster and 24 streams (warps) a round, input bit words built 32
-# steps at a time, within an SM's 232,448 bytes of shared memory.
-CLUSTER_SLICE, MAX_CLUSTER, MAX_CLUSTER_STREAMS, STEP_BLOCK = 64, 16, 24, 32
+# The cluster body (csrc/lif.cu, which refuses a plan past these): 64
+# destination neurons a CTA, at most 16 CTAs a cluster and 24 streams
+# (warps) a round, within an SM's 232,448 bytes of shared memory.
+CLUSTER_SLICE, MAX_CLUSTER, MAX_CLUSTER_STREAMS = 64, 16, 24
 SMEM_LIMIT = 232_448
 ONE_THREAD, CLUSTER, BLOCK = "one_thread", "cluster", "block"
 _BODY_CODE = {ONE_THREAD: 0, CLUSTER: 1, BLOCK: 2}     # as csrc/lif.cu numbers them
@@ -217,36 +218,29 @@ class DensePlan:
                 self.smem_bytes, self.clusters)
 
 
-def cluster_smem_bytes(n_pad: int, channels: int, streams: int) -> int:
-    """The cluster body's shared memory a CTA (csrc/lif.cu's layout): two
-    barriers (16 bytes), the W_rec slice (N_pad rows of 128 bytes), the W_in slice (channels rounded
-    up to 32 rows), two spike buffers of `streams` x N_pad/32 words, the
-    input words of 32 steps, and a source list a stream (16-bit entries, one
-    for each neuron or input channel)."""
-    nw, cw = n_pad // 32, -(-channels // 32)
-    return (16 + 128 * n_pad + 4096 * cw + 8 * streams * nw + 4 * STEP_BLOCK * streams * cw
-            + 2 * streams * max(n_pad, 32 * cw))
-
-
-def max_cluster_streams(n_pad: int, channels: int) -> int:
+def max_cluster_streams(n_pad: int, channels: int,
+                        smem_bytes: Callable[[int, int, int], int]) -> int:
     """The most streams a cluster round takes (<= 24) with the slices in
     shared memory, or 0 where the cluster body does not take the shape."""
     if n_pad % CLUSTER_SLICE or not 2 <= n_pad // CLUSTER_SLICE <= MAX_CLUSTER:
         return 0
     return max((m for m in range(1, MAX_CLUSTER_STREAMS + 1)
-                if cluster_smem_bytes(n_pad, channels, m) <= SMEM_LIMIT), default=0)
+                if smem_bytes(n_pad, channels, m) <= SMEM_LIMIT), default=0)
 
 
 def dense_plan(batch: int, channels: int, n_pad: int, refractory: int,
                co_resident: Callable[[int, int, int], int],
+               smem_bytes: Callable[[int, int, int], int],
                body: Optional[str] = None) -> DensePlan:
     """The body and tiling of a dense B2/B4 call on `batch` streams of
     `channels` input channels at `n_pad` padded neurons. The cluster body
     wherever its slices fit, else the one-thread body, and the block body
     above 1024 padded neurons; `body` asks for one of them, and raises if
-    it cannot take the shape. co_resident(K, threads, smem_bytes) is how
-    many such clusters the card holds at once (`cluster_capacity` asks the
-    card). The rounds are as few as those clusters allow, and M as small
+    it cannot take the shape. co_resident(K, threads, smem) is how many
+    such clusters the card holds at once (`cluster_capacity` asks the
+    card); smem_bytes(n_pad, channels, M) is a CTA's shared memory at M
+    streams a round (`cluster_smem` asks csrc/lif.cu, which owns the
+    layout). The rounds are as few as those clusters allow, and M as small
     as those rounds allow: M = ceil(B / (clusters x rounds))."""
     if not 0 < n_pad <= MAX_NEURONS or n_pad % 32:
         raise ValueError(f"dense B2/B4 take 0 < N_pad <= {MAX_NEURONS} and N_pad % 32 == 0; "
@@ -262,13 +256,13 @@ def dense_plan(batch: int, channels: int, n_pad: int, refractory: int,
         if body not in (None, BLOCK):
             raise ValueError(f"N_pad={n_pad} runs only on the block body, not {body}")
         return DensePlan(BLOCK)
-    m_cap = max_cluster_streams(n_pad, channels)
+    m_cap = max_cluster_streams(n_pad, channels, smem_bytes)
     if body == BLOCK or (body == CLUSTER and not m_cap):
         raise ValueError(f"N_pad={n_pad} with {channels} channels has no {body} body")
     if body == ONE_THREAD or not m_cap:
         return DensePlan(ONE_THREAD)
     k = n_pad // CLUSTER_SLICE
-    co = int(co_resident(k, 32 * m_cap, cluster_smem_bytes(n_pad, channels, m_cap)))
+    co = int(co_resident(k, 32 * m_cap, smem_bytes(n_pad, channels, m_cap)))
     if co < 1:
         raise ValueError(f"the card holds no cluster of {k} CTAs of the cluster body")
     b = max(int(batch), 1)
@@ -277,8 +271,16 @@ def dense_plan(batch: int, channels: int, n_pad: int, refractory: int,
     clusters = -(-b // (m * rounds))
     # The kernel hands round slots first, first + clusters, ... to a cluster.
     rounds = -(-(-(-b // m)) // clusters)
-    return DensePlan(CLUSTER, k, m, 32 * m, cluster_smem_bytes(n_pad, channels, m),
+    return DensePlan(CLUSTER, k, m, 32 * m, smem_bytes(n_pad, channels, m),
                      clusters, rounds, co)
+
+
+def cluster_smem(n_pad: int, channels: int, streams: int) -> int:
+    """The cluster body's bytes of dynamic shared memory a CTA at `streams`
+    streams a round, as csrc/lif.cu lays them out."""
+    fn = _build.function("lsm_lif_cluster_smem", [ctypes.c_int] * 3)
+    fn.restype = ctypes.c_longlong
+    return int(fn(n_pad, channels, streams))
 
 
 _capacity: dict = {}
@@ -305,9 +307,17 @@ def cluster_capacity(device: torch.device, chunk: bool, k: int, threads: int,
 def card_plan(x: torch.Tensor, n_pad: int, refractory: int, chunk: bool,
               body: Optional[str] = None) -> DensePlan:
     """`dense_plan` for spikes x (B, C, T) on their card: B2's plan, or
-    B4's if `chunk`."""
-    return dense_plan(x.shape[0], x.shape[1], n_pad, refractory,
-                      lambda k, th, sm: cluster_capacity(x.device, chunk, k, th, sm), body)
+    B4's if `chunk`; computed once per card and shape."""
+    return _card_plan(x.device.index, bool(chunk), x.shape[0], x.shape[1], n_pad,
+                      int(refractory), body)
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_plan(index, chunk, batch, channels, n_pad, refractory, body) -> DensePlan:
+    device = torch.device("cuda", index)
+    return dense_plan(batch, channels, n_pad, refractory,
+                      lambda k, th, sm: cluster_capacity(device, chunk, k, th, sm),
+                      cluster_smem, body)
 
 
 def block_scratch(x, n_state, n_slots, n_outputs, chunk, refractory):

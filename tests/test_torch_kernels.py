@@ -346,6 +346,50 @@ def test_cluster_body_equals_one_thread_body_on_calibrated_weights(cuda):
     assert equal and carried > 0
 
 
+@pytest.mark.parametrize("steps", [2, 4])
+def test_cluster_body_back_to_back_short_rounds(cuda, steps):
+    """Rounds of an even number of steps, one after another: a round's step 0
+    sends into the buffer and barrier phase that the round before read and
+    waited on in its last step, so a cluster barrier must end every round.
+    B2 and B4 (from a carried state that fires) at the flagship width, 2400
+    streams in many rounds at a 30 % input rate, against the one-thread body
+    on calibrated weights."""
+    r = res.init_reservoir(ReservoirConfig(mean_weight=0.0114), 128, device=cuda)
+    rng = np.random.default_rng(steps)
+    x = torch.as_tensor((rng.random((2400, 128, steps)) < 0.3).astype(np.uint8)).to(cuda)
+    ops, kw = r.kernel_operands()
+    plan = klif.card_plan(x, 1024, kw["refractory"], chunk=False)
+    assert plan.body == klif.CLUSTER and plan.rounds >= 10
+    one = klif.card_plan(x, 1024, kw["refractory"], chunk=False, body=klif.ONE_THREAD)
+    out = klif.lif_stats(x, *ops, **kw)
+    ref = klif.lif_stats(x, *ops, **kw, plan=one)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, q) for a, q in zip(out, ref)) and out[1].sum() > 2400 * steps
+
+    del kw["n_win"]
+    kw.update(win_len=steps, n_new_win=1)
+    state = (torch.zeros(2400, 1024, device=cuda),
+             torch.zeros(2400, 1024, dtype=torch.int32, device=cuda),
+             torch.as_tensor((rng.random((2400, 1024)) < 0.05).astype(np.float32)).to(cuda))
+    one_c = klif.card_plan(x, 1024, kw["refractory"], chunk=True, body=klif.ONE_THREAD)
+    out = klif.lif_chunk(x, *ops, *state, **kw)
+    ref = klif.lif_chunk(x, *ops, *state, **kw, plan=one_c)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, q) for a, q in zip(out, ref)) and out[2].sum() > 0
+
+
+def test_card_plan_is_asked_once_and_sized_by_the_kernel(cuda):
+    """card_plan computes a shape's plan once; its shared memory is what
+    csrc/lif.cu lays out (barriers, slices, spike and input words, source
+    lists) at its M streams."""
+    x = torch.zeros(256, 128, 400, dtype=torch.uint8, device=cuda)
+    plan = klif.card_plan(x, 1024, 2, chunk=False)
+    assert klif.card_plan(x, 1024, 2, chunk=False) is plan
+    m = plan.streams
+    expected = 16 + 131_072 + 16_384 + 8 * m * 32 + 4 * 32 * m * 4 + 2 * m * 1024
+    assert plan.smem_bytes == klif.cluster_smem(1024, 128, m) == expected
+
+
 @pytest.mark.parametrize("n_neurons,channels,body", [
     (1000, 2048, klif.ONE_THREAD),   # redundancy 16: W_in's 256 KB slice does not fit
     (1100, 128, klif.BLOCK),         # N_pad 1152: above one CTA's 1024 neurons
