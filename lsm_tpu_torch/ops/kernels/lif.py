@@ -23,8 +23,9 @@ the C entry points check the plan and run it:
   adds one shared-memory row per source, runs the LIF update and
   statistics in registers, and sends its spike words to every CTA of the
   cluster with st.async, counted there by an mbarrier (no cluster-wide
-  barrier a step; one ends each round). What bounds it is instruction issue (~10 a fired row,
-  warp and CTA) and a step's latency, not bytes or FLOPs. Budget: at most
+  barrier a step; one ends each round). What bounds it is instruction
+  issue (~10 a fired row, warp and CTA) and a step's latency, not bytes or
+  FLOPs. Budget: at most
   232,448 bytes of shared memory and 24 streams (768 threads, one CTA an
   SM, up to 80 registers a thread, so the state and OutputStats of two
   neurons stay in registers);
