@@ -89,6 +89,20 @@ Phases (any failure exits non-zero):
                In phases 7 and 10 the chunk kernel's totals of carried
                spikes and output spike counts must stay within 1e-3 of
                the twin's on every hop of the cycle.
+ 11. offline - WAVs on disk at the flagship config (2400 synthetic files
+               in Speech Commands layout and one corrupt one):
+               create_spike_dataset on the int16 wire bit-equal to the
+               float32 route, the corrupt file skipped with the labels
+               aligned, the sharded route equal to the in-memory one, the
+               mu-law route's flips recorded; a trained dense bundle saved,
+               reloaded on the card and classified over memory and shards
+               with the trained modules' predictions (B1, B2 on the cluster
+               body); phase 9's modules through a v2-sparse bundle (B5);
+               `python -m lsm_tpu_torch --data-dir ... --save-model` and
+               `python -m lsm_tpu_torch.cli.classify` (--input <shards>,
+               --data-dir) as subprocesses; the warm (shards on disk) and
+               cold (WAVs on disk) rates, the decode worker's busy share of
+               the cold wall, bundle sizes and load times.
 
 Each phase prints its seconds ("[time] ..."). A "[record] {...}" line
 holds every number of the run as JSON. The
@@ -106,11 +120,13 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+REPO = Path(__file__).resolve().parent
 ACC_BAND = (0.76, 0.90)       # tests/test_accuracy_band.py, frozen
 CONT_MIN_ACC, CONT_MAX_DELTA = 0.60, 0.15   # tests/test_continuous_band.py, frozen
 CHUNK = 1600                  # 100 ms hops
@@ -123,6 +139,9 @@ F32_FLOPS, HBM_BYTES_S, BF16_TC_FLOPS = 67e12, 3.35e12, 989e12
 # sweep found at the edge of chaos (lsm_tpu's draws).
 N_10K, K_10K, MULT_10K = 10240, 2048, 1.6
 SPARSE_ACC_RANGE, SPARSE_MAX_DELTA = (0.66, 0.95), 0.15   # tests/test_sparse_reservoir.py
+# Phase 11's WAV corpora: 12 classes of this many files each (2400, the
+# hot path's count; 360 for the two CLI subprocesses).
+OFFLINE_PER_CLASS, CLI_PER_CLASS = 200, 30
 # On weights that are not dyadic a kernel may sum a drive in another order
 # than its twin, so their bits may part; their spike totals (and B5's
 # participation, a fraction of the neurons) may not move apart by more.
@@ -743,6 +762,10 @@ def main() -> None:
     if min(sserve["launches"]["B3"], sserve["launches"]["B6"]) <= 0:
         fail(f"a kernel of the sparse serving path was not launched: {sserve['launches']}")
     b6_line = {**sk["B6"], **{k: sserve["B6"][k] for k in timed}}
+
+    # ---- 11. offline inference from WAVs on disk -------------------------
+    record["offline"] = offline(dev, card, engine_10k)
+    laps("11 offline")
 
     def row(name, key, source, replaces, rec, launches_):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1422,6 +1445,255 @@ def sparse_slice(dev, card) -> tuple:
     if min(launches["B1"], launches["B5"]) <= 0:
         fail(f"a kernel of the sparse batch path was not launched: {launches}")
     return rec, (ext.reservoir, result.readout, ext.scaler)
+
+
+def predict_in_process(reservoir, readout, sc, x: np.ndarray, keys, batch: int, dev) -> np.ndarray:
+    """predict(readout, transform(scaler, extract_features(reservoir, x)))
+    over x in batches of `batch` rows, as classify_spikes_streaming batches
+    them, without its bit packing."""
+    from lsm_tpu_torch.models import reservoir as res
+    from lsm_tpu_torch.readout import logistic, scaler
+
+    out = [logistic.predict(readout, scaler.transform(sc, res.extract_features(
+        reservoir, torch.as_tensor(x[s:s + batch]).to(dev), keys))).cpu()
+        for s in range(0, x.shape[0], batch)]
+    return torch.cat(out).numpy().astype(np.int32)
+
+
+def run_cli(args: list, card: str, timeout: int = 600) -> tuple:
+    """`python -m <args>` from the checkout's root: (seconds, stdout);
+    fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-3000:])
+        fail(f"`python -m {' '.join(map(str, args))}` exited {proc.returncode} ({card})")
+    return seconds, proc.stdout
+
+
+def offline(dev, card, sparse_modules) -> dict:
+    """Phase 11: offline inference from WAVs on disk at the flagship config
+    (128 filters, 1000 neurons). A corpus of OFFLINE_PER_CLASS x 12
+    synthetic WAVs plus one corrupt file: create_spike_dataset in memory on
+    the int16 wire bit-equal to load_audio_batch (float32) +
+    featurize_audio_array, the corrupt file skipped with the labels aligned,
+    the sharded route (1000 a shard) equal through load_spike_dataset_any,
+    the mu-law route's flip fraction against int16 recorded; then
+    extract_lsm_features + train_and_evaluate, save_model, load_model on
+    the card, and classify_spikes_streaming over the in-memory source and
+    the shards equal to each other and to the trained modules' in-process
+    predictions, B1 and B2 launched, every B2 launch on the cluster body.
+    Phase 9's configs[3] modules go through a v2-sparse bundle the same way
+    (B5 launched). Then the CLIs as subprocesses on a CLI_PER_CLASS x 12
+    corpus: `python -m lsm_tpu_torch --data-dir ... --save-model`, then
+    `python -m lsm_tpu_torch.cli.classify` with that bundle over its shards
+    (--input) and over its WAVs (--data-dir), whose predictions must both
+    equal the in-process ones of that bundle. Times: the
+    warm rate (classifying the shards on disk), the cold rate (WAVs to
+    predictions) with the share of its wall the decode worker is busy, the
+    bundles' sizes and load times."""
+    import dataclasses
+    import tempfile
+
+    from lsm_tpu_torch import pipeline
+    from lsm_tpu_torch.config import COMMANDS_12, FEATURE_SETS, PipelineConfig
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.io.model import load_model, save_model
+    from lsm_tpu_torch.io.sharded import ShardedSpikeDataset
+    from lsm_tpu_torch.io.wav import load_audio_batch
+    from lsm_tpu_torch.models.sparse import SparseReservoir
+
+    cfg = PipelineConfig()
+    keys = tuple(FEATURE_SETS[cfg.feature_set])
+    n_utt = OFFLINE_PER_CLASS * len(COMMANDS_12)
+    labels = np.repeat(np.arange(len(COMMANDS_12), dtype=np.int32), OFFLINE_PER_CLASS)
+    rec = {"utterances": n_utt, "batch_size": cfg.batch_size}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    with tempfile.TemporaryDirectory(prefix="lsm_offline_") as tmp_name:
+        tmp = Path(tmp_name)
+        corpus = tmp / "corpus"
+        rec["corpus_write_s"], _ = timed(lambda: dataset.write_synthetic_corpus(
+            corpus, COMMANDS_12, n_per_class=OFFLINE_PER_CLASS, seed=42))
+        corrupt = corpus / COMMANDS_12[5] / "00007_corrupt.wav"
+        corrupt.write_bytes(b"RIFF\x24\x00\x00\x00WAVEfmt " + bytes(8))
+
+        # ---- featurize: four routes ------------------------------------
+        reset_launches()
+        rec["featurize_int16_s"], ds = timed(lambda: pipeline.create_spike_dataset(cfg, corpus, dev))
+        files = dataset.index_speech_commands(corpus, cfg.commands, cfg.max_samples_per_class).files
+        rec["decode_float32_s"], (audio, kept, errors) = timed(
+            lambda: load_audio_batch(files, dtype="float32"))
+        sp_f32 = pipeline.featurize_audio_array(cfg, audio, dev)
+        rec["int16_equals_float32"] = bool(np.array_equal(ds.x_spikes, sp_f32))
+        rec["skipped"] = [p.name for p, _ in errors]
+        rec["labels_aligned"] = bool(np.array_equal(ds.y_labels, labels))
+        del audio, sp_f32
+        rec["featurize_sharded_s"], _ = timed(lambda: pipeline.create_spike_dataset(
+            cfg, corpus, dev, sharded_output=tmp / "shards", shard_size=1000))
+        back = pipeline.load_spike_dataset_any(tmp / "shards")
+        rec["sharded_equals_in_memory"] = bool(np.array_equal(back.x_spikes, ds.x_spikes)
+                                               and np.array_equal(back.y_labels, ds.y_labels))
+        del back
+        ds_u = pipeline.create_spike_dataset(dataclasses.replace(cfg, audio_wire="ulaw"),
+                                             corpus, dev)
+        rec["ulaw_flip_fraction"] = float((ds_u.x_spikes != ds.x_spikes).mean())
+        del ds_u
+        print(f"[offline] {n_utt} WAVs (+1 corrupt) at {cfg.frontend.n_filters} filters: int16 "
+              f"route {rec['featurize_int16_s']:.2f} s, bit-equal to float32 "
+              f"{rec['int16_equals_float32']}; skipped {rec['skipped']}, labels aligned "
+              f"{rec['labels_aligned']}; shards equal {rec['sharded_equals_in_memory']}; mu-law "
+              f"flips {rec['ulaw_flip_fraction']:.3e} of the int16 spikes ({card})")
+        if not (rec["int16_equals_float32"] and rec["labels_aligned"]
+                and rec["sharded_equals_in_memory"] and rec["skipped"] == [corrupt.name]
+                and ds.x_spikes.shape == (n_utt, cfg.frontend.n_filters, 400)):
+            fail(f"offline featurization: {rec}")
+
+        # ---- train, save, reload, classify -----------------------------
+        ext = pipeline.extract_lsm_features(cfg, ds, dev)
+        result = pipeline.train_and_evaluate(cfg, ext.artifact, dev)
+        model = tmp / "m.npz"
+        save_model(model, ext.reservoir, result.readout, ext.scaler, cfg.frontend,
+                   cfg.feature_set, cfg.commands)
+        rec["bundle_bytes"] = model.stat().st_size
+        rec["bundle_load_s"], bundle = timed(lambda: load_model(model, dev))
+        shards = ShardedSpikeDataset(tmp / "shards")
+        p_mem, l_mem = pipeline.classify_spikes_streaming(
+            cfg, pipeline.InMemorySource(ds), bundle.reservoir, bundle.readout, bundle.scaler, dev)
+        p_sh, l_sh = pipeline.classify_spikes_streaming(
+            cfg, shards, bundle.reservoir, bundle.readout, bundle.scaler, dev)
+        p_in = predict_in_process(ext.reservoir, result.readout, ext.scaler, ds.x_spikes, keys,
+                                  cfg.batch_size, dev)
+        launches = read_launches()
+        rec.update(train_accuracy=result.accuracy, regime=ext.diagnostics.regime,
+                   classify_accuracy=float((p_mem == labels).mean()),
+                   shards_equal_in_memory=bool(np.array_equal(p_sh, p_mem)
+                                               and np.array_equal(l_sh, l_mem)),
+                   equal_in_process=bool(np.array_equal(p_mem, p_in)),
+                   launches={"B1": launches["B1"], "B2": launches["B2"]},
+                   dense_bodies=launches["dense_bodies"])
+        print(f"[offline] dense bundle {rec['bundle_bytes'] / 1e6:.2f} MB, load to the card "
+              f"{rec['bundle_load_s'] * 1e3:.1f} ms; test accuracy {result.accuracy:.4f} "
+              f"{rec['regime']}; classify accuracy {rec['classify_accuracy']:.4f}, shards = "
+              f"in memory {rec['shards_equal_in_memory']}, = in-process "
+              f"{rec['equal_in_process']}; launches {rec['launches']} ({card})")
+        if not (rec["shards_equal_in_memory"] and rec["equal_in_process"]
+                and np.array_equal(l_mem, labels)):
+            fail(f"the reloaded dense bundle's predictions: {rec}")
+        if min(rec["launches"].values()) <= 0 or not on_cluster_body(launches):
+            fail(f"offline path launches {launches}")
+
+        # ---- rates -----------------------------------------------------
+        warm = [timed(lambda: pipeline.classify_spikes_streaming(
+            cfg, ShardedSpikeDataset(tmp / "shards"), bundle.reservoir, bundle.readout,
+            bundle.scaler, dev))[0] for _ in range(3)]
+        # The decode worker's busy seconds inside each cold run (wrapping
+        # the loader create_spike_dataset calls), against that run's wall.
+        decode_busy = []
+
+        def busy_decode(*args, **kw):
+            t0 = time.perf_counter()
+            out = load_audio_batch(*args, **kw)
+            decode_busy.append(time.perf_counter() - t0)
+            return out
+
+        cold = []
+        pipeline.load_audio_batch = busy_decode
+        try:
+            for _ in range(3):
+                decode_busy.clear()
+                wall, _ = timed(lambda: pipeline.classify_spikes_streaming(
+                    cfg, pipeline.InMemorySource(pipeline.create_spike_dataset(cfg, corpus, dev)),
+                    bundle.reservoir, bundle.readout, bundle.scaler, dev))
+                cold.append((wall, sum(decode_busy)))
+        finally:
+            pipeline.load_audio_batch = load_audio_batch
+        best = min(cold)
+        rec.update(warm_s=warm, cold_s=[c[0] for c in cold],
+                   cold_decode_s=[c[1] for c in cold], warm_utt_per_s=n_utt / min(warm),
+                   warm_utt_per_s_median=n_utt / statistics.median(warm),
+                   cold_utt_per_s=n_utt / best[0], decode_share_of_cold=best[1] / best[0])
+        print(f"[offline] warm: {n_utt} utt from shards on disk -> predictions "
+              f"{rec['warm_utt_per_s']:.1f} utt/s (walls " + " ".join(f"{w:.3f}" for w in warm)
+              + f" s); cold: WAVs on disk -> predictions {rec['cold_utt_per_s']:.1f} utt/s (walls "
+              + " ".join(f"{c[0]:.3f}" for c in cold) + " s; the decode worker busy "
+              + " ".join(f"{c[1]:.3f}" for c in cold) + f" s, "
+              f"{100 * rec['decode_share_of_cold']:.1f} % of the fastest wall) ({card})")
+
+        # ---- the sparse bundle (phase 9's configs[3] modules) ------------
+        s_res, s_ro, s_sc = sparse_modules
+        s_model = tmp / "sparse.npz"
+        rec["sparse_save_s"], _ = timed(lambda: save_model(
+            s_model, s_res, s_ro, s_sc, cfg.frontend, cfg.feature_set, cfg.commands))
+        rec["sparse_bundle_bytes"] = s_model.stat().st_size
+        rec["sparse_bundle_load_s"], s_bundle = timed(lambda: load_model(s_model, dev))
+        s_cfg = PipelineConfig(frontend=s_bundle.frontend, feature_set=s_bundle.feature_set,
+                               commands=s_bundle.class_names)
+        s_ds = pipeline.create_spike_dataset(s_cfg, corpus, dev)
+        reset_launches()
+        p_s, _ = pipeline.classify_spikes_streaming(
+            s_cfg, pipeline.InMemorySource(s_ds), s_bundle.reservoir, s_bundle.readout,
+            s_bundle.scaler, dev)
+        s_launches = read_launches()
+        p_s_in = predict_in_process(s_res, s_ro, s_sc, s_ds.x_spikes, keys, s_cfg.batch_size, dev)
+        rec["sparse"] = {"kind": type(s_bundle.reservoir).__name__,
+                         "equal_in_process": bool(np.array_equal(p_s, p_s_in)),
+                         "accuracy": float((p_s == labels).mean()),
+                         "launches_B5": s_launches["B5"]}
+        print(f"[offline] sparse bundle (N={s_res.n_neurons}) {rec['sparse_bundle_bytes'] / 1e6:.2f}"
+              f" MB, save {rec['sparse_save_s']:.2f} s, load to the card "
+              f"{rec['sparse_bundle_load_s'] * 1e3:.1f} ms; predictions = phase 9's modules "
+              f"{rec['sparse']['equal_in_process']}, accuracy {rec['sparse']['accuracy']:.4f}, "
+              f"B5 launched {s_launches['B5']} ({card})")
+        if not (isinstance(s_bundle.reservoir, SparseReservoir)
+                and rec["sparse"]["equal_in_process"] and s_launches["B5"] > 0):
+            fail(f"the reloaded sparse bundle: {rec['sparse']}")
+        del s_bundle, s_ds
+
+        # ---- the CLIs as subprocesses ------------------------------------
+        corpus30 = tmp / "corpus30"
+        dataset.write_synthetic_corpus(corpus30, COMMANDS_12, n_per_class=CLI_PER_CLASS, seed=7)
+        cli_model = tmp / "cli_model.npz"
+        main_s, main_out = run_cli(["lsm_tpu_torch", "--data-dir", corpus30, "--save-model",
+                                    cli_model, "--skip-artifacts", "--device", dev.type], card)
+        cli_bundle = load_model(cli_model, dev)
+        c_cfg = PipelineConfig(frontend=cli_bundle.frontend, commands=cli_bundle.class_names)
+        pipeline.create_spike_dataset(c_cfg, corpus30, dev, sharded_output=tmp / "shards30")
+        classify_s, _ = run_cli(["lsm_tpu_torch.cli.classify", "--model", cli_model, "--input",
+                                 tmp / "shards30", "--output", tmp / "preds.npz", "--device",
+                                 dev.type], card)
+        wav_s, _ = run_cli(["lsm_tpu_torch.cli.classify", "--model", cli_model, "--data-dir",
+                            corpus30, "--output", tmp / "preds_wav.npz", "--device", dev.type],
+                           card)
+        got = np.load(tmp / "preds.npz")
+        p_wav = np.load(tmp / "preds_wav.npz")["predictions"]
+        p_ref, _ = pipeline.classify_spikes_streaming(
+            c_cfg, ShardedSpikeDataset(tmp / "shards30"), cli_bundle.reservoir,
+            cli_bundle.readout, cli_bundle.scaler, dev)
+        acc_line = [ln for ln in main_out.splitlines() if ln.startswith("Test Accuracy:")]
+        rec["cli"] = {"main_s": main_s, "classify_s": classify_s, "classify_wav_s": wav_s,
+                      "main_test_accuracy_line": acc_line[-1] if acc_line else None,
+                      "predictions_equal": bool(np.array_equal(got["predictions"], p_ref)
+                                                and np.array_equal(p_wav, p_ref)),
+                      "classify_accuracy": float((got["predictions"] == got["labels"]).mean())}
+        print(f"[offline] CLIs on {CLI_PER_CLASS * 12} WAVs: python -m lsm_tpu_torch --save-model "
+              f"{main_s:.1f} s ({rec['cli']['main_test_accuracy_line']}), cli.classify --input "
+              f"<shards> {classify_s:.1f} s and --data-dir {wav_s:.1f} s, predictions of both "
+              f"= in-process "
+              f"{rec['cli']['predictions_equal']}, accuracy {rec['cli']['classify_accuracy']:.4f}"
+              f" ({card})")
+        if not rec["cli"]["predictions_equal"] or len(got["predictions"]) != CLI_PER_CLASS * 12:
+            fail(f"the CLIs' predictions: {rec['cli']}")
+    return rec
 
 
 if __name__ == "__main__":

@@ -47,7 +47,10 @@ FEATURE_SETS = {
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
     """Featurization and spike encoding. Only the exact gammatone
-    (filterbank "gammatone", method "iir") is ported (ROADMAP A8)."""
+    (filterbank "gammatone", method "iir") is ported (ROADMAP A8); the mel
+    fields are kept, in lsm_tpu's field order, because a sharded corpus is
+    fingerprinted by `repr` of this config and a model bundle stores its
+    `asdict`."""
 
     sample_rate: int = 16000
     duration: float = 1.0
@@ -57,6 +60,9 @@ class FrontendConfig:
     spike_thresholds: Tuple[float, ...] = (0.70, 0.80, 0.90, 0.95)
     hysteresis_gap: float = 0.1
     redundancy_factor: int = 1
+    n_fft: int = 2048
+    mel_fmin: float = 0.0
+    mel_fmax: Optional[float] = None   # None -> sample_rate / 2
     power_top_db: float = 80.0
     gt_window_time: float = 0.025
     gt_f_min: float = 50.0
@@ -131,3 +137,31 @@ class PipelineConfig:
     split_seed: int = 42
     commands: Tuple[str, ...] = COMMANDS_12
     batch_size: int = 512              # utterances per featurize/extract batch
+    # Decoder -> device audio format of the WAV stages: "int16" PCM (exact
+    # for PCM16 files, half the float32 bytes) or "ulaw" (uint8 G.711, a
+    # quarter, lossy); featurize_batch takes both.
+    audio_wire: str = "int16"
+
+
+def frontend_to_dict(cfg: FrontendConfig) -> dict:
+    """JSON-serializable FrontendConfig (sharded-dataset metadata)."""
+    return dataclasses.asdict(cfg)
+
+
+def corpus_meta(cfg: PipelineConfig) -> dict:
+    """Sharded-dataset writer metadata: the featurization and vocabulary a
+    corpus was built with (the keys lsm_tpu's writers record)."""
+    return {
+        "frontend": frontend_to_dict(cfg.frontend),
+        "class_names": list(cfg.commands),
+    }
+
+
+def frontend_from_dict(d: dict) -> FrontendConfig:
+    """Inverse of frontend_to_dict. Tolerates unknown keys (metadata written
+    by a newer version) and turns JSON lists back into the tuple fields."""
+    fields = {f.name for f in dataclasses.fields(FrontendConfig)}
+    kw = {k: v for k, v in d.items() if k in fields}
+    if "spike_thresholds" in kw:
+        kw["spike_thresholds"] = tuple(kw["spike_thresholds"])
+    return FrontendConfig(**kw)

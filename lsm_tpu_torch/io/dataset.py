@@ -1,6 +1,11 @@
-"""Synthetic spoken-word corpora (copies of the generators in
-lsm_tpu/io/dataset.py; tests/test_torch_config.py asserts they draw the
-same arrays from the same seed).
+"""The Speech Commands directory walk and synthetic spoken-word corpora
+(copies of lsm_tpu/io/dataset.py; tests/test_torch_package.py and
+tests/test_torch_io.py hold them equal to lsm_tpu's: the same files, labels
+and warnings, the same arrays and WAV bytes from the same seed).
+
+`index_speech_commands` walks <base>/<command>/*.wav as the reference's
+create_dataset.py does: sorted glob, a cap per class, a warning and a skip
+for a missing directory or an empty glob.
 
 `synthetic_audio_batch` is the easy corpus (class-specific tone bundles);
 `synthetic_audio_batch_hard` is the frozen hard benchmark behind the
@@ -11,9 +16,49 @@ the reservoir's temporal statistics separate a pair.
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from pathlib import Path
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class DatasetIndex:
+    files: List[Path]
+    labels: np.ndarray            # (N,) int32
+    class_names: Sequence[str]
+    warnings: List[str]
+
+
+def index_speech_commands(
+    base_path: Path,
+    commands: Sequence[str],
+    max_samples_per_class: int = 1000,
+) -> DatasetIndex:
+    """The files under <base>/<command>/*.wav, sorted and capped per class,
+    with class index = position in `commands`."""
+    base_path = Path(base_path)
+    files: List[Path] = []
+    labels: List[int] = []
+    warnings: List[str] = []
+    for label_idx, command in enumerate(commands):
+        command_dir = base_path / command
+        if not command_dir.is_dir():
+            warnings.append(f"Directory not found, skipping: {command_dir}")
+            continue
+        wavs = sorted(command_dir.glob("*.wav"))[:max_samples_per_class]
+        if not wavs:
+            warnings.append(f"No files found for '{command}'")
+            continue
+        files.extend(wavs)
+        labels.extend([label_idx] * len(wavs))
+    return DatasetIndex(
+        files=files,
+        labels=np.asarray(labels, np.int32),
+        class_names=commands,
+        warnings=warnings,
+    )
 
 
 def synthetic_word(
@@ -148,3 +193,23 @@ def synthetic_audio_batch_hard(
             )
             ys.append(c)
     return np.stack(xs), np.asarray(ys, np.int32)
+
+
+def write_synthetic_corpus(
+    base_path: Path,
+    commands: Sequence[str],
+    n_per_class: int,
+    seed: int = 42,
+    sample_rate: int = 16000,
+) -> None:
+    """Write an easy-corpus utterance per file in Speech Commands layout:
+    <base>/<command>/{i:05d}.wav, 16-bit PCM."""
+    from lsm_tpu_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(seed)
+    base_path = Path(base_path)
+    for c, command in enumerate(commands):
+        d = base_path / command
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(n_per_class):
+            write_wav(d / f"{i:05d}.wav", synthetic_word(c, rng, sample_rate), sample_rate)

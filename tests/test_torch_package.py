@@ -39,6 +39,24 @@ def test_config_defaults_equal_reference(name):
     _assert_fields_equal(getattr(tcfg, name)(), getattr(jcfg, name)(), name)
 
 
+@pytest.mark.parametrize("kw", [{}, dict(n_filters=64, redundancy_factor=2, n_fft=1024,
+                                         mel_fmin=20.0, mel_fmax=7600.0,
+                                         spike_thresholds=(0.5, 0.9))])
+def test_frontend_repr_and_dict_equal_reference(kw):
+    """A sharded corpus is fingerprinted by repr(frontend) and a bundle
+    stores its asdict: both must read as lsm_tpu's, field order included."""
+    port, ref = tcfg.FrontendConfig(**kw), jcfg.FrontendConfig(**kw)
+    assert repr(port) == repr(ref)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+    assert tcfg.frontend_to_dict(port) == jcfg.frontend_to_dict(ref)
+    d = {**jcfg.frontend_to_dict(ref), "spike_thresholds": list(ref.spike_thresholds), "new": 1}
+    assert tcfg.frontend_from_dict(d) == port
+    cmds = ("yes", "no")
+    assert tcfg.corpus_meta(tcfg.PipelineConfig(frontend=port, commands=cmds)) == \
+        jcfg.corpus_meta(jcfg.PipelineConfig(frontend=ref, commands=cmds))
+
+
 def test_config_constants_equal_reference():
     assert tcfg.FEATURE_SETS == jcfg.FEATURE_SETS
     assert tcfg.COMMANDS_12 == jcfg.COMMANDS_12
@@ -81,6 +99,10 @@ def test_port_imports_nothing_of_the_reference():
         "import lsm_tpu_torch.pipeline, lsm_tpu_torch.__main__, lsm_tpu_torch.convert\n"
         "import lsm_tpu_torch.models.diagnostics, lsm_tpu_torch.models.continuous\n"
         "import lsm_tpu_torch.models.streaming, lsm_tpu_torch.models.sparse, chip_smoke\n"
+        "import lsm_tpu_torch.io.wav, lsm_tpu_torch.io.sharded, lsm_tpu_torch.io.model\n"
+        "import lsm_tpu_torch.cli.common, lsm_tpu_torch.cli.create_dataset\n"
+        "import lsm_tpu_torch.cli.extract_lsm_features, lsm_tpu_torch.cli.train_classifier\n"
+        "import lsm_tpu_torch.cli.classify\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"
