@@ -94,10 +94,14 @@ Phases (any failure exits non-zero):
                create_spike_dataset on the int16 wire bit-equal to the
                float32 route, the corrupt file skipped with the labels
                aligned, the sharded route equal to the in-memory one, the
-               mu-law route's flips recorded; a trained dense bundle saved,
+               mu-law route's flips recorded (the int16 route alone
+               launches B1 once a batch); a trained dense bundle saved,
                reloaded on the card and classified over memory and shards
-               with the trained modules' predictions (B1, B2 on the cluster
-               body); phase 9's modules through a v2-sparse bundle (B5);
+               with the trained modules' predictions, each classify
+               launching B2 once a batch on the cluster body, the
+               reloaded modules' features and logits bit-equal to the
+               trained ones'; phase 9's modules through a v2-sparse bundle
+               the same way (B5 once a batch);
                `python -m lsm_tpu_torch --data-dir ... --save-model` and
                `python -m lsm_tpu_torch.cli.classify` (--input <shards>,
                --data-dir) as subprocesses; the warm (shards on disk) and
@@ -1447,17 +1451,32 @@ def sparse_slice(dev, card) -> tuple:
     return rec, (ext.reservoir, result.readout, ext.scaler)
 
 
-def predict_in_process(reservoir, readout, sc, x: np.ndarray, keys, batch: int, dev) -> np.ndarray:
-    """predict(readout, transform(scaler, extract_features(reservoir, x)))
-    over x in batches of `batch` rows, as classify_spikes_streaming batches
-    them, without its bit packing."""
+def run_in_process(reservoir, readout, sc, x: np.ndarray, keys, batch: int, dev) -> tuple:
+    """extract_features, then transform(scaler), then the readout's logits
+    and predict's argmax, over x in batches of `batch` rows as
+    classify_spikes_streaming batches them, without its bit packing:
+    (features, logits, predictions) on the host."""
     from lsm_tpu_torch.models import reservoir as res
     from lsm_tpu_torch.readout import logistic, scaler
 
-    out = [logistic.predict(readout, scaler.transform(sc, res.extract_features(
-        reservoir, torch.as_tensor(x[s:s + batch]).to(dev), keys))).cpu()
-        for s in range(0, x.shape[0], batch)]
-    return torch.cat(out).numpy().astype(np.int32)
+    feats, logits, preds = [], [], []
+    for s in range(0, x.shape[0], batch):
+        f = res.extract_features(reservoir, torch.as_tensor(x[s:s + batch]).to(dev), keys)
+        z = scaler.transform(sc, f)
+        feats.append(f.cpu())
+        logits.append(readout(z).cpu())
+        preds.append(logistic.predict(readout, z).cpu())
+    return torch.cat(feats), torch.cat(logits), torch.cat(preds).numpy().astype(np.int32)
+
+
+def same_modules(a: tuple, b: tuple, x: np.ndarray, keys, batch: int, dev) -> tuple:
+    """Run two (reservoir, readout, scaler) triples on the same spikes:
+    (features bit-equal, logits bit-equal, a's predictions). A reload that
+    lost or permuted a weight changes the features or the logits even where
+    every prediction stays the same."""
+    fa, za, pa = run_in_process(*a, x, keys, batch, dev)
+    fb, zb, _ = run_in_process(*b, x, keys, batch, dev)
+    return torch.equal(fa, fb), torch.equal(za, zb), pa
 
 
 def run_cli(args: list, card: str, timeout: int = 600) -> tuple:
@@ -1481,13 +1500,18 @@ def offline(dev, card, sparse_modules) -> dict:
     the int16 wire bit-equal to load_audio_batch (float32) +
     featurize_audio_array, the corrupt file skipped with the labels aligned,
     the sharded route (1000 a shard) equal through load_spike_dataset_any,
-    the mu-law route's flip fraction against int16 recorded; then
-    extract_lsm_features + train_and_evaluate, save_model, load_model on
-    the card, and classify_spikes_streaming over the in-memory source and
-    the shards equal to each other and to the trained modules' in-process
-    predictions, B1 and B2 launched, every B2 launch on the cluster body.
-    Phase 9's configs[3] modules go through a v2-sparse bundle the same way
-    (B5 launched). Then the CLIs as subprocesses on a CLI_PER_CLASS x 12
+    the mu-law route's flip fraction against int16 recorded, the int16
+    route alone launching B1 once a batch; then extract_lsm_features +
+    train_and_evaluate, save_model, load_model on the card, and
+    classify_spikes_streaming over the in-memory source and the shards
+    equal to each other and to the trained modules' in-process predictions,
+    each of the two calls alone launching B2 once a batch, all on the
+    cluster body; the reloaded modules' features and logits bit-equal to
+    the trained ones'. Phase 9's configs[3] modules go through a v2-sparse
+    bundle the same way (B5 once a batch; its readout was fitted on the
+    hard corpus, so on this corpus the features and logits tell a right
+    reload from a wrong one where the predictions may not). Then the CLIs
+    as subprocesses on a CLI_PER_CLASS x 12
     corpus: `python -m lsm_tpu_torch --data-dir ... --save-model`, then
     `python -m lsm_tpu_torch.cli.classify` with that bundle over its shards
     (--input) and over its WAVs (--data-dir), whose predictions must both
@@ -1528,9 +1552,12 @@ def offline(dev, card, sparse_modules) -> dict:
         corrupt.write_bytes(b"RIFF\x24\x00\x00\x00WAVEfmt " + bytes(8))
 
         # ---- featurize: four routes ------------------------------------
+        files = dataset.index_speech_commands(corpus, cfg.commands, cfg.max_samples_per_class).files
+        n_batches = -(-n_utt // cfg.batch_size)
         reset_launches()
         rec["featurize_int16_s"], ds = timed(lambda: pipeline.create_spike_dataset(cfg, corpus, dev))
-        files = dataset.index_speech_commands(corpus, cfg.commands, cfg.max_samples_per_class).files
+        rec["launches_featurize_int16"] = read_launches()
+        b1_want = -(-len(files) // cfg.batch_size)
         rec["decode_float32_s"], (audio, kept, errors) = timed(
             lambda: load_audio_batch(files, dtype="float32"))
         sp_f32 = pipeline.featurize_audio_array(cfg, audio, dev)
@@ -1552,11 +1579,16 @@ def offline(dev, card, sparse_modules) -> dict:
               f"route {rec['featurize_int16_s']:.2f} s, bit-equal to float32 "
               f"{rec['int16_equals_float32']}; skipped {rec['skipped']}, labels aligned "
               f"{rec['labels_aligned']}; shards equal {rec['sharded_equals_in_memory']}; mu-law "
-              f"flips {rec['ulaw_flip_fraction']:.3e} of the int16 spikes ({card})")
+              f"flips {rec['ulaw_flip_fraction']:.3e} of the int16 spikes; the int16 route "
+              f"alone launched B1 {rec['launches_featurize_int16']['B1']} times for "
+              f"{len(files)} files ({card})")
         if not (rec["int16_equals_float32"] and rec["labels_aligned"]
                 and rec["sharded_equals_in_memory"] and rec["skipped"] == [corrupt.name]
                 and ds.x_spikes.shape == (n_utt, cfg.frontend.n_filters, 400)):
             fail(f"offline featurization: {rec}")
+        if rec["launches_featurize_int16"]["B1"] != b1_want:
+            fail(f"the int16 create_spike_dataset launched {rec['launches_featurize_int16']}, "
+                 f"not B1 once for each of its {b1_want} batches")
 
         # ---- train, save, reload, classify -----------------------------
         ext = pipeline.extract_lsm_features(cfg, ds, dev)
@@ -1566,31 +1598,41 @@ def offline(dev, card, sparse_modules) -> dict:
                    cfg.feature_set, cfg.commands)
         rec["bundle_bytes"] = model.stat().st_size
         rec["bundle_load_s"], bundle = timed(lambda: load_model(model, dev))
-        shards = ShardedSpikeDataset(tmp / "shards")
-        p_mem, l_mem = pipeline.classify_spikes_streaming(
-            cfg, pipeline.InMemorySource(ds), bundle.reservoir, bundle.readout, bundle.scaler, dev)
-        p_sh, l_sh = pipeline.classify_spikes_streaming(
-            cfg, shards, bundle.reservoir, bundle.readout, bundle.scaler, dev)
-        p_in = predict_in_process(ext.reservoir, result.readout, ext.scaler, ds.x_spikes, keys,
-                                  cfg.batch_size, dev)
-        launches = read_launches()
+        classified, launches = {}, {}
+        for name, source in (("memory", pipeline.InMemorySource(ds)),
+                             ("shards", ShardedSpikeDataset(tmp / "shards"))):
+            reset_launches()
+            classified[name] = pipeline.classify_spikes_streaming(
+                cfg, source, bundle.reservoir, bundle.readout, bundle.scaler, dev)
+            launches[name] = read_launches()
+        (p_mem, l_mem), (p_sh, l_sh) = classified["memory"], classified["shards"]
+        feats_eq, logits_eq, p_in = same_modules(
+            (ext.reservoir, result.readout, ext.scaler),
+            (bundle.reservoir, bundle.readout, bundle.scaler), ds.x_spikes, keys,
+            cfg.batch_size, dev)
         rec.update(train_accuracy=result.accuracy, regime=ext.diagnostics.regime,
                    classify_accuracy=float((p_mem == labels).mean()),
                    shards_equal_in_memory=bool(np.array_equal(p_sh, p_mem)
                                                and np.array_equal(l_sh, l_mem)),
                    equal_in_process=bool(np.array_equal(p_mem, p_in)),
-                   launches={"B1": launches["B1"], "B2": launches["B2"]},
-                   dense_bodies=launches["dense_bodies"])
+                   features_equal=feats_eq, logits_equal=logits_eq,
+                   launches_classify={k: {"B2": v["B2"], "dense_bodies": v["dense_bodies"]}
+                                      for k, v in launches.items()})
         print(f"[offline] dense bundle {rec['bundle_bytes'] / 1e6:.2f} MB, load to the card "
               f"{rec['bundle_load_s'] * 1e3:.1f} ms; test accuracy {result.accuracy:.4f} "
               f"{rec['regime']}; classify accuracy {rec['classify_accuracy']:.4f}, shards = "
               f"in memory {rec['shards_equal_in_memory']}, = in-process "
-              f"{rec['equal_in_process']}; launches {rec['launches']} ({card})")
-        if not (rec["shards_equal_in_memory"] and rec["equal_in_process"]
-                and np.array_equal(l_mem, labels)):
-            fail(f"the reloaded dense bundle's predictions: {rec}")
-        if min(rec["launches"].values()) <= 0 or not on_cluster_body(launches):
-            fail(f"offline path launches {launches}")
+              f"{rec['equal_in_process']}; reloaded = trained: features {feats_eq}, logits "
+              f"{logits_eq}; each classify launched B2 "
+              f"{launches['memory']['B2']} (memory) and {launches['shards']['B2']} (shards) "
+              f"times for {n_batches} batches ({card})")
+        if not (rec["shards_equal_in_memory"] and rec["equal_in_process"] and feats_eq
+                and logits_eq and np.array_equal(l_mem, labels)):
+            fail(f"the reloaded dense bundle: {rec}")
+        for name, got in launches.items():
+            if got["B2"] != n_batches or not on_cluster_body(got):
+                fail(f"classify over {name} launched {got}, not B2 once for each of its "
+                     f"{n_batches} batches on the cluster body")
 
         # ---- rates -----------------------------------------------------
         warm = [timed(lambda: pipeline.classify_spikes_streaming(
@@ -1644,18 +1686,26 @@ def offline(dev, card, sparse_modules) -> dict:
             s_cfg, pipeline.InMemorySource(s_ds), s_bundle.reservoir, s_bundle.readout,
             s_bundle.scaler, dev)
         s_launches = read_launches()
-        p_s_in = predict_in_process(s_res, s_ro, s_sc, s_ds.x_spikes, keys, s_cfg.batch_size, dev)
+        s_batches = -(-n_utt // s_cfg.batch_size)
+        s_feats_eq, s_logits_eq, p_s_in = same_modules(
+            (s_res, s_ro, s_sc), (s_bundle.reservoir, s_bundle.readout, s_bundle.scaler),
+            s_ds.x_spikes, keys, s_cfg.batch_size, dev)
         rec["sparse"] = {"kind": type(s_bundle.reservoir).__name__,
                          "equal_in_process": bool(np.array_equal(p_s, p_s_in)),
+                         "features_equal": s_feats_eq, "logits_equal": s_logits_eq,
                          "accuracy": float((p_s == labels).mean()),
+                         "distinct_predictions": int(np.unique(p_s).size),
                          "launches_B5": s_launches["B5"]}
         print(f"[offline] sparse bundle (N={s_res.n_neurons}) {rec['sparse_bundle_bytes'] / 1e6:.2f}"
               f" MB, save {rec['sparse_save_s']:.2f} s, load to the card "
               f"{rec['sparse_bundle_load_s'] * 1e3:.1f} ms; predictions = phase 9's modules "
-              f"{rec['sparse']['equal_in_process']}, accuracy {rec['sparse']['accuracy']:.4f}, "
-              f"B5 launched {s_launches['B5']} ({card})")
+              f"{rec['sparse']['equal_in_process']}, reloaded = phase 9's: features "
+              f"{s_feats_eq}, logits {s_logits_eq}; accuracy {rec['sparse']['accuracy']:.4f} "
+              f"({rec['sparse']['distinct_predictions']} distinct classes predicted), classify "
+              f"launched B5 {s_launches['B5']} times for {s_batches} batches ({card})")
         if not (isinstance(s_bundle.reservoir, SparseReservoir)
-                and rec["sparse"]["equal_in_process"] and s_launches["B5"] > 0):
+                and rec["sparse"]["equal_in_process"] and s_feats_eq and s_logits_eq
+                and s_launches["B5"] == s_batches):
             fail(f"the reloaded sparse bundle: {rec['sparse']}")
         del s_bundle, s_ds
 
