@@ -107,6 +107,28 @@ Phases (any failure exits non-zero):
                --data-dir) as subprocesses; the warm (shards on disk) and
                cold (WAVs on disk) rates, the decode worker's busy share of
                the cold wall, bundle sizes and load times.
+ 12. serving entry points - at full width on the int16 wire with 100 ms
+               hops: the exact engine StreamingKWS over 1024 streams with
+               phase 6's dense modules (host wall a hop after a 1 s
+               warm-up, median and min of 12; the window's device time;
+               one step alone launches B1 once and B2 once on the cluster
+               body); ContinuousKWS over 1024 streams (B3 and B4 launched;
+               save_serving_state compressed and uncompressed with bytes and
+               seconds, a fresh engine loads each and its next 10 hops are
+               bit-equal to the uninterrupted engine's; 64 streams migrated
+               into a second engine continue bit-equal). On both dense
+               engines step_compact's preds equal step's argmax and
+               step_active with every other stream active is bit-equal to
+               step with wire silence in the other rows, on all three
+               wires. Phase 9's 10240-neuron modules: continuous at 1024
+               streams saved, loaded and 5 hops bit-equal (B6 launched);
+               exact at 256 streams, one step launching B1 and B5 once,
+               save/load bit-equal. Then `python -m
+               lsm_tpu_torch.cli.stream_kws` as subprocesses on phase 11's
+               2400 WAVs and dense bundle: static (--compact) and --pool
+               over 1024 slots, whose predictions must equal the static
+               run's for every file; a continuous bundle of phase 6's
+               modules served with --save-state, then --restore-state.
 
 Each phase prints its seconds ("[time] ..."). A "[record] {...}" line
 holds every number of the run as JSON. The
@@ -122,6 +144,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -767,9 +790,14 @@ def main() -> None:
         fail(f"a kernel of the sparse serving path was not launched: {sserve['launches']}")
     b6_line = {**sk["B6"], **{k: sserve["B6"][k] for k in timed}}
 
-    # ---- 11. offline inference from WAVs on disk -------------------------
-    record["offline"] = offline(dev, card, engine_10k)
-    laps("11 offline")
+    # ---- 11-12. offline inference and serving entry points -------------
+    with tempfile.TemporaryDirectory(prefix="lsm_offline_") as tmp_name:
+        tmp = Path(tmp_name)
+        record["offline"] = offline(dev, card, engine_10k, tmp)
+        laps("11 offline")
+        record["serving_entry"] = serving_engines(dev, card, cont["engine_args"], engine_10k, tmp)
+        record["serving_entry"]["cli"] = serving_cli(dev, card, cont["engine_args"], tmp)
+        laps("12 serving entry points")
 
     def row(name, key, source, replaces, rec, launches_):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1451,6 +1479,16 @@ def sparse_slice(dev, card) -> tuple:
     return rec, (ext.reservoir, result.readout, ext.scaler)
 
 
+def timed(fn):
+    """(seconds, fn()) on the host clock, the card synchronized before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
 def run_in_process(reservoir, readout, sc, x: np.ndarray, keys, batch: int, dev) -> tuple:
     """extract_features, then transform(scaler), then the readout's logits
     and predict's argmax, over x in batches of `batch` rows as
@@ -1493,7 +1531,7 @@ def run_cli(args: list, card: str, timeout: int = 600) -> tuple:
     return seconds, proc.stdout
 
 
-def offline(dev, card, sparse_modules) -> dict:
+def offline(dev, card, sparse_modules, tmp: Path) -> dict:
     """Phase 11: offline inference from WAVs on disk at the flagship config
     (128 filters, 1000 neurons). A corpus of OFFLINE_PER_CLASS x 12
     synthetic WAVs plus one corrupt file: create_spike_dataset in memory on
@@ -1520,7 +1558,6 @@ def offline(dev, card, sparse_modules) -> dict:
     predictions) with the share of its wall the decode worker is busy, the
     bundles' sizes and load times."""
     import dataclasses
-    import tempfile
 
     from lsm_tpu_torch import pipeline
     from lsm_tpu_torch.config import COMMANDS_12, FEATURE_SETS, PipelineConfig
@@ -1536,213 +1573,459 @@ def offline(dev, card, sparse_modules) -> dict:
     labels = np.repeat(np.arange(len(COMMANDS_12), dtype=np.int32), OFFLINE_PER_CLASS)
     rec = {"utterances": n_utt, "batch_size": cfg.batch_size}
 
-    def timed(fn):
-        torch.cuda.synchronize()
+    corpus = tmp / "corpus"
+    rec["corpus_write_s"], _ = timed(lambda: dataset.write_synthetic_corpus(
+        corpus, COMMANDS_12, n_per_class=OFFLINE_PER_CLASS, seed=42))
+    corrupt = corpus / COMMANDS_12[5] / "00007_corrupt.wav"
+    corrupt.write_bytes(b"RIFF\x24\x00\x00\x00WAVEfmt " + bytes(8))
+
+    # ---- featurize: four routes ------------------------------------
+    files = dataset.index_speech_commands(corpus, cfg.commands, cfg.max_samples_per_class).files
+    n_batches = -(-n_utt // cfg.batch_size)
+    reset_launches()
+    rec["featurize_int16_s"], ds = timed(lambda: pipeline.create_spike_dataset(cfg, corpus, dev))
+    rec["launches_featurize_int16"] = read_launches()
+    b1_want = -(-len(files) // cfg.batch_size)
+    rec["decode_float32_s"], (audio, kept, errors) = timed(
+        lambda: load_audio_batch(files, dtype="float32"))
+    sp_f32 = pipeline.featurize_audio_array(cfg, audio, dev)
+    rec["int16_equals_float32"] = bool(np.array_equal(ds.x_spikes, sp_f32))
+    rec["skipped"] = [p.name for p, _ in errors]
+    rec["labels_aligned"] = bool(np.array_equal(ds.y_labels, labels))
+    del audio, sp_f32
+    rec["featurize_sharded_s"], _ = timed(lambda: pipeline.create_spike_dataset(
+        cfg, corpus, dev, sharded_output=tmp / "shards", shard_size=1000))
+    back = pipeline.load_spike_dataset_any(tmp / "shards")
+    rec["sharded_equals_in_memory"] = bool(np.array_equal(back.x_spikes, ds.x_spikes)
+                                           and np.array_equal(back.y_labels, ds.y_labels))
+    del back
+    ds_u = pipeline.create_spike_dataset(dataclasses.replace(cfg, audio_wire="ulaw"),
+                                         corpus, dev)
+    rec["ulaw_flip_fraction"] = float((ds_u.x_spikes != ds.x_spikes).mean())
+    del ds_u
+    print(f"[offline] {n_utt} WAVs (+1 corrupt) at {cfg.frontend.n_filters} filters: int16 "
+          f"route {rec['featurize_int16_s']:.2f} s, bit-equal to float32 "
+          f"{rec['int16_equals_float32']}; skipped {rec['skipped']}, labels aligned "
+          f"{rec['labels_aligned']}; shards equal {rec['sharded_equals_in_memory']}; mu-law "
+          f"flips {rec['ulaw_flip_fraction']:.3e} of the int16 spikes; the int16 route "
+          f"alone launched B1 {rec['launches_featurize_int16']['B1']} times for "
+          f"{len(files)} files ({card})")
+    if not (rec["int16_equals_float32"] and rec["labels_aligned"]
+            and rec["sharded_equals_in_memory"] and rec["skipped"] == [corrupt.name]
+            and ds.x_spikes.shape == (n_utt, cfg.frontend.n_filters, 400)):
+        fail(f"offline featurization: {rec}")
+    if rec["launches_featurize_int16"]["B1"] != b1_want:
+        fail(f"the int16 create_spike_dataset launched {rec['launches_featurize_int16']}, "
+             f"not B1 once for each of its {b1_want} batches")
+
+    # ---- train, save, reload, classify -----------------------------
+    ext = pipeline.extract_lsm_features(cfg, ds, dev)
+    result = pipeline.train_and_evaluate(cfg, ext.artifact, dev)
+    model = tmp / "m.npz"
+    save_model(model, ext.reservoir, result.readout, ext.scaler, cfg.frontend,
+               cfg.feature_set, cfg.commands)
+    rec["bundle_bytes"] = model.stat().st_size
+    rec["bundle_load_s"], bundle = timed(lambda: load_model(model, dev))
+    classified, launches = {}, {}
+    for name, source in (("memory", pipeline.InMemorySource(ds)),
+                         ("shards", ShardedSpikeDataset(tmp / "shards"))):
+        reset_launches()
+        classified[name] = pipeline.classify_spikes_streaming(
+            cfg, source, bundle.reservoir, bundle.readout, bundle.scaler, dev)
+        launches[name] = read_launches()
+    (p_mem, l_mem), (p_sh, l_sh) = classified["memory"], classified["shards"]
+    feats_eq, logits_eq, p_in = same_modules(
+        (ext.reservoir, result.readout, ext.scaler),
+        (bundle.reservoir, bundle.readout, bundle.scaler), ds.x_spikes, keys,
+        cfg.batch_size, dev)
+    rec.update(train_accuracy=result.accuracy, regime=ext.diagnostics.regime,
+               classify_accuracy=float((p_mem == labels).mean()),
+               shards_equal_in_memory=bool(np.array_equal(p_sh, p_mem)
+                                           and np.array_equal(l_sh, l_mem)),
+               equal_in_process=bool(np.array_equal(p_mem, p_in)),
+               features_equal=feats_eq, logits_equal=logits_eq,
+               launches_classify={k: {"B2": v["B2"], "dense_bodies": v["dense_bodies"]}
+                                  for k, v in launches.items()})
+    print(f"[offline] dense bundle {rec['bundle_bytes'] / 1e6:.2f} MB, load to the card "
+          f"{rec['bundle_load_s'] * 1e3:.1f} ms; test accuracy {result.accuracy:.4f} "
+          f"{rec['regime']}; classify accuracy {rec['classify_accuracy']:.4f}, shards = "
+          f"in memory {rec['shards_equal_in_memory']}, = in-process "
+          f"{rec['equal_in_process']}; reloaded = trained: features {feats_eq}, logits "
+          f"{logits_eq}; each classify launched B2 "
+          f"{launches['memory']['B2']} (memory) and {launches['shards']['B2']} (shards) "
+          f"times for {n_batches} batches ({card})")
+    if not (rec["shards_equal_in_memory"] and rec["equal_in_process"] and feats_eq
+            and logits_eq and np.array_equal(l_mem, labels)):
+        fail(f"the reloaded dense bundle: {rec}")
+    for name, got in launches.items():
+        if got["B2"] != n_batches or not on_cluster_body(got):
+            fail(f"classify over {name} launched {got}, not B2 once for each of its "
+                 f"{n_batches} batches on the cluster body")
+
+    # ---- rates -----------------------------------------------------
+    warm = [timed(lambda: pipeline.classify_spikes_streaming(
+        cfg, ShardedSpikeDataset(tmp / "shards"), bundle.reservoir, bundle.readout,
+        bundle.scaler, dev))[0] for _ in range(3)]
+    # The decode worker's busy seconds inside each cold run (wrapping
+    # the loader create_spike_dataset calls), against that run's wall.
+    decode_busy = []
+
+    def busy_decode(*args, **kw):
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
+        out = load_audio_batch(*args, **kw)
+        decode_busy.append(time.perf_counter() - t0)
+        return out
 
-    with tempfile.TemporaryDirectory(prefix="lsm_offline_") as tmp_name:
-        tmp = Path(tmp_name)
-        corpus = tmp / "corpus"
-        rec["corpus_write_s"], _ = timed(lambda: dataset.write_synthetic_corpus(
-            corpus, COMMANDS_12, n_per_class=OFFLINE_PER_CLASS, seed=42))
-        corrupt = corpus / COMMANDS_12[5] / "00007_corrupt.wav"
-        corrupt.write_bytes(b"RIFF\x24\x00\x00\x00WAVEfmt " + bytes(8))
+    cold = []
+    pipeline.load_audio_batch = busy_decode
+    try:
+        for _ in range(3):
+            decode_busy.clear()
+            wall, _ = timed(lambda: pipeline.classify_spikes_streaming(
+                cfg, pipeline.InMemorySource(pipeline.create_spike_dataset(cfg, corpus, dev)),
+                bundle.reservoir, bundle.readout, bundle.scaler, dev))
+            cold.append((wall, sum(decode_busy)))
+    finally:
+        pipeline.load_audio_batch = load_audio_batch
+    best = min(cold)
+    rec.update(warm_s=warm, cold_s=[c[0] for c in cold],
+               cold_decode_s=[c[1] for c in cold], warm_utt_per_s=n_utt / min(warm),
+               warm_utt_per_s_median=n_utt / statistics.median(warm),
+               cold_utt_per_s=n_utt / best[0], decode_share_of_cold=best[1] / best[0])
+    print(f"[offline] warm: {n_utt} utt from shards on disk -> predictions "
+          f"{rec['warm_utt_per_s']:.1f} utt/s (walls " + " ".join(f"{w:.3f}" for w in warm)
+          + f" s); cold: WAVs on disk -> predictions {rec['cold_utt_per_s']:.1f} utt/s (walls "
+          + " ".join(f"{c[0]:.3f}" for c in cold) + " s; the decode worker busy "
+          + " ".join(f"{c[1]:.3f}" for c in cold) + f" s, "
+          f"{100 * rec['decode_share_of_cold']:.1f} % of the fastest wall) ({card})")
 
-        # ---- featurize: four routes ------------------------------------
-        files = dataset.index_speech_commands(corpus, cfg.commands, cfg.max_samples_per_class).files
-        n_batches = -(-n_utt // cfg.batch_size)
-        reset_launches()
-        rec["featurize_int16_s"], ds = timed(lambda: pipeline.create_spike_dataset(cfg, corpus, dev))
-        rec["launches_featurize_int16"] = read_launches()
-        b1_want = -(-len(files) // cfg.batch_size)
-        rec["decode_float32_s"], (audio, kept, errors) = timed(
-            lambda: load_audio_batch(files, dtype="float32"))
-        sp_f32 = pipeline.featurize_audio_array(cfg, audio, dev)
-        rec["int16_equals_float32"] = bool(np.array_equal(ds.x_spikes, sp_f32))
-        rec["skipped"] = [p.name for p, _ in errors]
-        rec["labels_aligned"] = bool(np.array_equal(ds.y_labels, labels))
-        del audio, sp_f32
-        rec["featurize_sharded_s"], _ = timed(lambda: pipeline.create_spike_dataset(
-            cfg, corpus, dev, sharded_output=tmp / "shards", shard_size=1000))
-        back = pipeline.load_spike_dataset_any(tmp / "shards")
-        rec["sharded_equals_in_memory"] = bool(np.array_equal(back.x_spikes, ds.x_spikes)
-                                               and np.array_equal(back.y_labels, ds.y_labels))
-        del back
-        ds_u = pipeline.create_spike_dataset(dataclasses.replace(cfg, audio_wire="ulaw"),
-                                             corpus, dev)
-        rec["ulaw_flip_fraction"] = float((ds_u.x_spikes != ds.x_spikes).mean())
-        del ds_u
-        print(f"[offline] {n_utt} WAVs (+1 corrupt) at {cfg.frontend.n_filters} filters: int16 "
-              f"route {rec['featurize_int16_s']:.2f} s, bit-equal to float32 "
-              f"{rec['int16_equals_float32']}; skipped {rec['skipped']}, labels aligned "
-              f"{rec['labels_aligned']}; shards equal {rec['sharded_equals_in_memory']}; mu-law "
-              f"flips {rec['ulaw_flip_fraction']:.3e} of the int16 spikes; the int16 route "
-              f"alone launched B1 {rec['launches_featurize_int16']['B1']} times for "
-              f"{len(files)} files ({card})")
-        if not (rec["int16_equals_float32"] and rec["labels_aligned"]
-                and rec["sharded_equals_in_memory"] and rec["skipped"] == [corrupt.name]
-                and ds.x_spikes.shape == (n_utt, cfg.frontend.n_filters, 400)):
-            fail(f"offline featurization: {rec}")
-        if rec["launches_featurize_int16"]["B1"] != b1_want:
-            fail(f"the int16 create_spike_dataset launched {rec['launches_featurize_int16']}, "
-                 f"not B1 once for each of its {b1_want} batches")
+    # ---- the sparse bundle (phase 9's configs[3] modules) ------------
+    s_res, s_ro, s_sc = sparse_modules
+    s_model = tmp / "sparse.npz"
+    rec["sparse_save_s"], _ = timed(lambda: save_model(
+        s_model, s_res, s_ro, s_sc, cfg.frontend, cfg.feature_set, cfg.commands))
+    rec["sparse_bundle_bytes"] = s_model.stat().st_size
+    rec["sparse_bundle_load_s"], s_bundle = timed(lambda: load_model(s_model, dev))
+    s_cfg = PipelineConfig(frontend=s_bundle.frontend, feature_set=s_bundle.feature_set,
+                           commands=s_bundle.class_names)
+    s_ds = pipeline.create_spike_dataset(s_cfg, corpus, dev)
+    reset_launches()
+    p_s, _ = pipeline.classify_spikes_streaming(
+        s_cfg, pipeline.InMemorySource(s_ds), s_bundle.reservoir, s_bundle.readout,
+        s_bundle.scaler, dev)
+    s_launches = read_launches()
+    s_batches = -(-n_utt // s_cfg.batch_size)
+    s_feats_eq, s_logits_eq, p_s_in = same_modules(
+        (s_res, s_ro, s_sc), (s_bundle.reservoir, s_bundle.readout, s_bundle.scaler),
+        s_ds.x_spikes, keys, s_cfg.batch_size, dev)
+    rec["sparse"] = {"kind": type(s_bundle.reservoir).__name__,
+                     "equal_in_process": bool(np.array_equal(p_s, p_s_in)),
+                     "features_equal": s_feats_eq, "logits_equal": s_logits_eq,
+                     "accuracy": float((p_s == labels).mean()),
+                     "distinct_predictions": int(np.unique(p_s).size),
+                     "launches_B5": s_launches["B5"]}
+    print(f"[offline] sparse bundle (N={s_res.n_neurons}) {rec['sparse_bundle_bytes'] / 1e6:.2f}"
+          f" MB, save {rec['sparse_save_s']:.2f} s, load to the card "
+          f"{rec['sparse_bundle_load_s'] * 1e3:.1f} ms; predictions = phase 9's modules "
+          f"{rec['sparse']['equal_in_process']}, reloaded = phase 9's: features "
+          f"{s_feats_eq}, logits {s_logits_eq}; accuracy {rec['sparse']['accuracy']:.4f} "
+          f"({rec['sparse']['distinct_predictions']} distinct classes predicted), classify "
+          f"launched B5 {s_launches['B5']} times for {s_batches} batches ({card})")
+    if not (isinstance(s_bundle.reservoir, SparseReservoir)
+            and rec["sparse"]["equal_in_process"] and s_feats_eq and s_logits_eq
+            and s_launches["B5"] == s_batches):
+        fail(f"the reloaded sparse bundle: {rec['sparse']}")
+    del s_bundle, s_ds
 
-        # ---- train, save, reload, classify -----------------------------
-        ext = pipeline.extract_lsm_features(cfg, ds, dev)
-        result = pipeline.train_and_evaluate(cfg, ext.artifact, dev)
-        model = tmp / "m.npz"
-        save_model(model, ext.reservoir, result.readout, ext.scaler, cfg.frontend,
-                   cfg.feature_set, cfg.commands)
-        rec["bundle_bytes"] = model.stat().st_size
-        rec["bundle_load_s"], bundle = timed(lambda: load_model(model, dev))
-        classified, launches = {}, {}
-        for name, source in (("memory", pipeline.InMemorySource(ds)),
-                             ("shards", ShardedSpikeDataset(tmp / "shards"))):
-            reset_launches()
-            classified[name] = pipeline.classify_spikes_streaming(
-                cfg, source, bundle.reservoir, bundle.readout, bundle.scaler, dev)
-            launches[name] = read_launches()
-        (p_mem, l_mem), (p_sh, l_sh) = classified["memory"], classified["shards"]
-        feats_eq, logits_eq, p_in = same_modules(
-            (ext.reservoir, result.readout, ext.scaler),
-            (bundle.reservoir, bundle.readout, bundle.scaler), ds.x_spikes, keys,
-            cfg.batch_size, dev)
-        rec.update(train_accuracy=result.accuracy, regime=ext.diagnostics.regime,
-                   classify_accuracy=float((p_mem == labels).mean()),
-                   shards_equal_in_memory=bool(np.array_equal(p_sh, p_mem)
-                                               and np.array_equal(l_sh, l_mem)),
-                   equal_in_process=bool(np.array_equal(p_mem, p_in)),
-                   features_equal=feats_eq, logits_equal=logits_eq,
-                   launches_classify={k: {"B2": v["B2"], "dense_bodies": v["dense_bodies"]}
-                                      for k, v in launches.items()})
-        print(f"[offline] dense bundle {rec['bundle_bytes'] / 1e6:.2f} MB, load to the card "
-              f"{rec['bundle_load_s'] * 1e3:.1f} ms; test accuracy {result.accuracy:.4f} "
-              f"{rec['regime']}; classify accuracy {rec['classify_accuracy']:.4f}, shards = "
-              f"in memory {rec['shards_equal_in_memory']}, = in-process "
-              f"{rec['equal_in_process']}; reloaded = trained: features {feats_eq}, logits "
-              f"{logits_eq}; each classify launched B2 "
-              f"{launches['memory']['B2']} (memory) and {launches['shards']['B2']} (shards) "
-              f"times for {n_batches} batches ({card})")
-        if not (rec["shards_equal_in_memory"] and rec["equal_in_process"] and feats_eq
-                and logits_eq and np.array_equal(l_mem, labels)):
-            fail(f"the reloaded dense bundle: {rec}")
-        for name, got in launches.items():
-            if got["B2"] != n_batches or not on_cluster_body(got):
-                fail(f"classify over {name} launched {got}, not B2 once for each of its "
-                     f"{n_batches} batches on the cluster body")
+    # ---- the CLIs as subprocesses ------------------------------------
+    corpus30 = tmp / "corpus30"
+    dataset.write_synthetic_corpus(corpus30, COMMANDS_12, n_per_class=CLI_PER_CLASS, seed=7)
+    cli_model = tmp / "cli_model.npz"
+    main_s, main_out = run_cli(["lsm_tpu_torch", "--data-dir", corpus30, "--save-model",
+                                cli_model, "--skip-artifacts", "--device", dev.type], card)
+    cli_bundle = load_model(cli_model, dev)
+    c_cfg = PipelineConfig(frontend=cli_bundle.frontend, commands=cli_bundle.class_names)
+    pipeline.create_spike_dataset(c_cfg, corpus30, dev, sharded_output=tmp / "shards30")
+    classify_s, _ = run_cli(["lsm_tpu_torch.cli.classify", "--model", cli_model, "--input",
+                             tmp / "shards30", "--output", tmp / "preds.npz", "--device",
+                             dev.type], card)
+    wav_s, _ = run_cli(["lsm_tpu_torch.cli.classify", "--model", cli_model, "--data-dir",
+                        corpus30, "--output", tmp / "preds_wav.npz", "--device", dev.type],
+                       card)
+    got = np.load(tmp / "preds.npz")
+    p_wav = np.load(tmp / "preds_wav.npz")["predictions"]
+    p_ref, _ = pipeline.classify_spikes_streaming(
+        c_cfg, ShardedSpikeDataset(tmp / "shards30"), cli_bundle.reservoir,
+        cli_bundle.readout, cli_bundle.scaler, dev)
+    acc_line = [ln for ln in main_out.splitlines() if ln.startswith("Test Accuracy:")]
+    rec["cli"] = {"main_s": main_s, "classify_s": classify_s, "classify_wav_s": wav_s,
+                  "main_test_accuracy_line": acc_line[-1] if acc_line else None,
+                  "predictions_equal": bool(np.array_equal(got["predictions"], p_ref)
+                                            and np.array_equal(p_wav, p_ref)),
+                  "classify_accuracy": float((got["predictions"] == got["labels"]).mean())}
+    print(f"[offline] CLIs on {CLI_PER_CLASS * 12} WAVs: python -m lsm_tpu_torch --save-model "
+          f"{main_s:.1f} s ({rec['cli']['main_test_accuracy_line']}), cli.classify --input "
+          f"<shards> {classify_s:.1f} s and --data-dir {wav_s:.1f} s, predictions of both "
+          f"= in-process "
+          f"{rec['cli']['predictions_equal']}, accuracy {rec['cli']['classify_accuracy']:.4f}"
+          f" ({card})")
+    if not rec["cli"]["predictions_equal"] or len(got["predictions"]) != CLI_PER_CLASS * 12:
+        fail(f"the CLIs' predictions: {rec['cli']}")
+    return rec
 
-        # ---- rates -----------------------------------------------------
-        warm = [timed(lambda: pipeline.classify_spikes_streaming(
-            cfg, ShardedSpikeDataset(tmp / "shards"), bundle.reservoir, bundle.readout,
-            bundle.scaler, dev))[0] for _ in range(3)]
-        # The decode worker's busy seconds inside each cold run (wrapping
-        # the loader create_spike_dataset calls), against that run's wall.
-        decode_busy = []
 
-        def busy_decode(*args, **kw):
-            t0 = time.perf_counter()
-            out = load_audio_batch(*args, **kw)
-            decode_busy.append(time.perf_counter() - t0)
-            return out
+def serving_hops(n_streams: int):
+    """The serving cell's audio (phase 7's corpus) as 10 hops of 100 ms on
+    each wire: {wire: [(n_streams, CHUNK), ...]}."""
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.io.wav import to_pcm16_wire
+    from lsm_tpu_torch.ops.ulaw import encode_ulaw_f32
 
-        cold = []
-        pipeline.load_audio_batch = busy_decode
-        try:
-            for _ in range(3):
-                decode_busy.clear()
-                wall, _ = timed(lambda: pipeline.classify_spikes_streaming(
-                    cfg, pipeline.InMemorySource(pipeline.create_spike_dataset(cfg, corpus, dev)),
-                    bundle.reservoir, bundle.readout, bundle.scaler, dev))
-                cold.append((wall, sum(decode_busy)))
-        finally:
-            pipeline.load_audio_batch = load_audio_batch
-        best = min(cold)
-        rec.update(warm_s=warm, cold_s=[c[0] for c in cold],
-                   cold_decode_s=[c[1] for c in cold], warm_utt_per_s=n_utt / min(warm),
-                   warm_utt_per_s_median=n_utt / statistics.median(warm),
-                   cold_utt_per_s=n_utt / best[0], decode_share_of_cold=best[1] / best[0])
-        print(f"[offline] warm: {n_utt} utt from shards on disk -> predictions "
-              f"{rec['warm_utt_per_s']:.1f} utt/s (walls " + " ".join(f"{w:.3f}" for w in warm)
-              + f" s); cold: WAVs on disk -> predictions {rec['cold_utt_per_s']:.1f} utt/s (walls "
-              + " ".join(f"{c[0]:.3f}" for c in cold) + " s; the decode worker busy "
-              + " ".join(f"{c[1]:.3f}" for c in cold) + f" s, "
-              f"{100 * rec['decode_share_of_cold']:.1f} % of the fastest wall) ({card})")
+    audio, _ = dataset.synthetic_audio_batch_hard(86, 12, seed=9)
+    audio = audio[:n_streams]
+    hops = [np.ascontiguousarray(audio[:, c * CHUNK:(c + 1) * CHUNK]) for c in range(10)]
+    return {"f32": hops, "pcm16": [to_pcm16_wire(h) for h in hops],
+            "ulaw": [encode_ulaw_f32(h) for h in hops]}
 
-        # ---- the sparse bundle (phase 9's configs[3] modules) ------------
-        s_res, s_ro, s_sc = sparse_modules
-        s_model = tmp / "sparse.npz"
-        rec["sparse_save_s"], _ = timed(lambda: save_model(
-            s_model, s_res, s_ro, s_sc, cfg.frontend, cfg.feature_set, cfg.commands))
-        rec["sparse_bundle_bytes"] = s_model.stat().st_size
-        rec["sparse_bundle_load_s"], s_bundle = timed(lambda: load_model(s_model, dev))
-        s_cfg = PipelineConfig(frontend=s_bundle.frontend, feature_set=s_bundle.feature_set,
-                               commands=s_bundle.class_names)
-        s_ds = pipeline.create_spike_dataset(s_cfg, corpus, dev)
-        reset_launches()
-        p_s, _ = pipeline.classify_spikes_streaming(
-            s_cfg, pipeline.InMemorySource(s_ds), s_bundle.reservoir, s_bundle.readout,
-            s_bundle.scaler, dev)
-        s_launches = read_launches()
-        s_batches = -(-n_utt // s_cfg.batch_size)
-        s_feats_eq, s_logits_eq, p_s_in = same_modules(
-            (s_res, s_ro, s_sc), (s_bundle.reservoir, s_bundle.readout, s_bundle.scaler),
-            s_ds.x_spikes, keys, s_cfg.batch_size, dev)
-        rec["sparse"] = {"kind": type(s_bundle.reservoir).__name__,
-                         "equal_in_process": bool(np.array_equal(p_s, p_s_in)),
-                         "features_equal": s_feats_eq, "logits_equal": s_logits_eq,
-                         "accuracy": float((p_s == labels).mean()),
-                         "distinct_predictions": int(np.unique(p_s).size),
-                         "launches_B5": s_launches["B5"]}
-        print(f"[offline] sparse bundle (N={s_res.n_neurons}) {rec['sparse_bundle_bytes'] / 1e6:.2f}"
-              f" MB, save {rec['sparse_save_s']:.2f} s, load to the card "
-              f"{rec['sparse_bundle_load_s'] * 1e3:.1f} ms; predictions = phase 9's modules "
-              f"{rec['sparse']['equal_in_process']}, reloaded = phase 9's: features "
-              f"{s_feats_eq}, logits {s_logits_eq}; accuracy {rec['sparse']['accuracy']:.4f} "
-              f"({rec['sparse']['distinct_predictions']} distinct classes predicted), classify "
-              f"launched B5 {s_launches['B5']} times for {s_batches} batches ({card})")
-        if not (isinstance(s_bundle.reservoir, SparseReservoir)
-                and rec["sparse"]["equal_in_process"] and s_feats_eq and s_logits_eq
-                and s_launches["B5"] == s_batches):
-            fail(f"the reloaded sparse bundle: {rec['sparse']}")
-        del s_bundle, s_ds
 
-        # ---- the CLIs as subprocesses ------------------------------------
-        corpus30 = tmp / "corpus30"
-        dataset.write_synthetic_corpus(corpus30, COMMANDS_12, n_per_class=CLI_PER_CLASS, seed=7)
-        cli_model = tmp / "cli_model.npz"
-        main_s, main_out = run_cli(["lsm_tpu_torch", "--data-dir", corpus30, "--save-model",
-                                    cli_model, "--skip-artifacts", "--device", dev.type], card)
-        cli_bundle = load_model(cli_model, dev)
-        c_cfg = PipelineConfig(frontend=cli_bundle.frontend, commands=cli_bundle.class_names)
-        pipeline.create_spike_dataset(c_cfg, corpus30, dev, sharded_output=tmp / "shards30")
-        classify_s, _ = run_cli(["lsm_tpu_torch.cli.classify", "--model", cli_model, "--input",
-                                 tmp / "shards30", "--output", tmp / "preds.npz", "--device",
-                                 dev.type], card)
-        wav_s, _ = run_cli(["lsm_tpu_torch.cli.classify", "--model", cli_model, "--data-dir",
-                            corpus30, "--output", tmp / "preds_wav.npz", "--device", dev.type],
-                           card)
-        got = np.load(tmp / "preds.npz")
-        p_wav = np.load(tmp / "preds_wav.npz")["predictions"]
-        p_ref, _ = pipeline.classify_spikes_streaming(
-            c_cfg, ShardedSpikeDataset(tmp / "shards30"), cli_bundle.reservoir,
-            cli_bundle.readout, cli_bundle.scaler, dev)
-        acc_line = [ln for ln in main_out.splitlines() if ln.startswith("Test Accuracy:")]
-        rec["cli"] = {"main_s": main_s, "classify_s": classify_s, "classify_wav_s": wav_s,
-                      "main_test_accuracy_line": acc_line[-1] if acc_line else None,
-                      "predictions_equal": bool(np.array_equal(got["predictions"], p_ref)
-                                                and np.array_equal(p_wav, p_ref)),
-                      "classify_accuracy": float((got["predictions"] == got["labels"]).mean())}
-        print(f"[offline] CLIs on {CLI_PER_CLASS * 12} WAVs: python -m lsm_tpu_torch --save-model "
-              f"{main_s:.1f} s ({rec['cli']['main_test_accuracy_line']}), cli.classify --input "
-              f"<shards> {classify_s:.1f} s and --data-dir {wav_s:.1f} s, predictions of both "
-              f"= in-process "
-              f"{rec['cli']['predictions_equal']}, accuracy {rec['cli']['classify_accuracy']:.4f}"
-              f" ({card})")
-        if not rec["cli"]["predictions_equal"] or len(got["predictions"]) != CLI_PER_CLASS * 12:
-            fail(f"the CLIs' predictions: {rec['cli']}")
+def engine_gates(kws, hops) -> dict:
+    """From one engine state: step_compact's preds against step's argmax,
+    and step_active with every other stream active bit-equal to step with
+    wire silence in the other rows, on all three wires. The state is put
+    back after each comparison (snapshot / restore)."""
+    from lsm_tpu_torch.models.streaming import wire_silence
+
+    snap = kws.snapshot()
+    logits = kws.step(hops["pcm16"][0])
+    kws.restore(snap)
+    preds, margins = kws.step_compact(hops["pcm16"][0])
+    kws.restore(snap)
+    idx = np.arange(0, kws.n_streams, 2)
+    active = {}
+    for w, hs in hops.items():
+        full = np.full_like(hs[1], wire_silence(hs[1].dtype))
+        full[idx] = hs[1][idx]
+        want = kws.step(full)
+        kws.restore(snap)
+        got = kws.step_active(hs[1][idx], idx)
+        kws.restore(snap)
+        active[w] = bool(np.array_equal(got, want))
+    rec = {"compact_preds_equal_argmax": bool(np.array_equal(preds, logits.argmax(-1))),
+           "compact_margin_min": float(margins.min()),
+           "step_active_bit_equal": active}
+    if not rec["compact_preds_equal_argmax"] or not all(active.values()):
+        fail(f"{type(kws).__name__} at {kws.n_streams} streams: {rec}")
+    return rec
+
+
+def hop_walls(kws, hops, n: int) -> dict:
+    """Host wall of n hops of step() on the int16 wire, each ending in
+    synchronize(): median, min, stream-chunks/s, real-time factor."""
+    walls = []
+    for i in range(n):
+        walls.append(timed(lambda: kws.step(hops["pcm16"][i % 10]))[0])
+    med = statistics.median(walls)
+    return {"streams": kws.n_streams, "hops_timed": n, "hop_wall_ms_median": med * 1e3,
+            "hop_wall_ms_min": min(walls) * 1e3, "stream_chunks_per_s": kws.n_streams / med,
+            "real_time_factor": 0.1 / med}
+
+
+def continues_bit_exactly(make, kws, hops, path: Path, n: int, compress: bool) -> dict:
+    """Save `kws`, load the file into a fresh engine from `make()`, and run
+    both over the next n hops: their logits must be bit-equal. Seconds of
+    the save and the load, the file's bytes."""
+    from lsm_tpu_torch.io.serving_state import load_serving_state, save_serving_state
+
+    save_s, _ = timed(lambda: save_serving_state(path, kws, compress=compress))
+    fresh = make()
+    load_s, _ = timed(lambda: load_serving_state(path, fresh))
+    equal = all(np.array_equal(fresh.step(hops["pcm16"][i % 10]), kws.step(hops["pcm16"][i % 10]))
+                for i in range(n))
+    return {"compress": compress, "bytes": path.stat().st_size, "save_s": save_s,
+            "load_s": load_s, "next_hops": n, "bit_equal": bool(equal)}
+
+
+def serving_engines(dev, card, dense, sparse, tmp: Path) -> dict:
+    """Phase 12, items 1-3: the exact engine and the rest of the continuous
+    engine at full width, with phase 6's dense modules and phase 9's
+    10240-neuron ones."""
+    from lsm_tpu_torch.config import PipelineConfig
+    from lsm_tpu_torch.io.serving_state import migrate_streams
+    from lsm_tpu_torch.models.continuous import ContinuousKWS
+    from lsm_tpu_torch.models.streaming import StreamingKWS
+
+    cfg = PipelineConfig()
+    fcfg, fs = cfg.frontend, cfg.feature_set
+    hops = serving_hops(N_SERVE)
+    rec = {}
+
+    # ---- 1. exact engine, dense, 1024 streams ------------------------------
+    def exact(modules, n):
+        return StreamingKWS(*modules, fcfg, fs, n_streams=n)
+
+    kws = exact(dense, N_SERVE)
+    for h in hops["pcm16"]:                                   # warm-up: one window
+        kws.step(h)
+    ex = hop_walls(kws, hops, 12)
+    reset_launches()
+    kws.step(hops["pcm16"][0])
+    ex["launches_one_step"] = one = read_launches()
+    ex["device_ms_window"] = cuda_ms(lambda: kws._evaluate(kws.buffer), reps=5)
+    ex.update(engine_gates(kws, hops))
+    rec["exact_dense"] = ex
+    print(f"[serving entry] exact engine N={dense[0].n_neurons}, {N_SERVE} streams, int16 "
+          f"wire, 100 ms hops: "
+          f"median hop wall {ex['hop_wall_ms_median']:.3f} ms (min {ex['hop_wall_ms_min']:.3f}), "
+          f"{ex['stream_chunks_per_s']:.1f} stream-chunks/s, real-time factor "
+          f"{ex['real_time_factor']:.2f}; the window's device time {ex['device_ms_window']:.3f} "
+          f"ms; one step launched {one}; step_compact = argmax "
+          f"{ex['compact_preds_equal_argmax']}, step_active = step with silence "
+          f"{ex['step_active_bit_equal']} ({card})")
+    if not (one["B1"] == 1 and one["B2"] == 1 and on_cluster_body(one)):
+        fail(f"one exact step launched {one}, not B1 once and B2 once on the cluster body")
+    del kws
+
+    # ---- 2. continuous engine, dense, 1024 streams --------------------------
+    def cont(modules, n):
+        return ContinuousKWS(*modules, fcfg, fs, n_streams=n, chunk_len=CHUNK)
+
+    kws = cont(dense, N_SERVE)
+    reset_launches()
+    for h in hops["pcm16"]:
+        kws.step(h)
+    co = {"launches_10_hops": read_launches()}
+    co["saves"] = [continues_bit_exactly(lambda: cont(dense, N_SERVE), kws, hops,
+                                         tmp / f"cont_{c}.npz", 10, c) for c in (True, False)]
+    co["state_bytes"] = sum(v.nbytes for v in kws.snapshot().values())
+    dst = cont(dense, N_SERVE)
+    n_mig = min(64, N_SERVE // 4)             # 64 of 1024 streams, every 16th
+    src_idx = np.arange(n_mig) * (N_SERVE // n_mig) + 3
+    dst_idx = np.arange(n_mig)[::-1]
+    co["migrate_s"], _ = timed(lambda: migrate_streams(kws, dst, src_idx, dst_idx))
+    moved = True
+    for i in range(3):
+        h = hops["pcm16"][i]
+        chunk = np.zeros_like(h)
+        chunk[dst_idx] = h[src_idx]
+        moved &= bool(np.array_equal(dst.step(chunk)[dst_idx], kws.step(h)[src_idx]))
+    co["migrated"] = {"streams": n_mig, "bit_equal": moved}
+    co.update(engine_gates(kws, hops))
+    rec["continuous_dense"] = co
+    s0, s1 = co["saves"]
+    print(f"[serving entry] continuous engine N={dense[0].n_neurons}, {N_SERVE} streams: state "
+          f"{co['state_bytes'] / 1e6:.1f} MB; save_serving_state compressed {s0['bytes'] / 1e6:.1f}"
+          f" MB in {s0['save_s']:.2f} s (load {s0['load_s']:.2f} s), uncompressed "
+          f"{s1['bytes'] / 1e6:.1f} MB in {s1['save_s']:.2f} s (load {s1['load_s']:.2f} s); the "
+          f"next 10 hops bit-equal {s0['bit_equal']}, {s1['bit_equal']}; {n_mig} streams migrated in "
+          f"{co['migrate_s'] * 1e3:.1f} ms, bit-equal {moved}; step_compact = argmax "
+          f"{co['compact_preds_equal_argmax']}, step_active {co['step_active_bit_equal']}; "
+          f"launches {co['launches_10_hops']} ({card})")
+    if not (s0["bit_equal"] and s1["bit_equal"] and moved):
+        fail(f"the continuous engine did not continue bit-exactly: {co}")
+    if min(co["launches_10_hops"]["B3"], co["launches_10_hops"]["B4"]) <= 0:
+        fail(f"a kernel of the continuous path was not launched: {co['launches_10_hops']}")
+    del kws, dst
+
+    # ---- 3. the 10240-neuron block-sparse reservoir --------------------------
+    kws = cont(sparse, N_SERVE)
+    for h in hops["pcm16"]:
+        kws.step(h)
+    reset_launches()
+    sc = {"continuous_save": continues_bit_exactly(lambda: cont(sparse, N_SERVE), kws, hops,
+                                                   tmp / "sparse_cont.npz", 5, False)}
+    sc["continuous_launches"] = read_launches()
+    del kws
+    n_exact = min(256, N_SERVE)               # B5 costs ~18 ms a call at 256 rows
+    kws = exact(sparse, n_exact)
+    for h in hops["pcm16"]:
+        kws.step(h[:n_exact])
+    reset_launches()
+    kws.step(hops["pcm16"][0][:n_exact])
+    sc["exact_launches_one_step"] = one = read_launches()
+    sub = {w: [h[:n_exact] for h in hs] for w, hs in hops.items()}
+    sc["exact"] = hop_walls(kws, sub, 12)
+    sc["exact"]["device_ms_window"] = cuda_ms(lambda: kws._evaluate(kws.buffer), reps=3)
+    sc["exact_save"] = continues_bit_exactly(lambda: exact(sparse, n_exact), kws, sub,
+                                             tmp / "sparse_exact.npz", 3, False)
+    rec["sparse"] = sc
+    c, e = sc["continuous_save"], sc["exact_save"]
+    print(f"[serving entry] N={sparse[0].n_neurons}: continuous {N_SERVE} streams saved "
+          f"{c['bytes'] / 1e6:.1f} MB in {c['save_s']:.2f} s, loaded in {c['load_s']:.2f} s, "
+          f"5 hops bit-equal {c['bit_equal']} (launches {sc['continuous_launches']}); exact "
+          f"{n_exact} streams: median hop wall {sc['exact']['hop_wall_ms_median']:.3f} ms, the "
+          f"window's device time {sc['exact']['device_ms_window']:.3f} ms, one step launched "
+          f"{one}, save/load bit-equal {e['bit_equal']} ({card})")
+    if not (c["bit_equal"] and e["bit_equal"]):
+        fail(f"the sparse engines did not continue bit-exactly: {sc}")
+    if sc["continuous_launches"]["B6"] <= 0 or one["B5"] != 1 or one["B1"] != 1:
+        fail(f"sparse serving launched {sc['continuous_launches']} (continuous) and {one} "
+             "(one exact step), not B6 and B1 + B5 once")
+    return rec
+
+
+def _served(out: str) -> dict:
+    """The numbers of cli.stream_kws's 'Served ...' and accuracy lines."""
+    rec = {}
+    for ln in out.splitlines():
+        if ln.startswith("Served "):
+            rec["served_line"] = ln
+            rec["serve_wall_s"] = float(ln.split(" chunks in ")[1].split(" s ")[0])
+            rec["per_s"] = float(ln.split("stream-chunks/s, ")[1].split(" ")[0])
+        elif ln.startswith("Accuracy vs directory labels"):
+            rec["accuracy_line"] = ln
+    return rec
+
+
+def serving_cli(dev, card, cont_modules, tmp: Path) -> dict:
+    """Phase 12, item 4: `python -m lsm_tpu_torch.cli.stream_kws` as
+    subprocesses on phase 11's 2400 WAVs (its corrupt file removed) and
+    dense bundle: static exact serving, the pool over 1024 slots (its
+    predictions equal to the static run's for every file), and a
+    continuous bundle from phase 6's modules served with --save-state and
+    again with --restore-state."""
+    from lsm_tpu_torch.config import COMMANDS_12, PipelineConfig
+    from lsm_tpu_torch.io.model import save_model
+
+    cfg = PipelineConfig()
+    corpus, model = tmp / "corpus", tmp / "m.npz"
+    (corpus / COMMANDS_12[5] / "00007_corrupt.wav").unlink()
+    n_files = len(list(corpus.rglob("*.wav")))
+    rec = {"files": n_files}
+    base = ["lsm_tpu_torch.cli.stream_kws", "--model", model, "--data-dir", corpus,
+            "--wire", "pcm16", "--device", dev.type]
+    rec["static_s"], out = run_cli(base + ["--compact", "--max-streams", n_files,
+                                           "--output", tmp / "static.npz"], card)
+    rec["static"] = _served(out)
+    rec["pool_s"], out = run_cli(base + ["--pool", "--max-streams", N_SERVE,
+                                         "--output", tmp / "pool.npz"], card)
+    rec["pool"] = _served(out)
+    st, po = np.load(tmp / "static.npz"), np.load(tmp / "pool.npz")
+    by_file = dict(zip(st["files"], st["predictions"]))
+    rec["pool_equals_static"] = bool(
+        len(po["files"]) == len(st["files"]) == n_files
+        and all(by_file[f] == p for f, p in zip(po["files"], po["predictions"])))
+    cont = tmp / "cont.npz"
+    save_model(cont, *cont_modules, cfg.frontend, cfg.feature_set, COMMANDS_12,
+               feature_mode="continuous",
+               continuous_params={"chunk_len": CHUNK, "norm_decay_db_per_bin": 0.1})
+    cbase = ["lsm_tpu_torch.cli.stream_kws", "--model", cont, "--data-dir", corpus,
+             "--wire", "pcm16", "--max-streams", N_SERVE, "--device", dev.type]
+    rec["continuous_save_s"], out = run_cli(cbase + ["--save-state", tmp / "cli_state.npz",
+                                                     "--output", tmp / "c1.npz"], card)
+    rec["continuous_save"] = _served(out)
+    rec["continuous_restore_s"], out = run_cli(cbase + ["--restore-state", tmp / "cli_state.npz",
+                                                        "--output", tmp / "c2.npz"], card)
+    rec["continuous_restore"] = _served(out)
+    print(f"[serving entry] cli.stream_kws on {n_files} WAVs: static exact (compact) "
+          f"{rec['static_s']:.1f} s ({rec['static'].get('served_line')}); pool over {N_SERVE} "
+          f"slots {rec['pool_s']:.1f} s ({rec['pool'].get('served_line')}), predictions = "
+          f"static for every file {rec['pool_equals_static']}; continuous --save-state "
+          f"{rec['continuous_save_s']:.1f} s, --restore-state {rec['continuous_restore_s']:.1f} s "
+          f"({rec['continuous_restore'].get('accuracy_line')}) ({card})")
+    for k in ("static", "pool"):
+        print(f"[serving entry]   {k}: {rec[k].get('accuracy_line')}")
+    if not rec["pool_equals_static"]:
+        fail("the pool's predictions differ from the static run's")
     return rec
 
 

@@ -1,5 +1,8 @@
-"""PyTorch + CUDA port of lsm_tpu's batch classification path and its
-continuous serving engine (models/continuous.py), with the dense
+"""PyTorch + CUDA port of lsm_tpu's batch classification path, offline
+inference from WAVs and its serving layer: the exact and continuous
+streaming engines (models/streaming.py, models/continuous.py), the session
+pool (models/pool.py), serving-state files (io/serving_state.py) and the
+entry point `python -m lsm_tpu_torch.cli.stream_kws`; with the dense
 reservoir or the block-sparse one of the scaled configuration
 (models/sparse.py).
 

@@ -58,8 +58,8 @@ def main(argv=None) -> None:
     if bundle.feature_mode != "batch":
         print("Error: this bundle is calibrated for continuous-mode streaming "
               "features; batch classification would mismatch its readout. "
-              "Serve it with stream_kws.py --mode continuous, or use the "
-              "original batch bundle.", file=sys.stderr)
+              "Serve it with python -m lsm_tpu_torch.cli.stream_kws --mode "
+              "continuous, or use the original batch bundle.", file=sys.stderr)
         sys.exit(1)
     cfg = PipelineConfig(
         frontend=bundle.frontend,

@@ -2,10 +2,12 @@
 
 Each function takes the reference package's parameter object
 (`ReservoirParams`, `SparseReservoirParams`, `ScalerState`,
-`LogisticParams`, the continuous engine's `ContinuousState`) or anything with the same attributes; every
-array goes through `np.asarray`, so this module needs no jax. Tests use it
-to make both packages compute with the same weights and from the same
-stream state.
+`LogisticParams`, the continuous engine's `ContinuousState`, the exact
+engine's ring buffer) or anything with the same attributes; every array
+goes through `np.asarray`, so this module needs no jax. Tests use it to
+make both packages compute with the same weights and from the same stream
+state. Serving-state files (io/serving_state.py) carry stream state across
+in both directions too.
 """
 
 from __future__ import annotations
@@ -63,6 +65,12 @@ def scaler(state, device: torch.device | str = "cpu") -> Scaler:
 def readout(params, device: torch.device | str = "cpu") -> LogisticReadout:
     """lsm_tpu LogisticParams (w (D, K), b (K,))."""
     return LogisticReadout(_f32(params.w), _f32(params.b)).to(device)
+
+
+def streaming_buffer(buffer, device: torch.device | str = "cpu") -> torch.Tensor:
+    """lsm_tpu StreamingKWS.buffer, the exact engine's one state leaf
+    ((n_streams, num_samples) f32 trailing window) -> the port's."""
+    return torch.as_tensor(_f32(buffer)).to(device)
 
 
 def continuous_state(state, device: torch.device | str = "cpu") -> ContinuousState:

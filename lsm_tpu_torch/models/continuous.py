@@ -19,9 +19,11 @@ of `chunk_len` samples costs only the new work:
   - window statistics: a ring of window/hop segment summaries folded per
     hop (`reservoir.fold_segment_stats`) and a ring of rate-window counts.
 
-Not ported yet: the mel frontend (ROADMAP A8), step_active / step_compact / snapshot / restore /
-extract_streams / install_streams (A11), mesh paths (A14) and
-steps_fused / stream.
+The serving surface is lsm_tpu's: step, step_compact, step_active,
+stream, steps_fused, reset, snapshot / restore and extract_streams /
+install_streams (the unit io/serving_state.py saves and migrates).
+
+Not ported yet: the mel frontend (ROADMAP A8) and the mesh paths (A14).
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.diagnostics import ServingDiagnosticsReport, serving_report
 from lsm_tpu_torch.models.sparse import SparseReservoir
 from lsm_tpu_torch.models.streaming import (
-    decode_pcm_device, normalize_ingest_chunk, swap_readout_on,
+    compact_output_device, decode_pcm_device, expand_active_rows, np_dtype, place_chunk,
+    prepare_active_rows, stream_pipelined, swap_readout_on, unpack_compact_output,
+    validate_stream_idx,
 )
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops.hysteresis import hysteresis_encode_step
@@ -153,6 +157,13 @@ class ContinuousKWS:
             )
 
         self.device = reservoir.w_in.device
+        # Part of the serving-state identity, as in lsm_tpu, where it is
+        # True only when the two-phase Pallas kernel runs: here kernel B3
+        # runs on the card and its plain twin on the CPU, and the two agree
+        # to rounding, not bits, so carried state from one must not
+        # continue under the other. CPU snapshots of either package load
+        # in the other.
+        self.gtgram_two_phase = self.device.type == "cuda"
         self.reservoir = reservoir
         self._n_state = (reservoir.n_neurons if isinstance(reservoir, SparseReservoir)
                          else reservoir.w_rec.shape[0])
@@ -262,27 +273,58 @@ class ContinuousKWS:
         """A host chunk through the ingest policy onto the engine's device;
         a tensor must already be a (n_streams, chunk_len) f32, int16 or
         uint8 tensor on that device."""
-        if not torch.is_tensor(chunk):
-            chunk = normalize_ingest_chunk(chunk, self.n_streams, self.chunk_len,
-                                           fixed_len=True)
-            return torch.as_tensor(chunk).to(self.device)
-        if tuple(chunk.shape) != (self.n_streams, self.chunk_len) or \
-                chunk.dtype not in (torch.float32, torch.int16, torch.uint8) or \
-                chunk.device != self.device:
-            raise ValueError(
-                f"a tensor chunk must be ({self.n_streams}, {self.chunk_len}) "
-                f"float32/int16/uint8 on {self.device}, got {chunk.dtype}"
-                f"{tuple(chunk.shape)} on {chunk.device}"
-            )
-        return chunk
+        return place_chunk(self, chunk, fixed_len=True)
 
     # ---- public surface ------------------------------------------------
+
+    @property
+    def norm_decay_db_per_bin(self) -> float:
+        """The causal normalization decay this engine was built with
+        (bundles and serving-state files record it)."""
+        return self._decay
 
     def step(self, chunk) -> np.ndarray:
         """Ingest one (n_streams, chunk_len) chunk (float samples in
         [-1, 1], int16 PCM or uint8 mu-law, host array or device tensor)
         and return the (n_streams, n_classes) logits on the host."""
         return self._step_device(self._place_chunk(chunk)).cpu().numpy()
+
+    def step_compact(self, chunk):
+        """step() with the compact decision output
+        (streaming.compact_output_device): (preds int32 (B,), margin f32
+        (B,)), 4 bytes a stream off the device; the same state advance as
+        step(), preds equal to step(chunk).argmax(-1)."""
+        return unpack_compact_output(
+            compact_output_device(self._step_device(self._place_chunk(chunk))))
+
+    def step_active(self, rows, active_idx, compact: bool = False):
+        """step() with only the active streams' audio on the wire: `rows`
+        (k, chunk_len) in any ingest wire format for the k slots
+        `active_idx`. Silent streams advance on wire silence synthesized on
+        the device (streaming.wire_silence), so the logits and every
+        stream's carried state are bit-equal to step() on the full chunk
+        with silence in the inactive rows. compact=True returns (preds,
+        margin) as step_compact does."""
+        rows_d, idx_d = prepare_active_rows(rows, active_idx, self.n_streams, self.device,
+                                            chunk_len=self.chunk_len)
+        out = self._step_device(expand_active_rows(rows_d, idx_d, self.n_streams))
+        if compact:
+            return unpack_compact_output(compact_output_device(out))
+        return out.cpu().numpy()
+
+    def stream(self, chunks, depth: int = 2):
+        """Pipelined serving loop: yields per-chunk logits, bit-equal to
+        serial step() calls (streaming.stream_pipelined)."""
+        return stream_pipelined(self, chunks, depth=depth)
+
+    def steps_fused(self, chunk, k: int) -> float:
+        """k consecutive step() calls on the same chunk, with one host
+        transfer at the end: the last hop's logit sum. The state advances
+        exactly as k step() calls on that chunk."""
+        dev = self._place_chunk(chunk)
+        for _ in range(int(k)):
+            out = self._step_device(dev)
+        return float(torch.sum(out, dtype=torch.float32))
 
     def predict(self, chunk) -> np.ndarray:
         return np.argmax(self.step(chunk), axis=-1)
@@ -339,6 +381,97 @@ class ContinuousKWS:
                   for k, v in _INIT.items()}
         segs = {k: sel(st.segs[k], _SEG_INIT.get(k, 0.0), 1) for k in SEG_KEYS}
         self.state = ContinuousState(segs=segs, **leaves)
+
+    # ---- state as leaves: snapshots and migration ------------------------
+
+    def _state_leaves(self) -> Dict[str, torch.Tensor]:
+        """Flat name -> tensor view of the state, segment rings keyed
+        'seg:<stat>': the leaves of a snapshot. Stream axis of each:
+        serving_state.stream_axis."""
+        st = self.state
+        leaves = {k: getattr(st, k) for k in _INIT}
+        leaves.update({f"seg:{k}": v for k, v in st.segs.items()})
+        return leaves
+
+    def _from_leaves(self, leaves: Dict[str, torch.Tensor]) -> ContinuousState:
+        return ContinuousState(segs={k: leaves[f"seg:{k}"] for k in SEG_KEYS},
+                               **{k: leaves[k] for k in _INIT})
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """Host copy of every state leaf (lsm_tpu's leaves, shapes, dtypes
+        and axes). Restoring it into a fresh engine with the same weights
+        continues every stream bit-exactly, warm-up included
+        (io/serving_state.py is the file format and its validation)."""
+        return {k: v.to("cpu", copy=True).numpy() for k, v in self._state_leaves().items()}
+
+    def restore(self, snap: dict) -> None:
+        """Inverse of snapshot(): install a saved state. Every leaf is
+        checked against this engine's geometry first, so a snapshot taken
+        with another stream count, frontend, reservoir or chunking fails
+        loudly and leaves the state as it was."""
+        extra = {k for k in snap if k.startswith("seg:") and k[4:] not in SEG_KEYS}
+        if extra:
+            raise ValueError(
+                f"snapshot has segment stats {sorted(extra)} this engine "
+                "does not track (different feature set)"
+            )
+        new = {}
+        for key, ref in self._state_leaves().items():
+            if key not in snap:
+                raise ValueError(
+                    f"snapshot is missing state leaf {key!r} — not a "
+                    "ContinuousKWS snapshot, or one from an incompatible build"
+                )
+            a = np.asarray(snap[key])
+            want = (tuple(ref.shape), np_dtype(ref))
+            if (a.shape, a.dtype) != want:
+                raise ValueError(
+                    f"snapshot leaf {key!r} is {a.dtype}{a.shape}; this "
+                    f"engine needs {want[1]}{want[0]} — the snapshot was "
+                    "taken with a different stream count, frontend, "
+                    "reservoir, or chunk geometry"
+                )
+            new[key] = torch.tensor(a, device=self.device)
+        self.state = self._from_leaves(new)
+
+    def extract_streams(self, stream_idx) -> Dict[str, np.ndarray]:
+        """snapshot() restricted to the named stream slots: each leaf's
+        rows are gathered on the device, so only they leave it. The unit
+        serving_state.migrate_streams moves."""
+        from lsm_tpu_torch.io.serving_state import stream_axis
+
+        idx = validate_stream_idx(stream_idx, self.n_streams, "extract_streams")
+        idx_t = torch.as_tensor(idx.astype(np.int64)).to(self.device)
+        return {k: v.index_select(stream_axis(k), idx_t).cpu().numpy()
+                for k, v in self._state_leaves().items()}
+
+    def install_streams(self, stream_idx, rows: dict) -> None:
+        """Inverse of extract_streams: scatter donor stream state into the
+        named slots (other slots untouched). `rows` carries one row per
+        index along each leaf's stream axis, the leaves and dtypes of
+        extract_streams; all are checked before any state changes."""
+        from lsm_tpu_torch.io.serving_state import stream_axis
+
+        idx = validate_stream_idx(stream_idx, self.n_streams, "install_streams", unique=True)
+        ref = self._state_leaves()
+        missing = set(ref) - set(rows)
+        if missing:
+            raise ValueError(f"donor rows are missing state leaves {sorted(missing)}")
+        clean = {}
+        for k, leaf in ref.items():
+            ax = stream_axis(k)
+            want = tuple(idx.shape[0] if d == ax else s for d, s in enumerate(leaf.shape))
+            r = np.asarray(rows[k])
+            if r.shape != want or r.dtype != np_dtype(leaf):
+                raise ValueError(
+                    f"donor leaf {k!r} is {r.dtype}{r.shape}; this engine "
+                    f"needs {np_dtype(leaf)}{want} — the donor engine "
+                    "has a different geometry"
+                )
+            clean[k] = torch.tensor(r, device=self.device)
+        idx_t = torch.as_tensor(idx.astype(np.int64)).to(self.device)
+        self.state = self._from_leaves(
+            {k: leaf.index_copy(stream_axis(k), idx_t, clean[k]) for k, leaf in ref.items()})
 
     def _init_state(self, B: int) -> ContinuousState:
         C = self.fcfg.n_filters

@@ -2,7 +2,11 @@
 lsm_tpu's CLI builds from them; the stage entry points
 (`lsm_tpu_torch.cli.*`) chain on a WAV corpus on the CPU, refuse the flags
 whose feature is not ported, naming its ROADMAP item, and never fall back
-from a missing card to the CPU."""
+from a missing card to the CPU. The serving entry point `cli.stream_kws`
+gives the root stream_kws.py's predictions and output fields in every mode
+(exact dense and sparse, compact, pool, continuous), their serving-state
+files continue each other's streams, and it exits 1 where stream_kws.py
+does."""
 
 import argparse
 
@@ -178,3 +182,178 @@ def test_classify_refuses_a_continuous_bundle(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
         classify.main(["--model", str(tmp_path / "c.npz"), "--input", "x", "--device", "cpu"])
     assert exc.value.code == 1 and "continuous" in capsys.readouterr().err
+
+
+# ---- the serving entry point: cli.stream_kws against the root stream_kws.py -----
+
+def _reference_stream_kws():
+    """The repo-root stream_kws.py, loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "stream_kws.py"
+    spec = importlib.util.spec_from_file_location("_reference_stream_kws", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def serving_dir(tmp_path_factory):
+    """A 4-class WAV corpus (2 files a class) and three bundles on lsm_tpu's
+    dyadic draws (16 filters, 128 neurons dense, 256 block-sparse): batch
+    dense (v1), batch sparse (v2-sparse) and continuous dense, chunk 3200."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from lsm_tpu.models import reservoir as jres
+    from lsm_tpu.models import sparse as jsp
+
+    from lsm_tpu_torch import convert
+    from lsm_tpu_torch.io.model import save_model
+    from lsm_tpu_torch.readout.logistic import LogisticReadout
+    from lsm_tpu_torch.readout.scaler import Scaler
+
+    d = tmp_path_factory.mktemp("serving")
+    tds.write_synthetic_corpus(d / "corpus", ("a", "b", "c", "d"), n_per_class=2, seed=9)
+    fcfg = tcfg.FrontendConfig(n_filters=16)
+    q = lambda a: jnp.round(jnp.asarray(a) * 256.0) / 256.0
+    dense = jres.init_reservoir(jcfg.ReservoirConfig(num_neurons=128, num_output_neurons=64,
+                                                     small_world_k=16, mean_weight=0.03), 16)
+    dense = convert.reservoir(dataclasses.replace(dense, w_rec=q(dense.w_rec), w_in=q(dense.w_in)))
+    sparse = jsp.init_reservoir_sparse(jcfg.ReservoirConfig(
+        num_neurons=256, num_output_neurons=64, small_world_k=52, mean_weight=0.03,
+        sparse=True), 16)
+    sparse = convert.sparse_reservoir(dataclasses.replace(sparse, w_blocks=q(sparse.w_blocks)))
+    rng = np.random.default_rng(4)
+    dim = 5 * 64
+    ro = LogisticReadout(rng.normal(0, 0.5, (dim, 4)).astype(np.float32),
+                         rng.normal(0, 0.5, 4).astype(np.float32))
+    sc = Scaler(rng.random(dim).astype(np.float32), (rng.random(dim) + 0.5).astype(np.float32))
+    names = ("a", "b", "c", "d")
+    save_model(d / "dense.npz", dense, ro, sc, fcfg, "original", names)
+    save_model(d / "sparse.npz", sparse, ro, sc, fcfg, "original", names)
+    save_model(d / "cont.npz", dense, ro, sc, fcfg, "original", names,
+               feature_mode="continuous",
+               continuous_params={"chunk_len": 3200, "norm_decay_db_per_bin": 0.1})
+    return d
+
+
+def _serve_both(d, argv, monkeypatch, capsys, tag):
+    """The port's entry point on the CPU and lsm_tpu's on one device, the
+    same argv; returns (port's output file, reference's, port's stdout)."""
+    from lsm_tpu_torch.cli import stream_kws
+
+    monkeypatch.chdir(d)
+    stream_kws.main(argv + ["--output", f"{tag}_t.npz", "--device", "cpu"])
+    out = capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["stream_kws.py", *argv, "--output", f"{tag}_j.npz",
+                                     "--single-device"])
+    _reference_stream_kws().main()
+    capsys.readouterr()
+    return np.load(d / f"{tag}_t.npz"), np.load(d / f"{tag}_j.npz"), out
+
+
+SERVE = {
+    "exact": ["--model", "dense.npz", "--chunk-ms", "200", "--diagnostics-every", "4"],
+    "sparse": ["--model", "sparse.npz", "--chunk-ms", "200", "--wire", "pcm16"],
+    "compact": ["--model", "dense.npz", "--chunk-ms", "200", "--compact", "--wire", "ulaw",
+                "--check"],
+    "pool": ["--model", "dense.npz", "--chunk-ms", "200", "--pool", "--max-streams", "3",
+             "--wire", "pcm16", "--check"],
+    "continuous": ["--model", "cont.npz", "--mode", "continuous"],
+}
+
+
+@pytest.mark.parametrize("mode", list(SERVE))
+def test_stream_kws_predicts_as_reference(serving_dir, monkeypatch, capsys, mode):
+    """Every mode gives lsm_tpu's predictions for every file, with the same
+    output fields; the margins of the compact egress within float16
+    rounding."""
+    port, ref, out = _serve_both(serving_dir, ["--data-dir", "corpus", *SERVE[mode]],
+                                 monkeypatch, capsys, mode)
+    assert sorted(port.files) == sorted(ref.files)
+    np.testing.assert_array_equal(port["predictions"], ref["predictions"])
+    for k in ("labels", "files", "class_names"):
+        np.testing.assert_array_equal(port[k], ref[k])
+    if "margins" in ref.files:
+        np.testing.assert_allclose(port["margins"], ref["margins"], rtol=2e-3, atol=1e-4)
+    assert "Accuracy vs directory labels (8 streams)" in out
+    assert ("SERVING RESERVOIR DIAGNOSTICS" in out) == (mode == "exact")
+
+
+def test_stream_kws_state_files_cross_packages(serving_dir, monkeypatch, capsys):
+    """Continuous mode with --save-state (and a periodic checkpoint) on each
+    side; each side then restores the other's file and serves on: the two
+    restored runs predict alike."""
+    base = ["--data-dir", "corpus", *SERVE["continuous"], "--wire", "pcm16"]
+    _serve_both(serving_dir, base + ["--save-state", "s.npz", "--save-state-every", "2",
+                                     "--state-no-compress"], monkeypatch, capsys, "save")
+    # _serve_both ran the port first, then lsm_tpu over the same path:
+    # keep each side's file apart.
+    from lsm_tpu_torch.cli import stream_kws
+
+    stream_kws.main(base + ["--save-state", "s_t.npz", "--output", "x.npz", "--device", "cpu"])
+    assert "Stream state snapshot -> 's_t.npz'" in capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["stream_kws.py", *base, "--restore-state", "s_t.npz",
+                                     "--output", "r_j.npz", "--single-device"])
+    _reference_stream_kws().main()
+    stream_kws.main(base + ["--restore-state", "s.npz", "--output", "r_t.npz", "--device", "cpu"])
+    assert "Stream state restored from 's.npz'" in capsys.readouterr().out
+    np.testing.assert_array_equal(np.load(serving_dir / "r_t.npz")["predictions"],
+                                  np.load(serving_dir / "r_j.npz")["predictions"])
+
+
+STREAM_REFUSED = [
+    (["--single-device"], "ROADMAP A14"),
+    (["--metrics-out", "m.jsonl"], "ROADMAP A15"),
+]
+STREAM_EXIT_1 = [
+    (["--save-state-every", "2"], "--save-state-every needs --save-state"),
+    (["--max-streams", "0"], "--max-streams must be >= 1"),
+    (["--model", "missing.npz"], "Model file not found"),
+    (["--mode", "continuous"], "needs a continuous-calibrated bundle"),
+    (["--model", "cont.npz", "--mode", "exact"], "calibrated for continuous-mode"),
+    (["--pool", "--restore-state", "s.npz"], "--pool replays files"),
+    (["--data-dir", "empty"], "no WAVs under"),
+    (["--chunk-ms", "2000"], "exceeds the 16000-sample analysis window"),
+    (["--restore-state", "nowhere.npz"], "Error restoring state"),
+]
+
+
+@pytest.mark.parametrize("argv,item", STREAM_REFUSED, ids=["single_device", "metrics_out"])
+def test_stream_kws_refuses_unported_flags(serving_dir, monkeypatch, argv, item):
+    from lsm_tpu_torch.cli import stream_kws
+
+    monkeypatch.chdir(serving_dir)
+    with pytest.raises(SystemExit, match=item):
+        stream_kws.main(["--model", "dense.npz", "--data-dir", "corpus", *argv, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv,message", STREAM_EXIT_1,
+                         ids=["every", "max_streams", "model", "mode_cont", "mode_exact", "pool",
+                              "empty", "chunk", "restore"])
+def test_stream_kws_exits_1_as_reference(serving_dir, monkeypatch, capsys, argv, message):
+    from lsm_tpu_torch.cli import stream_kws
+
+    monkeypatch.chdir(serving_dir)
+    (serving_dir / "empty").mkdir(exist_ok=True)
+    full = ["--model", "dense.npz", "--data-dir", "corpus", *argv]
+    with pytest.raises(SystemExit) as exc:
+        stream_kws.main(full + ["--device", "cpu"])
+    assert exc.value.code == 1 and message in capsys.readouterr().err
+    monkeypatch.setattr("sys.argv", ["stream_kws.py", *full, "--single-device"])
+    with pytest.raises(SystemExit) as exc:
+        _reference_stream_kws().main()
+    assert exc.value.code == 1 and message in capsys.readouterr().err
+
+
+def test_stream_kws_device_cuda_without_cuda_raises(serving_dir, monkeypatch):
+    from lsm_tpu_torch.cli import stream_kws
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.chdir(serving_dir)
+    with pytest.raises(RuntimeError, match="cuda"):
+        stream_kws.main(["--model", "dense.npz", "--data-dir", "corpus", "--device", "cuda"])

@@ -102,7 +102,8 @@ def test_port_imports_nothing_of_the_reference():
         "import lsm_tpu_torch.io.wav, lsm_tpu_torch.io.sharded, lsm_tpu_torch.io.model\n"
         "import lsm_tpu_torch.cli.common, lsm_tpu_torch.cli.create_dataset\n"
         "import lsm_tpu_torch.cli.extract_lsm_features, lsm_tpu_torch.cli.train_classifier\n"
-        "import lsm_tpu_torch.cli.classify\n"
+        "import lsm_tpu_torch.cli.classify, lsm_tpu_torch.cli.stream_kws\n"
+        "import lsm_tpu_torch.models.pool, lsm_tpu_torch.io.serving_state\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"
