@@ -120,7 +120,8 @@ Phases (any failure exits non-zero):
                engines step_compact's preds equal step's argmax and
                step_active with every other stream active is bit-equal to
                step with wire silence in the other rows, on all three
-               wires. Phase 9's 10240-neuron modules: continuous at 1024
+               wires, and stream(depth=2) and steps_fused(3) equal three
+               serial steps. Phase 9's 10240-neuron modules: continuous at 1024
                streams saved, loaded and 5 hops bit-equal (B6 launched);
                exact at 256 streams, one step launching B1 and B5 once,
                save/load bit-equal. Then `python -m
@@ -1789,14 +1790,24 @@ def serving_hops(n_streams: int):
 
 
 def engine_gates(kws, hops) -> dict:
-    """From one engine state: step_compact's preds against step's argmax,
-    and step_active with every other stream active bit-equal to step with
-    wire silence in the other rows, on all three wires. The state is put
-    back after each comparison (snapshot / restore)."""
+    """From one engine state: step_compact's preds against step's argmax;
+    step_active with every other stream active bit-equal to step with
+    wire silence in the other rows, on all three wires; stream(depth=2)
+    (asynchronous copies to the host) and steps_fused(3) against three
+    serial steps. The state is put back after each comparison (snapshot /
+    restore)."""
     from lsm_tpu_torch.models.streaming import wire_silence
 
     snap = kws.snapshot()
-    logits = kws.step(hops["pcm16"][0])
+    serial = [kws.step(h) for h in hops["pcm16"][:3]]
+    logits = serial[0]
+    kws.restore(snap)
+    piped = list(kws.stream(hops["pcm16"][:3], depth=2))
+    kws.restore(snap)
+    fused = kws.steps_fused(hops["pcm16"][0], 3)
+    kws.restore(snap)
+    for _ in range(3):
+        last = kws.step(hops["pcm16"][0])
     kws.restore(snap)
     preds, margins = kws.step_compact(hops["pcm16"][0])
     kws.restore(snap)
@@ -1812,8 +1823,13 @@ def engine_gates(kws, hops) -> dict:
         active[w] = bool(np.array_equal(got, want))
     rec = {"compact_preds_equal_argmax": bool(np.array_equal(preds, logits.argmax(-1))),
            "compact_margin_min": float(margins.min()),
-           "step_active_bit_equal": active}
-    if not rec["compact_preds_equal_argmax"] or not all(active.values()):
+           "step_active_bit_equal": active,
+           "stream_bit_equal": all(np.array_equal(a, b) for a, b in zip(piped, serial))
+           and len(piped) == 3,
+           "steps_fused_equal": fused == float(torch.sum(torch.as_tensor(last),
+                                                         dtype=torch.float32))}
+    if not (rec["compact_preds_equal_argmax"] and all(active.values())
+            and rec["stream_bit_equal"] and rec["steps_fused_equal"]):
         fail(f"{type(kws).__name__} at {kws.n_streams} streams: {rec}")
     return rec
 
@@ -1880,7 +1896,8 @@ def serving_engines(dev, card, dense, sparse, tmp: Path) -> dict:
           f"{ex['real_time_factor']:.2f}; the window's device time {ex['device_ms_window']:.3f} "
           f"ms; one step launched {one}; step_compact = argmax "
           f"{ex['compact_preds_equal_argmax']}, step_active = step with silence "
-          f"{ex['step_active_bit_equal']} ({card})")
+          f"{ex['step_active_bit_equal']}, stream = steps {ex['stream_bit_equal']}, "
+          f"steps_fused = steps {ex['steps_fused_equal']} ({card})")
     if not (one["B1"] == 1 and one["B2"] == 1 and on_cluster_body(one)):
         fail(f"one exact step launched {one}, not B1 once and B2 once on the cluster body")
     del kws
@@ -1918,7 +1935,8 @@ def serving_engines(dev, card, dense, sparse, tmp: Path) -> dict:
           f"{s1['bytes'] / 1e6:.1f} MB in {s1['save_s']:.2f} s (load {s1['load_s']:.2f} s); the "
           f"next 10 hops bit-equal {s0['bit_equal']}, {s1['bit_equal']}; {n_mig} streams migrated in "
           f"{co['migrate_s'] * 1e3:.1f} ms, bit-equal {moved}; step_compact = argmax "
-          f"{co['compact_preds_equal_argmax']}, step_active {co['step_active_bit_equal']}; "
+          f"{co['compact_preds_equal_argmax']}, step_active {co['step_active_bit_equal']}, stream "
+          f"{co['stream_bit_equal']}, steps_fused {co['steps_fused_equal']}; "
           f"launches {co['launches_10_hops']} ({card})")
     if not (s0["bit_equal"] and s1["bit_equal"] and moved):
         fail(f"the continuous engine did not continue bit-exactly: {co}")
