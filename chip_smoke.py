@@ -1805,9 +1805,13 @@ def engine_gates(kws, hops) -> dict:
     piped = list(kws.stream(hops["pcm16"][:3], depth=2))
     kws.restore(snap)
     fused = kws.steps_fused(hops["pcm16"][0], 3)
+    fused_state = kws.snapshot()
     kws.restore(snap)
     for _ in range(3):
         last = kws.step(hops["pcm16"][0])
+    # The checksum is summed on the engine's device, so the serial one is too.
+    last_sum = float(torch.sum(torch.as_tensor(last).to(kws.device), dtype=torch.float32))
+    serial_state = kws.snapshot()
     kws.restore(snap)
     preds, margins = kws.step_compact(hops["pcm16"][0])
     kws.restore(snap)
@@ -1826,8 +1830,8 @@ def engine_gates(kws, hops) -> dict:
            "step_active_bit_equal": active,
            "stream_bit_equal": all(np.array_equal(a, b) for a, b in zip(piped, serial))
            and len(piped) == 3,
-           "steps_fused_equal": fused == float(torch.sum(torch.as_tensor(last),
-                                                         dtype=torch.float32))}
+           "steps_fused_equal": fused == last_sum and all(
+               np.array_equal(v, serial_state[k]) for k, v in fused_state.items())}
     if not (rec["compact_preds_equal_argmax"] and all(active.values())
             and rec["stream_bit_equal"] and rec["steps_fused_equal"]):
         fail(f"{type(kws).__name__} at {kws.n_streams} streams: {rec}")
