@@ -130,6 +130,35 @@ Phases (any failure exits non-zero):
                over 1024 slots, whose predictions must equal the static
                run's for every file; a continuous bundle of phase 6's
                modules served with --save-state, then --restore-state.
+ 13. frontends - BASELINE configs[0] (yes/no/up/down x 200 synthetic
+               utterances, mel, 64 filters, flagship reservoir):
+               run_pipeline_arrays on the card within 0.05 of the port's CPU
+               run, B2 launched on the cluster body and no B1; the mel hot
+               path (2400 utterances, 64 filters, audio on the card: min and
+               median of 5 walls, the featurize share, peak memory); mel and
+               fft spikes on the card against the CPU path on 256
+               utterances (<= 1e-3 differing entries); iir-xla launching B1
+               once with spikes equal to iir's; the mel continuous band
+               (hard corpus 20 x 12, 128 filters: matched >= 0.45 and within
+               0.15 of exact; B4 on the cluster body, no B3), then that
+               engine at 1024 streams (int16 wire, 100 ms hops: hop wall,
+               profiled device-busy time, save/load and 64 migrated streams bit-equal, 30
+               hops launching B4 30 times) and the mel exact engine at 1024
+               streams (one step: B2 once, no B1).
+ 14. training - 24,000 rows of synthetic_audio_batch (2000 a class,
+               generated in chunks on the host, featurized on the card,
+               written as compressed shards; set-up, timed apart), then
+               extract_and_train_streaming with ridge and with logistic:
+               rows/s, the fit pass's split and the device-busy share of each
+               pass (CUDA events around the extract calls), peak RSS per
+               pass beside the corpus's bytes, B2 on the cluster body; the
+               in-memory path on the same rows as the oracle (ridge accuracy
+               within 1e-6, logistic within 0.02 with >= 0.95 of the test
+               predictions equal); the configs[3] reservoir (10240 neurons,
+               multiplier 1.6) over the first 2400 rows with ridge (B5
+               launched); `python -m lsm_tpu_torch.cli.extract_lsm_features
+               --streaming-fit --save-model` as a subprocess, whose bundle
+               classifies phase 11's WAVs through cli.classify.
 
 Each phase prints its seconds ("[time] ..."). A "[record] {...}" line
 holds every number of the run as JSON. The
@@ -170,6 +199,12 @@ SPARSE_ACC_RANGE, SPARSE_MAX_DELTA = (0.66, 0.95), 0.15   # tests/test_sparse_re
 # Phase 11's WAV corpora: 12 classes of this many files each (2400, the
 # hot path's count; 360 for the two CLI subprocesses).
 OFFLINE_PER_CLASS, CLI_PER_CLASS = 200, 30
+# Phase 13's configs[0] slice: 4 words of this many utterances each.
+CONFIGS0_PER_CLASS = 200
+# Phase 14's corpus: configs[4]'s 100k-utterance training corpus cut to
+# 24,000 rows (2000 a class) for the run's time limit; the configs[3]
+# reservoir trains on the first 2400 of them.
+TRAIN_ROWS, TRAIN_ROWS_10K = 24000, 2400
 # On weights that are not dyadic a kernel may sum a drive in another order
 # than its twin, so their bits may part; their spike totals (and B5's
 # participation, a fraction of the neurons) may not move apart by more.
@@ -799,6 +834,10 @@ def main() -> None:
         record["serving_entry"] = serving_engines(dev, card, cont["engine_args"], engine_10k, tmp)
         record["serving_entry"]["cli"] = serving_cli(dev, card, cont["engine_args"], tmp)
         laps("12 serving entry points")
+        record["frontends"] = frontends(dev, card, tmp)
+        laps("13 frontends")
+        record["training"] = corpus_training(dev, card, tmp)
+        laps("14 training")
 
     def row(name, key, source, replaces, rec, launches_):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2048,6 +2087,386 @@ def serving_cli(dev, card, cont_modules, tmp: Path) -> dict:
         print(f"[serving entry]   {k}: {rec[k].get('accuracy_line')}")
     if not rec["pool_equals_static"]:
         fail("the pool's predictions differ from the static run's")
+    return rec
+
+
+# ---- 13. the mel frontend and the other gammatone methods -----------------
+
+MEL64 = dict(filterbank="mel", n_filters=64)
+CONFIGS0_WORDS = ("yes", "no", "up", "down")        # BASELINE.json configs[0]
+CONT_MEL_MIN_ACC = 0.45                              # tests/test_continuous_band.py, mel
+
+
+def spike_flips(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Share and count of differing spike entries."""
+    n = int((a.cpu() != b.cpu()).sum())
+    return {"differing": n, "entries": a.numel(), "share": n / a.numel()}
+
+
+def frontends(dev, card, tmp: Path) -> dict:
+    """Phase 13: BASELINE configs[0] (4 words, mel, 64 filters) on the card
+    beside the port's CPU run; the mel hot path at 2400 utterances; mel and
+    fft spikes against the CPU path; iir-xla on B1; the mel continuous
+    engine (band, 1024-stream hops, save/load and migration) and the mel
+    exact engine at 1024 streams."""
+    from lsm_tpu_torch import pipeline
+    from lsm_tpu_torch.config import FEATURE_SETS, FrontendConfig, PipelineConfig
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.io.serving_state import migrate_streams
+    from lsm_tpu_torch.models import reservoir as res
+    from lsm_tpu_torch.models.calibration import calibrate_weight
+    from lsm_tpu_torch.models.continuous import ContinuousKWS, fit_continuous_readout
+    from lsm_tpu_torch.models.frontend import featurize_batch
+    from lsm_tpu_torch.models.streaming import StreamingKWS
+    from lsm_tpu_torch.readout import logistic, scaler
+
+    cpu = torch.device("cpu")
+    rec = {}
+
+    # ---- configs[0]: card beside CPU ---------------------------------------
+    cfg0 = PipelineConfig(frontend=FrontendConfig(**MEL64), commands=CONFIGS0_WORDS)
+    audio0, labels0 = dataset.synthetic_audio_batch(CONFIGS0_PER_CLASS, len(CONFIGS0_WORDS),
+                                                    seed=42)
+    reset_launches()
+    t_card, (r_card, e_card) = timed(lambda: pipeline.run_pipeline_arrays(
+        cfg0, audio0, labels0, dev))
+    launches0 = read_launches()
+    t_cpu, (r_cpu, e_cpu) = timed(lambda: pipeline.run_pipeline_arrays(
+        cfg0, audio0, labels0, cpu))
+    c0 = rec["configs0"] = {
+        "utterances": len(labels0), "card_s": t_card, "cpu_s": t_cpu,
+        "accuracy_card": r_card.accuracy, "accuracy_cpu": r_cpu.accuracy,
+        "regime_card": e_card.diagnostics.regime, "regime_cpu": e_cpu.diagnostics.regime,
+        "participation_card": e_card.diagnostics.avg_participation,
+        "participation_cpu": e_cpu.diagnostics.avg_participation,
+        "mean_weight_card": e_card.mean_weight, "mean_weight_cpu": e_cpu.mean_weight,
+        "launches": launches0}
+    print(f"[frontends] configs[0] (4 words x {CONFIGS0_PER_CLASS}, mel, 64 filters, flagship "
+          f"reservoir): card accuracy {r_card.accuracy:.4f} {e_card.diagnostics.regime} "
+          f"({e_card.diagnostics.avg_participation:.1f} %) in {t_card:.1f} s; CPU "
+          f"{r_cpu.accuracy:.4f} {e_cpu.diagnostics.regime} "
+          f"({e_cpu.diagnostics.avg_participation:.1f} %) in {t_cpu:.1f} s; launches "
+          f"{launches0} ({card})")
+    if abs(r_card.accuracy - r_cpu.accuracy) > 0.05:
+        fail(f"configs[0] on the card {r_card.accuracy:.4f} against the CPU {r_cpu.accuracy:.4f}")
+    if launches0["B2"] <= 0 or launches0["B1"] != 0 or not on_cluster_body(launches0):
+        fail(f"configs[0] launched {launches0}: B2 on the cluster body, no B1")
+    del e_card, e_cpu
+
+    # ---- the mel hot path at 2400 utterances --------------------------------
+    pcfg = PipelineConfig(frontend=FrontendConfig(**MEL64))
+    fcfg, keys = pcfg.frontend, tuple(FEATURE_SETS[pcfg.feature_set])
+    audio_np, labels_np = dataset.synthetic_audio_batch(n_per_class=200, n_classes=12, seed=42)
+    audio = torch.as_tensor(audio_np).to(dev)
+    labels = torch.as_tensor(labels_np, dtype=torch.int64).to(dev)
+    spikes = featurize_batch(audio, fcfg)
+    _, mw = calibrate_weight(pcfg.reservoir, spikes, pcfg.multiplier)
+    reservoir = res.init_reservoir(pcfg.reservoir, fcfg.n_filters, mean_weight=mw, device=dev)
+    feats = res.extract_features(reservoir, spikes, keys)
+    sc = scaler.fit_scaler(feats)
+    ro, _ = logistic.fit_logistic(scaler.transform(sc, feats), labels, 12)
+
+    def hot():
+        f = res.extract_features(reservoir, featurize_batch(audio, fcfg), keys)
+        return logistic.predict(ro, scaler.transform(sc, f))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = [timed(hot)[0] for _ in range(5)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    sp = featurize_batch(audio, fcfg)
+    ev[1].record()
+    logistic.predict(ro, scaler.transform(sc, res.extract_features(reservoir, sp, keys)))
+    ev[2].record()
+    torch.cuda.synchronize()
+    fz, rest = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    hot_rec = rec["mel_hot"] = {
+        "n": len(labels_np), "wall_s_min": min(walls), "wall_s_median": statistics.median(walls),
+        "utt_per_s": len(labels_np) / min(walls),
+        "utt_per_s_median": len(labels_np) / statistics.median(walls),
+        "featurize_ms": fz, "extract_readout_ms": rest, "featurize_share": fz / (fz + rest),
+        "peak_mem_gb": peak_gb,
+        "fit_accuracy": float((hot() == labels).float().mean())}
+    print(f"[frontends] mel hot path, {len(labels_np)} utt, 64 filters: min of 5 walls "
+          f"{min(walls) * 1e3:.2f} ms ({hot_rec['utt_per_s']:.1f} utt/s), median "
+          f"{hot_rec['wall_s_median'] * 1e3:.2f} ms; featurize {fz:.2f} ms of {fz + rest:.2f} "
+          f"({100 * hot_rec['featurize_share']:.1f} %); peak memory {peak_gb:.2f} GB ({card})")
+    del audio, labels, spikes, feats, sp
+
+    # ---- spikes on the card against the CPU path; iir-xla on B1 ---------------
+    a256 = audio_np[np.linspace(0, len(audio_np) - 1, 256).astype(np.int64)]
+    flips = {}
+    for name, kw in (("mel", MEL64), ("fft", dict(gammatone_method="fft"))):
+        c = FrontendConfig(**kw)
+        flips[name] = spike_flips(featurize_batch(torch.as_tensor(a256).to(dev), c),
+                                  featurize_batch(torch.as_tensor(a256), c))
+    reset_launches()
+    s_xla = featurize_batch(torch.as_tensor(a256).to(dev),
+                            FrontendConfig(gammatone_method="iir-xla"))
+    l_xla = read_launches()
+    s_iir = featurize_batch(torch.as_tensor(a256).to(dev), FrontendConfig())
+    rec["spikes"] = {**flips, "iir_xla_equals_iir": bool(torch.equal(s_xla, s_iir)),
+                     "iir_xla_launches": l_xla}
+    print(f"[frontends] 256 utt, card against the CPU path: mel {flips['mel']['differing']} of "
+          f"{flips['mel']['entries']} spike entries differ, fft {flips['fft']['differing']}; "
+          f"iir-xla launched {l_xla}, spikes equal to iir's {rec['spikes']['iir_xla_equals_iir']}")
+    for name, f in flips.items():
+        if f["share"] > SPIKE_REL:
+            fail(f"{name} spikes on the card part from the CPU path's on {f['share']:.2e} "
+                 f"of entries (> {SPIKE_REL})")
+    if l_xla["B1"] != 1 or not rec["spikes"]["iir_xla_equals_iir"]:
+        fail(f"iir-xla launched {l_xla} (B1 once) and equal to iir "
+             f"{rec['spikes']['iir_xla_equals_iir']}")
+
+    # ---- the mel continuous engine: the band protocol ------------------------
+    bcfg = PipelineConfig(batch_size=64, frontend=FrontendConfig(filterbank="mel"))
+    ha, hl = dataset.synthetic_audio_batch_hard(20, 12, seed=42)
+    reset_launches()
+    result, ext = pipeline.run_pipeline_arrays(bcfg, ha, hl, dev)
+    x_train, x_test, y_train, y_test = pipeline.stratified_split(
+        ha, hl, bcfg.test_size, bcfg.split_seed)
+    m_ro, m_sc = fit_continuous_readout(
+        ext.reservoir, bcfg.frontend, x_train, y_train, num_classes=12,
+        feature_set=bcfg.feature_set, chunk_len=CHUNK, norm_decay_db_per_bin=0.1,
+        l2_c=bcfg.readout.l2_c, max_iter=bcfg.readout.max_iter, tol=bcfg.readout.tol)
+    n = x_test.shape[0]
+    nc = bcfg.frontend.num_samples // CHUNK
+    kws = ContinuousKWS(ext.reservoir, m_ro, m_sc, bcfg.frontend, bcfg.feature_set,
+                        n_streams=n, chunk_len=CHUNK)
+    prev = x_test[np.random.default_rng(12345).permutation(n)]
+    for c in range(nc):
+        kws.step(prev[:, c * CHUNK:(c + 1) * CHUNK])
+    for c in range(nc):
+        logits = kws.step(x_test[:, c * CHUNK:(c + 1) * CHUNK])
+    band_launches = read_launches()
+    acc = float((np.argmax(logits, -1) == y_test).mean())
+    band = rec["mel_band"] = {"exact_accuracy": result.accuracy, "matched_accuracy": acc,
+                              "delta": result.accuracy - acc, "n_test": n,
+                              "launches": band_launches}
+    print(f"[frontends] mel continuous band (hard corpus 20 x 12, 128 filters): exact "
+          f"{result.accuracy:.4f} matched {acc:.4f} (delta {band['delta']:+.4f}); launches "
+          f"{band_launches} ({card})")
+    if acc < CONT_MEL_MIN_ACC or band["delta"] > CONT_MAX_DELTA:
+        fail(f"mel matched continuous accuracy {acc:.4f} outside the band (>= "
+             f"{CONT_MEL_MIN_ACC}, within {CONT_MAX_DELTA} of exact {result.accuracy:.4f})")
+    if band_launches["B4"] <= 0 or band_launches["B3"] != 0 or not on_cluster_body(band_launches):
+        fail(f"the mel continuous path launched {band_launches}: B4 on the cluster body, no B3")
+    modules = (ext.reservoir, m_ro, m_sc)
+    del kws, ext
+
+    # ---- the mel continuous engine at 1024 streams ----------------------------
+    hops = serving_hops(N_SERVE)
+    mfcfg, fs = bcfg.frontend, bcfg.feature_set
+
+    def cont(n_streams):
+        return ContinuousKWS(*modules, mfcfg, fs, n_streams=n_streams, chunk_len=CHUNK)
+
+    kws = cont(N_SERVE)
+    for h in hops["pcm16"]:                                   # warm-up: one window
+        kws.step(h)
+    reset_launches()
+    co = hop_walls(kws, hops, 30)
+    co["launches_30_hops"] = launches_c = read_launches()
+    # The hop is host-bound (~460 launches), so CUDA events around it would
+    # time the host; the device time is the profiler's busy union.
+    next_hop = iter(hops["pcm16"])
+    prof = device_profile(lambda: kws.step(next(next_hop)), calls=10)
+    co["device_ms"] = prof["device_busy_us"] / 1e3 / prof["calls"]
+    co["device_busy_share"] = prof["busy_share_of_wall"]
+    co["device_events_per_hop"] = prof["n_device_events"] / prof["calls"]
+    co["top_device"] = prof["top_device"][:8]
+    co["saves"] = [continues_bit_exactly(lambda: cont(N_SERVE), kws, hops,
+                                         tmp / "mel_cont.npz", 10, False)]
+    dst = cont(N_SERVE)
+    n_mig = min(64, N_SERVE // 4)             # 64 of 1024 streams, every 16th
+    src_idx = np.arange(n_mig) * (N_SERVE // n_mig) + 3
+    dst_idx = np.arange(n_mig)[::-1]
+    migrate_streams(kws, dst, src_idx, dst_idx)
+    moved = True
+    for i in range(3):
+        h = hops["pcm16"][i]
+        chunk = np.zeros_like(h)
+        chunk[dst_idx] = h[src_idx]
+        moved &= bool(np.array_equal(dst.step(chunk)[dst_idx], kws.step(h)[src_idx]))
+    co["migrated"] = {"streams": n_mig, "bit_equal": moved}
+    co["state_bytes"] = sum(v.nbytes for v in kws.snapshot().values())
+    rec["mel_continuous"] = co
+    print(f"[frontends] mel continuous engine, {N_SERVE} streams, int16 wire, 100 ms hops: "
+          f"median hop wall {co['hop_wall_ms_median']:.3f} ms (min {co['hop_wall_ms_min']:.3f}), "
+          f"device busy {co['device_ms']:.3f} ms a hop ({100 * co['device_busy_share']:.1f} % of "
+          f"the profiled wall, {co['device_events_per_hop']:.0f} device events a hop), "
+          f"real-time factor "
+          f"{co['real_time_factor']:.2f}; state {co['state_bytes'] / 1e6:.1f} MB; save/load "
+          f"bit-equal {[s['bit_equal'] for s in co['saves']]}, {n_mig} streams migrated bit-equal "
+          f"{moved}; launches {launches_c} ({card})")
+    for t in co["top_device"]:
+        print(f"[frontends]   {t['us'] / 1e3 / prof['calls']:8.3f} ms/hop x{t['count'] // prof['calls']:4d}"
+              f"  {t['name']}")
+    if not (all(s["bit_equal"] for s in co["saves"]) and moved):
+        fail(f"the mel continuous engine did not continue bit-exactly: {co}")
+    if launches_c["B4"] != 30 or launches_c["B3"] != 0 or not on_cluster_body(launches_c):
+        fail(f"30 mel continuous hops launched {launches_c}: B4 30 times on the cluster body")
+    del kws, dst
+
+    # ---- the mel exact engine at 1024 streams ---------------------------------
+    kws = StreamingKWS(*modules, mfcfg, fs, n_streams=N_SERVE)
+    for h in hops["pcm16"]:
+        kws.step(h)
+    ex = hop_walls(kws, hops, 12)
+    reset_launches()
+    kws.step(hops["pcm16"][0])
+    ex["launches_one_step"] = one = read_launches()
+    ex["device_ms_window"] = cuda_ms(lambda: kws._evaluate(kws.buffer), reps=5)
+    rec["mel_exact"] = ex
+    print(f"[frontends] mel exact engine, {N_SERVE} streams: median hop wall "
+          f"{ex['hop_wall_ms_median']:.3f} ms (min {ex['hop_wall_ms_min']:.3f}), the window's "
+          f"device time {ex['device_ms_window']:.3f} ms; one step launched {one} ({card})")
+    if not (one["B2"] == 1 and one["B1"] == 0 and on_cluster_body(one)):
+        fail(f"one mel exact step launched {one}, not B2 once (cluster body) and no B1")
+    return rec
+
+
+# ---- 14. corpus-scale training ------------------------------------------------
+
+def corpus_training(dev, card, tmp: Path) -> dict:
+    """Phase 14: TRAIN_ROWS rows of synthetic_audio_batch written as
+    compressed shards (set-up, timed apart), then
+    extract_and_train_streaming with ridge and with logistic (rows/s, the
+    fit pass's split, device-busy share and peak RSS per pass), held against
+    the in-memory path on the same rows; the configs[3] reservoir over
+    TRAIN_ROWS_10K of them; the --streaming-fit --save-model entry point as
+    a subprocess, whose bundle classifies phase 11's WAVs."""
+    from lsm_tpu_torch import pipeline
+    from lsm_tpu_torch.config import FEATURE_SETS, PipelineConfig, ReservoirConfig
+    from lsm_tpu_torch.io.model import load_model
+    from lsm_tpu_torch.io.sharded import ShardedSpikeDataset, ShardedSpikeDatasetWriter
+    from lsm_tpu_torch.models import reservoir as res
+    from lsm_tpu_torch.readout import logistic, scaler
+    from lsm_tpu_torch.tools import bench_stream_train as bench
+
+    cfg = PipelineConfig()
+    keys = tuple(FEATURE_SETS[cfg.feature_set])
+    root = tmp / "train_shards"
+    sampler = bench.RssSampler()
+    try:
+        rec = {"write": bench.write_corpus(root, TRAIN_ROWS, cfg, dev)}
+        source = ShardedSpikeDataset(root)
+        runs = {}
+        for readout in ("ridge", "logistic"):
+            reset_launches()
+            result, rep = bench.train(source, cfg, dev, readout, sampler)
+            rep["launches"] = read_launches()
+            runs[readout] = result
+            rec[readout] = rep
+    finally:
+        sampler.stop()
+    w = rec["write"]
+    print(f"[training] corpus: {w['rows']} rows in {w['seconds']:.1f} s (waiting on "
+          f"{w['generate_workers']} generator processes {w['generate_wait_s']:.1f} s, "
+          f"featurize {w['featurize_s']:.1f} s), "
+          f"{w['bytes_on_disk'] / 1e6:.1f} MB on disk ({w['bytes_raw'] / 1e6:.1f} MB raw) ({card})")
+    for readout in ("ridge", "logistic"):
+        r = rec[readout]
+        fp, ep = r["passes"]["fit_pass"], r["passes"]["eval_pass"]
+        solve = r["passes"].get("solve", {}).get("seconds")
+        print(f"[training] {readout}: accuracy {r['accuracy']:.4f} ({r['n_train']} train, "
+              f"{r['n_test']} test); fit pass {fp['utt_per_s']:.1f} rows/s (split "
+              + " ".join(f"{k} {v:.2f} s" for k, v in r["fit_split_s"].items())
+              + f"), device busy {100 * fp.get('device_busy_share', 0):.1f} %, RSS "
+              f"{fp['start_rss_bytes'] / 1e6:.0f} MB at its start, peak "
+              f"{fp['peak_rss_bytes'] / 1e6:.0f} MB; eval pass {ep['utt_per_s']:.1f} rows/s, "
+              f"busy {100 * ep.get('device_busy_share', 0):.1f} %, peak RSS "
+              f"{ep['peak_rss_bytes'] / 1e6:.0f} MB"
+              + (f"; L-BFGS {solve:.2f} s" if solve is not None else "")
+              + f"; launches {r['launches']} ({card})")
+        if r["launches"]["B2"] <= 0 or not on_cluster_body(r["launches"]):
+            fail(f"the {readout} trainer launched {r['launches']}: B2 on the cluster body")
+
+    # ---- the in-memory oracle on the same rows ------------------------------
+    ds = source.load_all()
+    ext = pipeline.extract_lsm_features(cfg, ds, dev, run_diagnostics=False)
+    x_tr = torch.as_tensor(ext.artifact.x_train).to(dev)
+    y_tr = torch.as_tensor(ext.artifact.y_train, dtype=torch.int64).to(dev)
+    x_te = torch.as_tensor(ext.artifact.x_test).to(dev)
+    y_te = ext.artifact.y_test
+    ridge = logistic.fit_ridge(x_tr, y_tr, 12)
+    p_ridge = logistic.predict(ridge, x_te).cpu().numpy()
+    lbfgs, _ = logistic.fit_logistic(x_tr, y_tr, 12)
+    p_log = logistic.predict(lbfgs, x_te).cpu().numpy()
+    _, spikes_te, _, _ = pipeline.stratified_split(ds.x_spikes, ds.y_labels, cfg.test_size,
+                                                   cfg.split_seed)
+    mine = []
+    for s in range(0, spikes_te.shape[0], cfg.batch_size):
+        f = res.extract_features(runs["logistic"].reservoir,
+                                 torch.as_tensor(spikes_te[s:s + cfg.batch_size]).to(dev), keys)
+        mine.append(logistic.predict(runs["logistic"].readout,
+                                     scaler.transform(runs["logistic"].scaler, f)).cpu())
+    mine = torch.cat(mine).numpy()
+    oracle = rec["oracle"] = {
+        "ridge_accuracy": float((p_ridge == y_te).mean()),
+        "logistic_accuracy": float((p_log == y_te).mean()),
+        "logistic_agreement": float((mine == p_log).mean()),
+        "corpus_bytes_in_memory": int(ds.x_spikes.nbytes)}
+    del ds, x_tr, x_te, spikes_te, ext
+    print(f"[training] in-memory oracle: ridge {oracle['ridge_accuracy']:.4f} (streamed "
+          f"{rec['ridge']['accuracy']:.4f}), logistic {oracle['logistic_accuracy']:.4f} "
+          f"(streamed {rec['logistic']['accuracy']:.4f}, test predictions equal on "
+          f"{oracle['logistic_agreement']:.4f}); the spikes alone are "
+          f"{oracle['corpus_bytes_in_memory'] / 1e6:.0f} MB in memory ({card})")
+    if abs(rec["ridge"]["accuracy"] - oracle["ridge_accuracy"]) > 1e-6:
+        fail(f"streamed ridge {rec['ridge']['accuracy']} against in-memory "
+             f"{oracle['ridge_accuracy']}")
+    if abs(rec["logistic"]["accuracy"] - oracle["logistic_accuracy"]) > 0.02 or \
+            oracle["logistic_agreement"] < 0.95:
+        fail(f"streamed logistic against in-memory: {oracle}")
+
+    # ---- configs[3]: 10240 neurons at multiplier 1.6, ridge -----------------
+    root10k = tmp / "train_shards_10k"
+    idx = np.arange(TRAIN_ROWS_10K)
+    writer = ShardedSpikeDatasetWriter(root10k, 1200, resume=False, compress=False)
+    writer.append(source.gather_rows(idx), source.labels()[idx], idx)
+    writer.close()
+    cfg10k = PipelineConfig(reservoir=ReservoirConfig(num_neurons=N_10K, small_world_k=K_10K),
+                            multiplier=MULT_10K)
+    reset_launches()
+    t10k, r10k = timed(lambda: pipeline.extract_and_train_streaming(
+        cfg10k, ShardedSpikeDataset(root10k), dev))
+    l10k = read_launches()
+    rec["configs3"] = {"rows": TRAIN_ROWS_10K, "seconds": t10k, "accuracy": r10k.accuracy,
+                       "regime": r10k.diagnostics.regime,
+                       "participation": r10k.diagnostics.avg_participation,
+                       "n_train": r10k.n_train, "n_test": r10k.n_test, "launches": l10k}
+    print(f"[training] configs[3] ({N_10K} neurons, multiplier {MULT_10K}) over "
+          f"{TRAIN_ROWS_10K} rows, ridge: accuracy {r10k.accuracy:.4f}, "
+          f"{r10k.diagnostics.regime} ({r10k.diagnostics.avg_participation:.1f} %), "
+          f"{t10k:.1f} s; launches {l10k} ({card})")
+    if l10k["B5"] <= 0 or not np.isfinite(r10k.accuracy):
+        fail(f"the configs[3] trainer launched {l10k}: B5 not launched")
+    del r10k
+
+    # ---- the entry point: --streaming-fit --save-model, then classify -------
+    model = tmp / "streamed.npz"
+    fit_s, out = run_cli(["lsm_tpu_torch.cli.extract_lsm_features", "--input", root,
+                          "--streaming-fit", "--save-model", model, "--device", dev.type], card)
+    bundle = load_model(model, dev)
+    cls_s, _ = run_cli(["lsm_tpu_torch.cli.classify", "--model", model, "--data-dir",
+                        tmp / "corpus", "--output", tmp / "streamed_preds.npz",
+                        "--device", dev.type], card)
+    got = np.load(tmp / "streamed_preds.npz")
+    acc_line = [ln for ln in out.splitlines() if ln.startswith("Test Accuracy:")]
+    rec["cli"] = {"streaming_fit_s": fit_s, "classify_s": cls_s,
+                  "test_accuracy_line": acc_line[-1] if acc_line else None,
+                  "classified": int(len(got["predictions"])),
+                  "classify_accuracy": float((got["predictions"] == got["labels"]).mean()),
+                  "bundle_class_names": list(bundle.class_names)}
+    print(f"[training] cli.extract_lsm_features --streaming-fit --save-model {fit_s:.1f} s "
+          f"({rec['cli']['test_accuracy_line']}); cli.classify of phase 11's WAVs with that "
+          f"bundle {cls_s:.1f} s: {rec['cli']['classified']} files, accuracy "
+          f"{rec['cli']['classify_accuracy']:.4f} ({card})")
+    if rec["cli"]["classified"] == 0 or not acc_line:
+        fail(f"the streaming-fit entry point: {rec['cli']}")
     return rec
 
 

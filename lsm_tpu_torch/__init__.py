@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of lsm_tpu's batch classification path, offline
-inference from WAVs and its serving layer: the exact and continuous
+"""PyTorch + CUDA port of lsm_tpu's batch classification path (gammatone
+or mel frontend), offline inference from WAVs, corpus-scale streaming
+training (pipeline.extract_and_train_streaming) and its serving layer: the exact and continuous
 streaming engines (models/streaming.py, models/continuous.py), the session
 pool (models/pool.py), serving-state files (io/serving_state.py) and the
 entry point `python -m lsm_tpu_torch.cli.stream_kws`; with the dense

@@ -19,14 +19,9 @@ from lsm_tpu_torch.config import (
 
 # (attribute, value that means "not given", flag, ROADMAP item)
 _UNPORTED = (
-    ("filterbank", "gammatone", "--filterbank mel", "A8"),
-    ("gammatone_method", "iir", "--gammatone-method other than iir", "A8"),
     ("single_device", False, "--single-device", "A14"),
     ("check", False, "--check", "A15"),
     ("metrics_out", None, "--metrics-out", "A15"),
-    ("streaming_fit", False, "--streaming-fit", "A13"),
-    ("ridge_alpha", None, "--ridge-alpha", "A13"),
-    ("readout", None, "--readout", "A13"),
 )
 
 
@@ -40,7 +35,7 @@ def add_frontend_flags(p: argparse.ArgumentParser) -> None:
                    help="Number of filters for the filterbank.")
     p.add_argument("--filterbank", type=str, default="gammatone",
                    choices=["mel", "gammatone"],
-                   help="Type of filterbank to use (mel is not ported yet).")
+                   help="Type of filterbank to use.")
 
 
 def add_extract_flags(p: argparse.ArgumentParser) -> None:
@@ -81,7 +76,9 @@ def add_extension_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--gammatone-method", type=str, default="iir",
                    choices=["iir", "iir-xla", "fft"],
-                   help="Only iir (the exact cascade) is ported.")
+                   help="Gammatone spectrogram: iir and iir-xla the exact cascade "
+                        "(kernel B1 on the card; two TPU implementations in lsm_tpu), "
+                        "fft the FFT-weighted approximation.")
     p.add_argument("--num-neurons", type=int, default=1000)
     p.add_argument("--num-output-neurons", type=int, default=400)
     p.add_argument("--sparse", dest="sparse", action="store_true", default=None,

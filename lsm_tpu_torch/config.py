@@ -46,11 +46,11 @@ FEATURE_SETS = {
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
-    """Featurization and spike encoding. Only the exact gammatone
-    (filterbank "gammatone", method "iir") is ported (ROADMAP A8); the mel
-    fields are kept, in lsm_tpu's field order, because a sharded corpus is
-    fingerprinted by `repr` of this config and a model bundle stores its
-    `asdict`."""
+    """Featurization and spike encoding: filterbank "mel" (n_fft, mel_fmin,
+    mel_fmax) or "gammatone" (gt_window_time, gt_f_min, gammatone_method
+    "iir", "iir-xla" or "fft"). The fields keep lsm_tpu's order, because a
+    sharded corpus is fingerprinted by `repr` of this config and a model
+    bundle stores its `asdict`."""
 
     sample_rate: int = 16000
     duration: float = 1.0

@@ -3,7 +3,8 @@
 Each function takes the reference package's parameter object
 (`ReservoirParams`, `SparseReservoirParams`, `ScalerState`,
 `LogisticParams`, the continuous engine's `ContinuousState`, the exact
-engine's ring buffer) or anything with the same attributes; every array
+engine's ring buffer, the streaming trainer's `RidgeAccumState`) or
+anything with the same attributes; every array
 goes through `np.asarray`, so this module needs no jax. Tests use it to
 make both packages compute with the same weights and from the same stream
 state. Serving-state files (io/serving_state.py) carry stream state across
@@ -20,6 +21,7 @@ from lsm_tpu_torch.models.reservoir import Reservoir
 from lsm_tpu_torch.models.sparse import SparseReservoir
 from lsm_tpu_torch.readout.logistic import LogisticReadout
 from lsm_tpu_torch.readout.scaler import Scaler
+from lsm_tpu_torch.readout.streaming_fit import RidgeAccumState
 
 
 def _f32(a) -> np.ndarray:
@@ -74,7 +76,7 @@ def streaming_buffer(buffer, device: torch.device | str = "cpu") -> torch.Tensor
 
 
 def continuous_state(state, device: torch.device | str = "cpu") -> ContinuousState:
-    """lsm_tpu ContinuousState (gammatone; dense or block-sparse reservoir)
+    """lsm_tpu ContinuousState (gammatone or mel; dense or block-sparse reservoir)
     -> the port's, on `device`, with the same dtypes (f32, int32 refrac,
     bool triggers)."""
     def put(a):
@@ -87,3 +89,10 @@ def continuous_state(state, device: torch.device | str = "cpu") -> ContinuousSta
         segs={k: put(v) for k, v in state.segs.items()},
         win_ring=put(state.win_ring),
     )
+
+
+def ridge_accum(state, device: torch.device | str = "cpu") -> RidgeAccumState:
+    """lsm_tpu RidgeAccumState (shift, gram, xte, s1, s2, cnt, n) -> the
+    port's, float32 on `device`."""
+    return RidgeAccumState(*(torch.as_tensor(_f32(getattr(state, f))).to(device)
+                             for f in RidgeAccumState._fields))

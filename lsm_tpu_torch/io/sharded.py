@@ -353,11 +353,16 @@ class ShardedSpikeDataset:
         for s in self.manifest["shards"]:
             yield self._load_shard(s)
 
-    def iter_batches(self, batch_size: int) -> Iterator[SpikeDataset]:
+    def iter_batches(self, batch_size: int,
+                     mask: Optional[np.ndarray] = None) -> Iterator[SpikeDataset]:
         """Re-chunk shards into batches of exactly batch_size rows (the last
-        may be short), each shard loaded once."""
+        may be short), each shard loaded once. `mask` (a global row mask in
+        file order) streams only the selected rows: how the streaming
+        trainer walks the train rows, then the test rows. Pending shards are
+        consumed through views with a read offset, so the copies are O(N)."""
         pending: List[Tuple[np.ndarray, np.ndarray, int]] = []
         n_pending = 0
+        offset = 0
 
         def pop(n: int) -> SpikeDataset:
             nonlocal n_pending
@@ -381,12 +386,50 @@ class ShardedSpikeDataset:
             )
 
         for shard in self.iter_shards():
-            pending.append((shard.x_spikes, shard.y_labels, 0))
-            n_pending += shard.x_spikes.shape[0]
+            x, y = shard.x_spikes, shard.y_labels
+            if mask is not None:
+                m = np.asarray(mask[offset:offset + x.shape[0]])
+                offset += x.shape[0]
+                if not m.any():
+                    continue
+                x, y = x[m], y[m]
+            pending.append((x, y, 0))
+            n_pending += x.shape[0]
             while n_pending >= batch_size:
                 yield pop(batch_size)
         if n_pending:
             yield pop(n_pending)
+
+    def labels(self) -> np.ndarray:
+        """All labels in file order, reading only each shard's label member
+        (npz members decompress on access, so the spikes stay on disk)."""
+        out = []
+        for s in self.manifest["shards"]:
+            with np.load(self.root / s["file"]) as data:
+                out.append(np.asarray(data["y_labels"]))
+        if not out:
+            return np.zeros((0,), np.int64)
+        return np.concatenate(out)
+
+    def gather_rows(self, indices: np.ndarray) -> np.ndarray:
+        """Spike rows at the given global indices, in the given order,
+        loading each touched shard at most once. An empty selection keeps
+        the rank and dtype: (0, channels, time) uint8."""
+        indices = np.asarray(indices, np.int64)
+        bounds = np.cumsum([0] + [int(s["num_samples"]) for s in self.manifest["shards"]])
+        if indices.size and (indices.min() < 0 or indices.max() >= bounds[-1]):
+            raise IndexError("row index out of range for sharded dataset")
+        shard_of = np.searchsorted(bounds, indices, side="right") - 1
+        out = None
+        for si in np.unique(shard_of):
+            pos = np.nonzero(shard_of == si)[0]
+            rows = self._load_shard(self.manifest["shards"][si]).x_spikes[indices[pos] - bounds[si]]
+            if out is None:
+                out = np.empty((indices.size,) + rows.shape[1:], rows.dtype)
+            out[pos] = rows
+        if out is None:
+            return np.zeros((0,) + tuple(self.row_shape or (0, 0)), np.uint8)
+        return out
 
     def load_all(self) -> SpikeDataset:
         xs, ys = [], []

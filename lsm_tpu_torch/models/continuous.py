@@ -1,6 +1,6 @@
 """Continuous-mode streaming KWS with state carried across hops
-(port of lsm_tpu/models/continuous.py, gammatone frontend, one device,
-dense or block-sparse reservoir).
+(port of lsm_tpu/models/continuous.py, both frontends, one device, dense
+or block-sparse reservoir).
 
 Every piece of sequential state persists across chunk boundaries, so a hop
 of `chunk_len` samples costs only the new work:
@@ -9,6 +9,11 @@ of `chunk_len` samples costs only the new work:
     (B, 8, C) state (kernel B3, bit-exact continuation), plus a
     (w_per - h_per)-sub-block energy tail for the windows that straddle
     the chunk boundary;
+  - mel: one STFT frame per 160-sample hop from a carried
+    (n_fft - hop, B, 1) raw-audio tail, with the batch path's window,
+    filterbank and dB (power_to_db's ref = max subtraction cancels in the
+    normalization but for the top_db floor, which the running peak
+    applies); its IIR leaf is the zero-size (B, 0, C);
   - dB normalization: a causal running peak/floor with linear-in-dB decay
     and chunk-level lookahead, in place of the batch path's per-window
     min-max (the mode's main approximation);
@@ -23,7 +28,7 @@ The serving surface is lsm_tpu's: step, step_compact, step_active,
 stream, steps_fused, reset, snapshot / restore and extract_streams /
 install_streams (the unit io/serving_state.py saves and migrates).
 
-Not ported yet: the mel frontend (ROADMAP A8) and the mesh paths (A14).
+Not ported yet: the mesh paths (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from lsm_tpu_torch.models.streaming import (
     validate_stream_idx,
 )
 from lsm_tpu_torch.ops import gammatone as gt
+from lsm_tpu_torch.ops import mel, stft
 from lsm_tpu_torch.ops.hysteresis import hysteresis_encode_step
 from lsm_tpu_torch.ops.kernels.lif import SEG_KEYS
 from lsm_tpu_torch.readout import logistic, scaler
@@ -58,7 +64,9 @@ class ContinuousState:
     `segs` (ring-major like what they cache)."""
 
     iir: torch.Tensor        # (B, 8, C) f32 gammatone cascade state
-    tail: torch.Tensor       # (w_per - h_per, B, C) f32 straddling energies
+                             #   (mel: (B, 0, C), no IIR state)
+    tail: torch.Tensor       # gammatone: (w_per - h_per, B, C) f32 straddling
+                             #   energies; mel: (n_fft - hop, B, 1) raw audio
     hyst: torch.Tensor       # (B, n_thr, C) bool Schmitt trigger state
     norm_hi: torch.Tensor    # (B,) f32 running peak dB
     norm_lo: torch.Tensor    # (B,) f32 running floor dB
@@ -105,28 +113,42 @@ class ContinuousKWS:
     ):
         if fcfg.filterbank not in ("gammatone", "mel"):
             raise ValueError(f"unknown filterbank {fcfg.filterbank!r}")
-        if fcfg.filterbank == "mel":
-            raise NotImplementedError(
-                "the continuous engine's mel frontend is not ported yet "
-                "(ROADMAP A8); use filterbank='gammatone'"
-            )
+        is_mel = fcfg.filterbank == "mel"
         if not isinstance(reservoir, (res.Reservoir, SparseReservoir)):
             raise TypeError(
                 f"unsupported reservoir {type(reservoir).__name__}: the engine "
                 "runs the port's Reservoir or SparseReservoir (lsm_tpu_torch.convert "
                 "carries lsm_tpu's parameters across)"
             )
-        hop_time = fcfg.num_samples / (fcfg.sample_rate * fcfg.time_bins)
-        nwin, hop, _ = gt.gtgram_strides(
-            fcfg.sample_rate, fcfg.gt_window_time, hop_time, fcfg.num_samples
-        )
-        if nwin < hop:
-            raise ValueError(
-                f"gammatone window ({nwin} samples) must be >= the hop "
-                f"({hop}): with gaps between windows the energy-tail "
-                "carry has no meaning"
+        if is_mel:
+            # One STFT frame per hop; frames end flush with the chunk, so a
+            # frame starts up to n_fft - hop samples before it.
+            if fcfg.num_samples % fcfg.time_bins:
+                raise ValueError(
+                    f"num_samples {fcfg.num_samples} must be a multiple of "
+                    f"time_bins {fcfg.time_bins}"
+                )
+            hop = fcfg.num_samples // fcfg.time_bins
+            nwin = fcfg.n_fft
+            if hop > nwin:
+                raise ValueError(
+                    f"mel hop ({hop} samples) must be <= n_fft ({nwin}): "
+                    "with gaps between frames the carried audio tail has "
+                    "no meaning"
+                )
+            g = hop
+        else:
+            hop_time = fcfg.num_samples / (fcfg.sample_rate * fcfg.time_bins)
+            nwin, hop, _ = gt.gtgram_strides(
+                fcfg.sample_rate, fcfg.gt_window_time, hop_time, fcfg.num_samples
             )
-        g = math.gcd(hop, nwin)
+            if nwin < hop:
+                raise ValueError(
+                    f"gammatone window ({nwin} samples) must be >= the hop "
+                    f"({hop}): with gaps between windows the energy-tail "
+                    "carry has no meaning"
+                )
+            g = math.gcd(hop, nwin)
         if chunk_len % hop:
             raise ValueError(
                 f"chunk_len {chunk_len} must be a multiple of the "
@@ -162,8 +184,10 @@ class ContinuousKWS:
         # runs on the card and its plain twin on the CPU, and the two agree
         # to rounding, not bits, so carried state from one must not
         # continue under the other. CPU snapshots of either package load
-        # in the other.
-        self.gtgram_two_phase = self.device.type == "cuda"
+        # in the other. The mel branch runs no cascade: False, as in
+        # lsm_tpu.
+        self.gtgram_two_phase = self.device.type == "cuda" and not is_mel
+        self._is_mel = is_mel
         self.reservoir = reservoir
         self._n_state = (reservoir.n_neurons if isinstance(reservoir, SparseReservoir)
                          else reservoir.w_rec.shape[0])
@@ -176,7 +200,18 @@ class ContinuousKWS:
         self._decay = float(norm_decay_db_per_bin)
         self._g, self._nwin, self._n_cols = g, nwin, n_cols
         self._w_per, self._h_per = nwin // g, hop // g
-        self._tail = self._w_per - self._h_per
+        # Carried frontend state: gammatone keeps straddling sub-block
+        # energies (w_per - h_per, B, C) and the (B, 8, C) cascade state;
+        # mel keeps raw audio (n_fft - hop, B, 1) and no cascade state.
+        self._tail = (nwin - hop) if is_mel else (self._w_per - self._h_per)
+        self._tail_ch = 1 if is_mel else fcfg.n_filters
+        self._iir_n = 0 if is_mel else 8
+        if is_mel:
+            fmax = fcfg.mel_fmax if fcfg.mel_fmax is not None else fcfg.sample_rate / 2.0
+            self._mel_fb_t = mel.filterbank_on(
+                fcfg.sample_rate, fcfg.n_fft, fcfg.n_filters, fcfg.mel_fmin, fmax, self.device
+            ).t()                                           # (n_freqs, C)
+            self._hann = stft.window_on(fcfg.n_fft, self.device)
         self._t_c, self._win_len = t_c, win_len
         self._n_ring = t_win // t_c
         self._n_new_win = t_c // win_len
@@ -215,8 +250,10 @@ class ContinuousKWS:
 
     def _featurize(self, chunk: torch.Tensor, st: ContinuousState):
         """Decoded (B, chunk_len) f32 audio -> (spikes, iir, tail, hyst,
-        norm_hi, norm_lo). Window c sums sub-blocks [c*h_per, c*h_per +
-        w_per) of [carried tail | this chunk's energies]."""
+        norm_hi, norm_lo). Gammatone: window c sums sub-blocks [c*h_per,
+        c*h_per + w_per) of [carried tail | this chunk's energies]."""
+        if self._is_mel:
+            return self._featurize_mel(chunk, st)
         fcfg = self.fcfg
         iir, sub_e = gt.gtgram_chunk(chunk, st.iir, fcfg.sample_rate,
                                      fcfg.n_filters, fcfg.gt_f_min, self._g)
@@ -232,6 +269,23 @@ class ContinuousKWS:
         # Explicit start index: all_e[-0:] would keep the whole buffer.
         new_tail = all_e[all_e.shape[0] - self._tail:]
         return spikes, iir, new_tail, hyst, hi, lo
+
+    def _featurize_mel(self, chunk: torch.Tensor, st: ContinuousState):
+        """The mel branch: frame i covers [i*hop, i*hop + n_fft) of
+        [carried audio tail | chunk], so the last frame ends flush with the
+        chunk; the batch path's window, filterbank and dB, without the
+        ref = max subtraction."""
+        audio_tail = st.tail[:, :, 0].t()                     # (B, tail)
+        concat = torch.cat([audio_tail, chunk], dim=-1)
+        frames = concat.unfold(-1, self.fcfg.n_fft, self._g) * self._hann
+        spec = torch.fft.rfft(frames, dim=-1)                 # (B, n_cols, n_freqs)
+        power = spec.real ** 2 + spec.imag ** 2
+        melp = torch.matmul(power, self._mel_fb_t)            # (B, n_cols, C)
+        db = (10.0 * torch.log(torch.clamp_min(melp, 1e-10)) / _LOG10).transpose(0, 1)
+        spikes, hyst, hi, lo = self._normalize_encode(db, st)
+        # Explicit start index: concat[:, -0:] would keep the whole buffer.
+        new_tail = concat[:, concat.shape[1] - self._tail:].t().unsqueeze(-1).contiguous()
+        return spikes, st.iir, new_tail, hyst, hi, lo
 
     def _reservoir_chunk(self, spikes: torch.Tensor, st: ContinuousState):
         """(B, C', T_c) spikes + carried state -> (v, refrac, s_prev,
@@ -478,9 +532,9 @@ class ContinuousKWS:
         n_state = self._n_state
         no = self.reservoir.n_outputs
         shapes = dict(
-            iir=(B, 8, C), tail=(self._tail, B, C), hyst=(B, self.fcfg.n_thresholds, C),
-            norm_hi=(B,), norm_lo=(B,), v=(B, n_state), refrac=(B, n_state),
-            s_prev=(B, n_state), win_ring=(B, no, self.reservoir.n_rate_windows),
+            iir=(B, self._iir_n, C), tail=(self._tail, B, self._tail_ch),
+            hyst=(B, self.fcfg.n_thresholds, C), norm_hi=(B,), norm_lo=(B,), v=(B, n_state),
+            refrac=(B, n_state), s_prev=(B, n_state), win_ring=(B, no, self.reservoir.n_rate_windows),
         )
         dtypes = dict(hyst=torch.bool, refrac=torch.int32)
         leaves = {

@@ -1,12 +1,20 @@
 """Stage-1 featurizer: audio batch -> spike trains
 (port of lsm_tpu/models/frontend.py).
 
-    audio -> exact gammatone spectrogram (kernel B1) -> dB with an 80 dB
-    floor -> per-sample min-max -> linear zoom to time_bins -> 4-threshold
-    hysteresis encoder -> redundancy repeat
+    audio -> {mel | gammatone} spectrogram -> dB (power_to_db with ref =
+    max, or 20 log10 with an 80 dB floor) -> per-sample min-max -> linear
+    zoom to time_bins -> 4-threshold hysteresis encoder -> redundancy repeat
 
-Only the exact gammatone ("iir") path is ported; the mel filterbank and the
-FFT gammatone approximation are ROADMAP A8.
+Both of the reference's filterbanks and all three gammatone methods:
+
+  - mel: `stft.stft_power` -> `mel.apply_mel` -> `db.power_to_db`;
+  - gammatone "fft": `gammatone.gtgram_fft`, the FFT-weighted
+    approximation;
+  - gammatone "iir" and "iir-xla": the exact cascade, `gammatone.gtgram_iir`
+    (kernel B1 on the card, its plain twin on the CPU). In lsm_tpu the two
+    are two TPU implementations of one function at equal numerics, the
+    Pallas kernel and the XLA block scan; here both run kernel B1, so that
+    no plain twin sits on a user's path on the card.
 """
 
 from __future__ import annotations
@@ -16,24 +24,39 @@ import torch
 from lsm_tpu_torch.config import FrontendConfig
 from lsm_tpu_torch.ops import db as db_ops
 from lsm_tpu_torch.ops import gammatone as gt
-from lsm_tpu_torch.ops import hysteresis, resample
+from lsm_tpu_torch.ops import hysteresis, mel, resample, stft
 from lsm_tpu_torch.ops.ulaw import decode_ulaw
 
 
 def spectrogram_db(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """(B, S) float32 -> (B, n_filters, n_cols) dB spectrogram."""
-    if cfg.filterbank != "gammatone" or cfg.gammatone_method != "iir":
-        raise NotImplementedError(
-            f"filterbank={cfg.filterbank!r} gammatone_method="
-            f"{cfg.gammatone_method!r} is not ported yet (ROADMAP A8: mel "
-            "frontend and the FFT gammatone); use the exact gammatone 'iir'"
+    """(B, S) float32 -> (B, n_filters, n_frames) dB spectrogram."""
+    if cfg.filterbank == "mel":
+        hop = max(1, cfg.num_samples // cfg.time_bins)
+        power = stft.stft_power(audio, cfg.n_fft, hop)
+        fb = mel.filterbank_on(
+            cfg.sample_rate, cfg.n_fft, cfg.n_filters, cfg.mel_fmin,
+            cfg.mel_fmax if cfg.mel_fmax is not None else cfg.sample_rate / 2.0,
+            audio.device,
         )
+        return db_ops.power_to_db(mel.apply_mel(power, fb), top_db=cfg.power_top_db)
+    if cfg.filterbank != "gammatone":
+        raise ValueError(f"unknown filterbank: {cfg.filterbank!r}")
     hop_time = cfg.num_samples / (cfg.sample_rate * cfg.time_bins)
-    spec = gt.gtgram_iir(
+    spec = _dispatch_gtgram(cfg)(
         audio, cfg.sample_rate, cfg.gt_window_time, hop_time,
         cfg.n_filters, cfg.gt_f_min,
     )
     return db_ops.amplitude_to_db_floor(spec, top_db=cfg.power_top_db)
+
+
+def _dispatch_gtgram(cfg: FrontendConfig):
+    """The gtgram of cfg.gammatone_method: "fft" the STFT approximation,
+    "iir" and "iir-xla" the exact cascade (kernel B1 on the card)."""
+    if cfg.gammatone_method == "fft":
+        return gt.gtgram_fft
+    if cfg.gammatone_method in ("iir", "iir-xla"):
+        return gt.gtgram_iir
+    raise ValueError(f"unknown gammatone_method: {cfg.gammatone_method!r}")
 
 
 def featurize_batch(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:

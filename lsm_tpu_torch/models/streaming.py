@@ -317,12 +317,6 @@ class StreamingKWS:
                 "runs the port's Reservoir or SparseReservoir (lsm_tpu_torch.convert "
                 "carries lsm_tpu's parameters across)"
             )
-        if fcfg.filterbank != "gammatone" or fcfg.gammatone_method != "iir":
-            raise NotImplementedError(
-                f"filterbank={fcfg.filterbank!r} gammatone_method="
-                f"{fcfg.gammatone_method!r} is not ported yet (ROADMAP A8); "
-                "the exact engine runs the exact gammatone 'iir' frontend"
-            )
         self.device = reservoir.w_in.device
         self.reservoir = reservoir
         self.readout = readout.to(self.device)

@@ -1,4 +1,5 @@
-"""dB floor and per-sample min-max (port of lsm_tpu/ops/db.py).
+"""The two dB conversions (mel's power_to_db, gammatone's 20 log10 with a
+floor) and per-sample min-max (port of lsm_tpu/ops/db.py).
 
 log10 is computed as log(x) / ln(10), as the reference package does, so the
 two agree to the ulp (torch.log10 rounds differently).
@@ -13,6 +14,18 @@ _LOG10 = 2.302585092994046  # ln(10)
 
 def _log10(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x) / _LOG10
+
+
+def power_to_db(
+    power: torch.Tensor, amin: float = 1e-10, top_db: float = 80.0
+) -> torch.Tensor:
+    """librosa.power_to_db(S, ref=np.max) over the trailing two axes: the
+    mel path's dB, with an 80 dB floor below the per-sample peak."""
+    ref = torch.amax(power, dim=(-2, -1), keepdim=True)
+    log_spec = 10.0 * _log10(torch.clamp_min(power, amin))
+    log_spec = log_spec - 10.0 * _log10(torch.clamp_min(ref, amin))
+    peak = torch.amax(log_spec, dim=(-2, -1), keepdim=True)
+    return torch.maximum(log_spec, peak - top_db)
 
 
 def amplitude_to_db_floor(

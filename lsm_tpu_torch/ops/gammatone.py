@@ -2,14 +2,15 @@
 
 The float64 NumPy constant builders are copied from the reference package,
 whose module imports jax: `make_erb_coeffs`, `gtgram_strides`,
-`_block_iir_matrices` and `_quadratic_matrices` (tests assert equality with
-lsm_tpu's). Slaney's 4-biquad cascade runs over sub-blocks of g = gcd(hop,
-window) samples with an 8-dim carried state; the per-sub-block energies come
-from kernel B1 (ops/kernels/gtgram.py), which runs the cascade sample by
+`_block_iir_matrices`, `_quadratic_matrices` and `_gammatone_fft_weights`
+(tests assert equality with lsm_tpu's). Slaney's 4-biquad cascade runs over
+sub-blocks of g = gcd(hop, window) samples with an 8-dim carried state; the
+per-sub-block energies come from kernel B1 (ops/kernels/gtgram.py), which runs the cascade sample by
 sample from `cascade_coeffs`, and whose plain PyTorch twin is the exact
 block scan of lsm_tpu's `gtgram_iir` on `block_system`; for the continuous
 engine's chunks with a carried state, from kernel B3 (`gtgram_chunk`,
-`gtgram_iir_scan`).
+`gtgram_iir_scan`). `gtgram_fft` is the FFT-weighted approximation
+(gammatone_method "fft"), on torch.fft.rfft and a float32 matmul.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from lsm_tpu_torch.ops.kernels import gtgram as gtgram_kernel
+from lsm_tpu_torch.ops.stft import hann_window, window_on
 
 _EAR_Q = 9.26449
 _MIN_BW = 24.7
@@ -266,6 +268,56 @@ def gtgram_iir_scan(
     n_sub, B, _ = blocks.shape
     wave = blocks.transpose(0, 1).reshape(B, n_sub * g)
     return gtgram_chunk(wave, init_state, fs, channels, f_min, g)
+
+
+@functools.lru_cache(maxsize=None)
+def _gammatone_fft_weights(fs: float, n_fft: int, channels: int, f_min: float) -> np.ndarray:
+    """(C, 1 + n_fft // 2) float32 squared-magnitude response of each
+    gammatone channel (complex float64 in NumPy, as lsm_tpu builds it)."""
+    coeffs = make_erb_coeffs(fs, channels, f_min)
+    freqs = np.linspace(0.0, fs / 2.0, 1 + n_fft // 2)
+    z = np.exp(2j * np.pi * freqs / fs)
+    zinv = 1.0 / z
+    den = 1.0 + coeffs.b1[:, None] * zinv + coeffs.b2[:, None] * zinv**2
+    h = np.ones_like(den)
+    for k in range(4):
+        num = coeffs.a0[:, None] + coeffs.a1[k][:, None] * zinv
+        h = h * (num / den)
+    h = h / coeffs.gain[:, None]
+    return (np.abs(h) ** 2).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_weights_on(fs: float, n_fft: int, channels: int, f_min: float,
+                    device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_gammatone_fft_weights(fs, n_fft, channels, f_min)).to(device)
+
+
+def gtgram_fft(
+    wave: torch.Tensor,
+    fs: float,
+    window_time: float,
+    hop_time: float,
+    channels: int,
+    f_min: float,
+) -> torch.Tensor:
+    """The FFT-weighted gammatone approximation (`fft_gtgram`).
+    wave (B, S) float32 -> (B, C, n_cols).
+
+    A Hann-windowed STFT with the gtgram window and hop, no center padding,
+    zero-padded to n_fft, the next power of two at or above the window
+    (400 -> 512 at the flagship), each bin's power weighted by each
+    channel's |H(f)|^2, then sqrt(band / n_fft)."""
+    S = wave.shape[-1]
+    nwin, hop, n_cols = gtgram_strides(fs, window_time, hop_time, S)
+    n_fft = 1 << (nwin - 1).bit_length()
+    frames = wave.unfold(-1, nwin, hop)[:, :n_cols] * window_on(nwin, wave.device)
+    win_power = float(np.sum(hann_window(nwin) ** 2))
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    power = (spec.real ** 2 + spec.imag ** 2) / win_power     # (B, n_cols, n_freqs)
+    weights = _fft_weights_on(fs, n_fft, channels, f_min, wave.device)
+    band = torch.matmul(weights, power.transpose(-1, -2))       # (B, C, n_cols)
+    return torch.sqrt(band / n_fft)
 
 
 def gtgram_iir(

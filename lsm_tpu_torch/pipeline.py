@@ -10,6 +10,10 @@
     a spike corpus + a trained reservoir, scaler and readout ->
     classify_spikes_streaming -> predictions
 
+    a sharded spike corpus -> extract_and_train_streaming (stage 2+3 with
+    flat host memory: ridge statistics or a feature buffer on the device)
+    -> a trained reservoir, scaler and readout, and the test report
+
 Every function takes an explicit torch device; nothing moves to another
 device silently. The reference's mesh and --check branches are not ported
 (ROADMAP A14 and A15).
@@ -371,6 +375,17 @@ def unpack_spike_bits(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(packed.shape[0], packed.shape[1], -1)
 
 
+def spikes_to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host (B, C, T) 0/1 uint8 spikes onto `device`: bit-packed on the host
+    and unpacked on the device where T is a multiple of 8 (an eighth of the
+    bytes cross the link), else as they are."""
+    x = np.asarray(x)
+    if x.shape[-1] % 8 == 0:
+        packed = torch.as_tensor(np.packbits(x, axis=-1, bitorder="little"))
+        return unpack_spike_bits(packed.to(device))
+    return torch.tensor(x).to(device)
+
+
 def classify_spikes_streaming(
     cfg: PipelineConfig,
     source,
@@ -390,13 +405,7 @@ def classify_spikes_streaming(
     preds_dev, labels_out = [], []
     t0 = time.perf_counter()
     for chunk in source.iter_batches(cfg.batch_size):
-        x = np.asarray(chunk.x_spikes)
-        if x.shape[-1] % 8 == 0:
-            packed = torch.as_tensor(np.packbits(x, axis=-1, bitorder="little"))
-            spikes = unpack_spike_bits(packed.to(device))
-        else:
-            spikes = torch.tensor(x).to(device)
-        feats = res.extract_features(reservoir, spikes, keys)
+        feats = res.extract_features(reservoir, spikes_to_device(chunk.x_spikes, device), keys)
         preds_dev.append(logistic.predict(readout, scaler.transform(st, feats)))
         labels_out.append(np.asarray(chunk.y_labels))
         if len(preds_dev) % 8 == 0 and device.type == "cuda":
@@ -410,6 +419,191 @@ def classify_spikes_streaming(
     log.info("Classified %d utterances in %.2fs (%.1f utt/s)",
              len(preds), dt, len(preds) / max(dt, 1e-9))
     return preds, labels
+
+
+# ---------------------------------------------------------------------------
+# Constant-memory training at corpus scale (streamed stage 2+3)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StreamingTrainResult:
+    accuracy: float
+    report: metrics.ClassificationReport
+    readout: logistic.LogisticReadout
+    scaler: scaler.Scaler
+    reservoir: Union[res.Reservoir, SparseReservoir]
+    w_critico: float
+    mean_weight: float
+    n_train: int
+    n_test: int
+    diagnostics: Optional[DiagnosticsReport]
+    # Host clock (time.perf_counter) marks: name -> (start, end) of
+    # "calibrate", "fit_pass", "solve" and "eval_pass"; and the fit pass's
+    # split in seconds: shard_iter, dispatch (pack + transfer + launch), sync.
+    phases: dict
+    fit_split: dict
+
+
+def extract_and_train_streaming(
+    cfg: PipelineConfig,
+    source,
+    device: torch.device,
+    class_names: Optional[Sequence[str]] = None,
+    alpha: float = 1.0,
+    run_diagnostics: bool = True,
+    readout: str = "ridge",
+    l2_c: float = 1.0,
+    max_iter: int = 1000,
+) -> StreamingTrainResult:
+    """Fused stage 2+3 over a sharded spike corpus with flat host memory.
+
+    `source` is a ShardedSpikeDataset (or anything with iter_batches(bs,
+    mask=), labels() and gather_rows()). Each row is featurized once:
+
+      - the split is extract_lsm_features's (stratified_split on indices),
+        the calibration subset its first <= 500 train rows, the reservoir
+        `init_reservoir`'s (dense on B2, block-sparse on B5);
+      - pass 1 streams the train rows, bit-packed to the device, and folds
+        each batch's features into the ridge statistics on the device
+        (readout/streaming_fit.py); with readout="logistic" it also writes
+        them into one preallocated (n_train, D) float32 buffer on the
+        device, real rows only, so the L-BFGS objective is the in-memory
+        fit's;
+      - finalize_ridge gives the scaler (the train moments) and the ridge
+        readout; "logistic" instead standardizes the buffer in place and
+        runs fit_logistic on it (the reference readout);
+      - pass 2 streams the test rows through the solved readout.
+
+    Every 8 batches the host waits for the device, which bounds the pinned
+    batches in flight. The three phase timers of pass 1 (shard iteration,
+    pack + transfer + dispatch, device sync) are logged as lsm_tpu logs
+    them. lsm_tpu's mesh and multi-host branches are not ported (ROADMAP
+    A14), nor its --check validation (A15)."""
+    from lsm_tpu_torch.readout.streaming_fit import (
+        finalize_ridge, init_ridge_accum, update_ridge_accum,
+    )
+
+    if readout not in ("ridge", "logistic"):
+        raise ValueError(f"readout must be 'ridge' or 'logistic', got {readout!r}")
+    names = list(class_names or cfg.commands)
+    k = len(names)
+    labels_all = np.asarray(source.labels())
+    # torch's one_hot raises on a label outside [0, k), without naming the
+    # cause; a corpus built with another vocabulary must say so.
+    if labels_all.size and (labels_all.min() < 0 or labels_all.max() >= k):
+        raise ValueError(
+            f"corpus labels span [{labels_all.min()}, {labels_all.max()}] "
+            f"but the class vocabulary has {k} entries ({names[:4]}...) — "
+            "the sharded dataset was built with a different --vocab/"
+            "--commands than this fit was given"
+        )
+    n = labels_all.shape[0]
+    phases = {}
+    t_cal = time.perf_counter()
+    idx_tr, _, _, _ = stratified_split(np.arange(n), labels_all, cfg.test_size, cfg.split_seed)
+    train_mask = np.zeros(n, bool)
+    train_mask[np.asarray(idx_tr)] = True
+
+    calib = source.gather_rows(np.asarray(idx_tr)[: min(500, len(idx_tr))])
+    wc, mean_weight = calibrate_weight(cfg.reservoir, calib, cfg.multiplier)
+    log.info("Theoretical w_critico: %.8f", wc)
+    log.info("Using weight: %.8f (multiplier: %.2f)", mean_weight, cfg.multiplier)
+    reservoir = init_reservoir(cfg, calib.shape[1], mean_weight, device)
+    report = None
+    if run_diagnostics:
+        report = run_network_diagnostics(reservoir, calib)
+        log.info("\n%s", report.render())
+
+    keys = tuple(FEATURE_SETS[cfg.feature_set])
+    bs = cfg.batch_size
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    phases["calibrate"] = (t_cal, time.perf_counter())
+
+    def extract(x: np.ndarray) -> torch.Tensor:
+        return res.extract_features(reservoir, spikes_to_device(x, device), keys)
+
+    state = None
+    feat_buf = None
+    y_buf = torch.empty(len(idx_tr), dtype=torch.int64, device=device) \
+        if readout == "logistic" else None
+    n_train = n_batches = 0
+    t_iter = t_disp = t_sync = 0.0
+    t0 = time.perf_counter()
+    it = iter(source.iter_batches(bs, mask=train_mask))
+    while True:
+        tp = time.perf_counter()
+        batch = next(it, None)
+        t_iter += time.perf_counter() - tp
+        if batch is None:
+            break
+        tp = time.perf_counter()
+        nb = batch.x_spikes.shape[0]
+        feats = extract(batch.x_spikes)
+        yb = torch.as_tensor(np.asarray(batch.y_labels, np.int64)).to(device)
+        if state is None:
+            state = init_ridge_accum(torch.mean(feats, dim=0), k)
+        update_ridge_accum(state, feats, yb)
+        if readout == "logistic":
+            if feat_buf is None:
+                feat_buf = torch.empty(len(idx_tr), feats.shape[1], dtype=torch.float32,
+                                       device=device)
+            feat_buf[n_train:n_train + nb] = feats
+            y_buf[n_train:n_train + nb] = yb
+        n_train += nb
+        n_batches += 1
+        t_disp += time.perf_counter() - tp
+        if n_batches % 8 == 0 and cuda:
+            # Backpressure: without it the host runs ahead of the card and
+            # keeps every batch in flight pinned.
+            tp = time.perf_counter()
+            torch.cuda.current_stream(device).synchronize()
+            t_sync += time.perf_counter() - tp
+    if state is None:
+        raise ValueError("streaming fit: no training rows in corpus")
+    readout_mod, st = finalize_ridge(state, alpha=alpha)
+    if cuda:
+        torch.cuda.synchronize(device)
+    phases["fit_pass"] = (t0, time.perf_counter())
+    dt = phases["fit_pass"][1] - t0
+    log.info("Streaming %s fit pass: %d train rows in %.2fs (%.1f utt/s); "
+             "phases: shard-iter %.1fs, pack+H2D+dispatch %.1fs, device-sync %.1fs",
+             readout, n_train, dt, n_train / max(dt, 1e-9), t_iter, t_disp, t_sync)
+    if readout == "logistic":
+        # The reference readout on the device-resident buffer, standardized
+        # in place: the in-memory path's objective on the same rows.
+        t0 = time.perf_counter()
+        z = feat_buf.sub_(st.mean).div_(st.scale)
+        feat_buf = None
+        readout_mod, iters = logistic.fit_logistic(z, y_buf, k, l2_c=l2_c, max_iter=max_iter)
+        del z
+        phases["solve"] = (t0, time.perf_counter())
+        log.info("Streaming logistic solve: %d LBFGS iters in %.2fs",
+                 int(iters), phases["solve"][1] - t0)
+
+    preds_dev, y_true = [], []
+    t0 = time.perf_counter()
+    for batch in source.iter_batches(bs, mask=~train_mask):
+        feats = extract(batch.x_spikes)
+        preds_dev.append(logistic.predict(readout_mod, scaler.transform(st, feats)))
+        y_true.append(np.asarray(batch.y_labels))
+        if len(preds_dev) % 8 == 0 and cuda:          # the same backpressure
+            torch.cuda.current_stream(device).synchronize()
+    preds = torch.cat(preds_dev).cpu().numpy() if preds_dev else np.zeros(0, np.int64)
+    y_test = np.concatenate(y_true) if y_true else np.zeros(0, np.int64)
+    phases["eval_pass"] = (t0, time.perf_counter())
+    dt = phases["eval_pass"][1] - t0
+    log.info("Streaming eval: %d test rows in %.2fs (%.1f utt/s)",
+             len(y_test), dt, len(y_test) / max(dt, 1e-9))
+    rep = metrics.classification_report(y_test, preds, names)
+    log.info("Test Accuracy: %.2f%%", rep.accuracy * 100)
+    return StreamingTrainResult(
+        accuracy=rep.accuracy, report=rep, readout=readout_mod, scaler=st,
+        reservoir=reservoir, w_critico=wc, mean_weight=mean_weight,
+        n_train=n_train, n_test=int(len(y_test)), diagnostics=report, phases=phases,
+        fit_split={"shard_iter": t_iter, "dispatch": t_disp, "sync": t_sync},
+    )
 
 
 def run_pipeline_arrays(

@@ -8,7 +8,8 @@ Minimizes sklearn's lbfgs objective scaled by 1/(C*N):
 with the intercept unpenalized, using torch.optim.LBFGS with a strong-Wolfe
 line search and a 10-pair history (optax.lbfgs's default). The stopping rule
 is the reference's: iterate while it < max_iter and the global L2 norm of
-the gradient at the current point exceeds tol.
+the gradient at the current point exceeds tol. `fit_ridge` is the
+closed-form one-hot ridge alternative.
 """
 
 from __future__ import annotations
@@ -74,6 +75,30 @@ def fit_logistic(
         opt.step(closure)
         it += 1
     return LogisticReadout(w.detach(), b.detach()), it
+
+
+def solve_normal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^-1 b for the ridge's normal matrix a = G + alpha I, by LU with
+    partial pivoting (torch.linalg.solve). lsm_tpu asks for Cholesky
+    (jax.scipy.linalg.solve(assume_a="pos")); in float32 a Gram of tens of
+    thousands of collinear feature rows can miss positive definiteness by
+    more than alpha, where Cholesky fails and LU still solves."""
+    return torch.linalg.solve(a, b)
+
+
+def fit_ridge(x: torch.Tensor, y: torch.Tensor, num_classes: int,
+              alpha: float = 1.0) -> LogisticReadout:
+    """Closed-form one-hot ridge readout on x's device: the normal
+    equations (Xc^T Xc + alpha I) W = Xc^T Yc on centered features and
+    one-hot labels, b = y_mean - x_mean W."""
+    d = x.shape[1]
+    y1 = nn.functional.one_hot(y.to(torch.int64), num_classes).to(torch.float32)
+    x_mean = x.mean(dim=0, keepdim=True)
+    y_mean = y1.mean(dim=0, keepdim=True)
+    xc, yc = x - x_mean, y1 - y_mean
+    gram = xc.T @ xc + alpha * torch.eye(d, dtype=torch.float32, device=x.device)
+    w = solve_normal(gram, xc.T @ yc)
+    return LogisticReadout(w, (y_mean - x_mean @ w)[0])
 
 
 def predict(readout: LogisticReadout, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 
 Two-pass (mean, then centred second moment): the one-pass form cancels
 catastrophically in f32 for large-mean, small-variance features. Population
-std (ddof=0); zero variance maps to scale 1.
+std (ddof=0); zero variance maps to scale 1. The streaming trainer, which
+sees each row once, builds its scaler from shifted moments instead
+(`fit_scaler_from_moments`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,22 @@ def fit_scaler(x: torch.Tensor) -> Scaler:
     mean = torch.mean(x, dim=0)
     d = x - mean[None, :]
     var = torch.mean(d * d, dim=0)
+    scale = torch.sqrt(var)
+    scale = torch.where(scale == 0.0, 1.0, scale)
+    return Scaler(mean, scale)
+
+
+def fit_scaler_from_moments(sum_x: torch.Tensor, sum_x2: torch.Tensor, count: torch.Tensor,
+                            shift: torch.Tensor) -> Scaler:
+    """A Scaler from streamed moments (the streaming trainer cannot two-pass).
+
+    The moments are shifted by c: sum_x = sum(x - c), sum_x2 =
+    sum((x - c)^2). Then var = E[(x - c)^2] - (mean - c)^2 subtracts a
+    small correction instead of cancelling two large numbers (pick c near
+    the data, e.g. the first batch's mean)."""
+    dmean = sum_x / count                           # mean - c
+    mean = dmean + shift
+    var = torch.clamp_min(sum_x2 / count - dmean * dmean, 0.0)
     scale = torch.sqrt(var)
     scale = torch.where(scale == 0.0, 1.0, scale)
     return Scaler(mean, scale)

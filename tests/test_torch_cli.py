@@ -136,15 +136,9 @@ def test_stage_entry_points_chain_on_a_wav_corpus(tmp_path, monkeypatch, capsys)
 
 
 REFUSED = [
-    (tcli.main, ["--filterbank", "mel"], "A8"),
-    (tcli.main, ["--gammatone-method", "fft"], "A8"),
     (tcli.main, ["--single-device"], "A14"),
     (tcli.main, ["--check"], "A15"),
     (tcli.main, ["--metrics-out", "m.jsonl"], "A15"),
-    (create_dataset.main, ["--gammatone-method", "iir-xla"], "A8"),
-    (extract_lsm_features.main, ["--streaming-fit"], "A13"),
-    (extract_lsm_features.main, ["--ridge-alpha", "2"], "A13"),
-    (extract_lsm_features.main, ["--readout", "logistic"], "A13"),
     (train_classifier.main, ["--metrics-out", "m.jsonl"], "A15"),
     (classify.main, ["--single-device"], "A14"),
 ]
@@ -155,6 +149,61 @@ REFUSED = [
 def test_unported_flags_are_refused_by_item(entry, argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         entry(argv + ["--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def small_shards(tmp_path_factory):
+    """A 4-class WAV corpus featurized into shards by cli.create_dataset."""
+    root = tmp_path_factory.mktemp("cli_shards")
+    tds.write_synthetic_corpus(root / "corpus", ("a", "b", "c", "d"), n_per_class=12, seed=5)
+    create_dataset.main(["--data-dir", str(root / "corpus"), *SMALL,
+                         "--sharded-output", str(root / "sh"), "--shard-size", "10"])
+    return root
+
+
+# The flags that waited for the mel frontend and the other gammatone methods
+# (ROADMAP A8) and for the streaming trainer (A13): each now runs.
+NOW_RUN = [
+    (tcli.main, ["--filterbank", "mel"]),
+    (tcli.main, ["--gammatone-method", "fft"]),
+    (create_dataset.main, ["--gammatone-method", "iir-xla"]),
+    (extract_lsm_features.main, ["--streaming-fit"]),
+    (extract_lsm_features.main, ["--streaming-fit", "--ridge-alpha", "2"]),
+    (extract_lsm_features.main, ["--streaming-fit", "--readout", "logistic"]),
+]
+
+
+@pytest.mark.parametrize("entry,argv", NOW_RUN,
+                         ids=[f"{e.__module__.split('.')[-1]}{a[-1]}" for e, a in NOW_RUN])
+def test_formerly_unported_flags_run(entry, argv, small_shards, tmp_path, monkeypatch, capsys):
+    """The frontend flags build lsm_tpu's config field by field and a
+    4-class run completes; the streaming-fit flags train on a shard
+    directory and save a bundle."""
+    monkeypatch.chdir(tmp_path)
+    if entry is extract_lsm_features.main:
+        entry(argv + ["--input", str(small_shards / "sh"), *RESERVOIR, "--batch-size", "16",
+                      "--save-model", "m.npz", "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert "Streaming 48 samples" in out and "Model bundle saved to 'm.npz'" in out
+        assert "Test Accuracy:" in out
+        if "logistic" in argv:
+            from lsm_tpu_torch.cli import stream_kws
+
+            stream_kws.main(["--model", "m.npz", "--data-dir", str(small_shards / "corpus"),
+                             "--mode", "exact", "--chunk-ms", "500", "--output", "p.npz",
+                             "--device", "cpu"])
+            assert len(np.load("p.npz")["predictions"]) == 48
+        return
+    port = tcli.build_config(tcli.parse_args(argv + PORT_ONLY))
+    _assert_fields_equal(port, jcli.build_config(_reference_args(argv)), "PipelineConfig")
+    if entry is create_dataset.main:
+        entry(["--data-dir", str(small_shards / "corpus"), *SMALL, *argv, "--output", "s.npz"])
+        assert "  Shape: (48, 16, 400)" in capsys.readouterr().out
+        return
+    entry(argv + ["--synthetic", "--samples-per-class", "20", "--commands", "yes,no,up,down",
+                  "--n-filters", "16", *RESERVOIR, "--device", "cpu", "--skip-artifacts"])
+    out = capsys.readouterr().out
+    assert "Shape: (80, 16, 400)" in out and "--- Pipeline Finished ---" in out
 
 
 @pytest.mark.parametrize("entry", [tcli.main, create_dataset.main, extract_lsm_features.main,
@@ -200,9 +249,10 @@ def _reference_stream_kws():
 
 @pytest.fixture(scope="module")
 def serving_dir(tmp_path_factory):
-    """A 4-class WAV corpus (2 files a class) and three bundles on lsm_tpu's
+    """A 4-class WAV corpus (2 files a class) and five bundles on lsm_tpu's
     dyadic draws (16 filters, 128 neurons dense, 256 block-sparse): batch
-    dense (v1), batch sparse (v2-sparse) and continuous dense, chunk 3200."""
+    dense (v1), batch sparse (v2-sparse) and continuous dense, chunk 3200,
+    on the gammatone frontend; batch and continuous dense on the mel one."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -237,6 +287,11 @@ def serving_dir(tmp_path_factory):
     save_model(d / "cont.npz", dense, ro, sc, fcfg, "original", names,
                feature_mode="continuous",
                continuous_params={"chunk_len": 3200, "norm_decay_db_per_bin": 0.1})
+    mel = tcfg.FrontendConfig(n_filters=16, filterbank="mel")
+    save_model(d / "mel.npz", dense, ro, sc, mel, "original", names)
+    save_model(d / "mel_cont.npz", dense, ro, sc, mel, "original", names,
+               feature_mode="continuous",
+               continuous_params={"chunk_len": 3200, "norm_decay_db_per_bin": 0.1})
     return d
 
 
@@ -263,6 +318,8 @@ SERVE = {
     "pool": ["--model", "dense.npz", "--chunk-ms", "200", "--pool", "--max-streams", "3",
              "--wire", "pcm16", "--check"],
     "continuous": ["--model", "cont.npz", "--mode", "continuous"],
+    "mel_exact": ["--model", "mel.npz", "--chunk-ms", "200", "--wire", "pcm16"],
+    "mel_continuous": ["--model", "mel_cont.npz", "--mode", "continuous"],
 }
 
 

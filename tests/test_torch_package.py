@@ -104,6 +104,8 @@ def test_port_imports_nothing_of_the_reference():
         "import lsm_tpu_torch.cli.extract_lsm_features, lsm_tpu_torch.cli.train_classifier\n"
         "import lsm_tpu_torch.cli.classify, lsm_tpu_torch.cli.stream_kws\n"
         "import lsm_tpu_torch.models.pool, lsm_tpu_torch.io.serving_state\n"
+        "import lsm_tpu_torch.ops.stft, lsm_tpu_torch.ops.mel\n"
+        "import lsm_tpu_torch.readout.streaming_fit, lsm_tpu_torch.tools.bench_stream_train\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"

@@ -399,5 +399,6 @@ def test_exact_swap_readout_and_refusals(dense, audio):
     with pytest.raises(ValueError, match="tensor chunk"):
         t.step(torch.zeros(N_STREAMS, L, dtype=torch.float64))
     res, ro, sc, _ = port_modules(dense)
-    with pytest.raises(NotImplementedError, match="A8"):
-        StreamingKWS(res, ro, sc, tcfg.FrontendConfig(n_filters=32, filterbank="mel"))
+    with pytest.raises(ValueError, match="unknown gammatone_method"):
+        StreamingKWS(res, ro, sc, tcfg.FrontendConfig(n_filters=32, gammatone_method="iir-fast"),
+                     "original", N_STREAMS).step(hop(audio, 0))
