@@ -111,18 +111,19 @@ def _generate(args: tuple):
 
 def write_corpus(root: Path, n_utterances: int, cfg: PipelineConfig, device: torch.device,
                  shard_size: int = 2000, chunk: int = 2400, seed: int = 42) -> dict:
-    """Write n_utterances rows of synthetic_audio_batch (len(cfg.commands)
-    classes, `chunk` rows a seed: seed + the chunk's first row) featurized
-    on `device` into compressed shards under `root`. The chunks' audio is
-    generated by worker processes (one a host core, up to 8) while this
-    process featurizes and writes. Returns the write's seconds, rows and
-    bytes."""
+    """Write n_utterances rows (rounded down to a multiple of the
+    len(cfg.commands) classes) of synthetic_audio_batch, `chunk` rows a
+    seed (seed + the chunk's first row), featurized on `device`, into
+    compressed shards under `root`. The chunks' audio is generated by
+    worker processes (one a host core, up to 8) while this process
+    featurizes and writes. Returns the write's seconds, rows and bytes."""
     from lsm_tpu_torch.io.sharded import ShardedSpikeDatasetWriter
     from lsm_tpu_torch.models.frontend import featurize_batch
 
     k = len(cfg.commands)
-    if n_utterances % k or chunk % k:
-        raise ValueError(f"--n-utterances and the chunk must be multiples of {k} classes")
+    if chunk % k:
+        raise ValueError(f"the chunk ({chunk} rows) must be a multiple of the {k} classes")
+    n_utterances -= n_utterances % k
     t0 = time.perf_counter()
     writer = ShardedSpikeDatasetWriter(root, shard_size, resume=False, compress=True,
                                        meta=corpus_meta(cfg))
