@@ -3,7 +3,7 @@
 gtgram_fft, models.frontend's dispatch, the continuous engine's mel branch)
 against lsm_tpu on the CPU.
 
-Tolerances: the copied NumPy builders bit-equal; stft_power, apply_mel and
+Tolerances: the copied NumPy constants bit-equal; stft_power, apply_mel and
 power_to_db rtol 1e-5 (stft_power with an atol of 1e-5 of each spectrum's
 peak: the two FFTs round differently, so the quietest bins differ
 relatively more); gtgram_fft rtol 1e-4; spectrogram_db for mel and fft
@@ -68,7 +68,7 @@ def wave():
     return audio
 
 
-# ---- the copied NumPy builders -------------------------------------------
+# ---- the copied NumPy constants ------------------------------------------
 
 @pytest.mark.parametrize("n", [2048, 1024, 400, 1023])
 def test_hann_window_bit_equal(n):
