@@ -4,8 +4,11 @@ training (pipeline.extract_and_train_streaming) and its serving layer: the exact
 streaming engines (models/streaming.py, models/continuous.py), the session
 pool (models/pool.py), serving-state files (io/serving_state.py) and the
 entry point `python -m lsm_tpu_torch.cli.stream_kws`; with the dense
-reservoir or the block-sparse one of the scaled configuration
-(models/sparse.py).
+reservoir (drawn on the device from 4096 neurons on) or the block-sparse
+one of the scaled configuration (models/sparse.py). The entry points take
+lsm_tpu's --check (utils/checks.py), --metrics-out (utils/logging.py) and
+--single-device; utils/profiling.py, models/sweep.py and the operator
+tools (`python -m lsm_tpu_torch.tools.<name>`) come with them.
 
 The JAX package `lsm_tpu` is the reference; this package mirrors its
 layout (ops/, models/, readout/, pipeline.py) so each module's counterpart

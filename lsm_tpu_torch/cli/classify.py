@@ -16,8 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from lsm_tpu_torch.cli.common import (
-    add_audio_wire_flag, add_device_flag, add_single_device_flag, refuse_unported,
-    setup_logging,
+    add_audio_wire_flag, add_device_flag, add_single_device_flag, setup_logging,
 )
 from lsm_tpu_torch.config import PipelineConfig, ReservoirConfig
 from lsm_tpu_torch.io import artifacts
@@ -41,7 +40,6 @@ def main(argv=None) -> None:
     add_audio_wire_flag(p)
     add_device_flag(p)
     args = p.parse_args(argv)
-    refuse_unported(args)
     setup_logging()
 
     from lsm_tpu_torch import pipeline

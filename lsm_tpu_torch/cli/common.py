@@ -2,9 +2,9 @@
 counterpart of lsm_tpu/cli/common.py).
 
 The flag names and defaults are the reference scripts'. The port adds
---device (cuda by default; no silent CPU fallback). Flags whose feature is
-not ported yet are taken and then refused with SystemExit naming the
-ROADMAP item that ports it (`refuse_unported`).
+--device (cuda by default; no silent CPU fallback). It always runs on one
+device, which is what lsm_tpu's --single-device asks for, so that flag is
+taken and changes nothing.
 """
 
 from __future__ import annotations
@@ -16,14 +16,6 @@ import sys
 from lsm_tpu_torch.config import (
     COMMANDS_12, COMMANDS_35, FEATURE_SETS, FrontendConfig, PipelineConfig, ReservoirConfig,
 )
-
-# (attribute, value that means "not given", flag, ROADMAP item)
-_UNPORTED = (
-    ("single_device", False, "--single-device", "A14"),
-    ("check", False, "--check", "A15"),
-    ("metrics_out", None, "--metrics-out", "A15"),
-)
-
 
 def setup_logging() -> None:
     logging.basicConfig(level=logging.INFO, format="%(message)s",
@@ -90,7 +82,10 @@ def add_extension_flags(p: argparse.ArgumentParser) -> None:
                    help="Duplicate each filter channel R times before the reservoir.")
     add_single_device_flag(p)
     p.add_argument("--check", action="store_true",
-                   help="Debug sanitizer mode (not ported yet).")
+                   help="Debug sanitizer mode: validate each stage boundary on the device "
+                        "(finite audio and spectrogram, 0/1 spikes before any pack, finite "
+                        "non-constant features) and fail loudly instead of encoding garbage. "
+                        "Costs a device sync per check.")
     add_metrics_flag(p)
     add_audio_wire_flag(p)
     add_device_flag(p)
@@ -98,20 +93,47 @@ def add_extension_flags(p: argparse.ArgumentParser) -> None:
 
 def add_single_device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--single-device", action="store_true",
-                   help="The port runs on one device; multi-device is not ported yet.")
+                   help="Run every stage on one device (lsm_tpu's flag; the port always "
+                        "does).")
 
 
 def add_metrics_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--metrics-out", type=str, default=None,
-                   help="Structured JSONL metric records (not ported yet).")
+                   help="Append structured JSONL metric records (per-stage rates, "
+                        "w_critico, regime, accuracy) to this file.")
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """SystemExit naming the ROADMAP item of the first flag given whose
-    feature the port does not have yet."""
-    for attr, unset, flag, item in _UNPORTED:
-        if getattr(args, attr, unset) != unset:
-            raise SystemExit(f"{flag} is not ported to lsm_tpu_torch yet (ROADMAP {item})")
+def metrics_from_args(args: argparse.Namespace):
+    """MetricLogger for --metrics-out (None when the flag is unset)."""
+    path = getattr(args, "metrics_out", None)
+    if not path:
+        return None
+    from lsm_tpu_torch.utils.logging import MetricLogger
+
+    return MetricLogger(path=path)
+
+
+def emit_extraction_metrics(metrics, ext, cfg: PipelineConfig, n: int, seconds: float) -> None:
+    """Stage 2's records, as lsm_tpu's main.py and extract_lsm_features.py
+    emit them: the wall and rate, w_critico, the mean weight and the
+    regime."""
+    metrics.emit("stage2_wall_s", round(seconds, 3), stage="extract_features",
+                 utterances=n, utt_per_sec=round(n / max(seconds, 1e-9), 1))
+    metrics.emit("w_critico", ext.w_critico, stage="extract_features")
+    metrics.emit("mean_weight", ext.mean_weight, stage="extract_features",
+                 multiplier=cfg.multiplier)
+    if ext.diagnostics is not None:
+        metrics.emit("regime", ext.diagnostics.regime, stage="extract_features",
+                     avg_participation=round(ext.diagnostics.avg_participation, 2))
+
+
+def emit_training_metrics(metrics, result, cfg: PipelineConfig, seconds: float) -> None:
+    """Stage 3's records, as lsm_tpu's main.py and train_classifier.py emit
+    them."""
+    metrics.emit("stage3_wall_s", round(seconds, 3), stage="train_classifier",
+                 lbfgs_iters=result.n_iters)
+    metrics.emit("test_accuracy", result.accuracy, stage="train_classifier",
+                 feature_set=cfg.feature_set)
 
 
 def resolve_commands(args: argparse.Namespace):
@@ -152,6 +174,7 @@ def build_config(args: argparse.Namespace) -> PipelineConfig:
         max_samples_per_class=getattr(args, "samples_per_class", 1000),
         commands=resolve_commands(args),
         batch_size=getattr(args, "batch_size", 512),
+        check=getattr(args, "check", False),
         audio_wire=getattr(args, "audio_wire", "int16"),
     )
 

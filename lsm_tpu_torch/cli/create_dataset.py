@@ -1,5 +1,6 @@
 """Stage 1: audio -> spike-train dataset (the port's counterpart of the
-repo-root create_dataset.py: the same flags and artifact, plus --device).
+repo-root create_dataset.py: the same flags, artifact and --metrics-out
+records, plus --device).
 
     python -m lsm_tpu_torch.cli.create_dataset --data-dir <tree> [--sharded-output DIR]
 """
@@ -7,12 +8,13 @@ repo-root create_dataset.py: the same flags and artifact, plus --device).
 from __future__ import annotations
 
 import argparse
+import time
 from pathlib import Path
 
 import numpy as np
 
 from lsm_tpu_torch.cli.common import (
-    add_extension_flags, add_frontend_flags, build_config, refuse_unported, setup_logging,
+    add_extension_flags, add_frontend_flags, build_config, metrics_from_args, setup_logging,
     synthetic_n_per,
 )
 from lsm_tpu_torch.config import corpus_meta
@@ -34,7 +36,6 @@ def main(argv=None) -> None:
                    help="Write sharded output uncompressed (~190x the disk, reads "
                         "without decompression).")
     args = p.parse_args(argv)
-    refuse_unported(args)
     setup_logging()
 
     from lsm_tpu_torch.device import resolve_device
@@ -42,6 +43,8 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = build_config(args)
+    metrics = metrics_from_args(args)
+    t0 = time.perf_counter()
     print(f"Creating dataset with filterbank: {cfg.frontend.filterbank}, "
           f"filters: {cfg.frontend.n_filters}")
     sharded = Path(args.sharded_output) if args.sharded_output else None
@@ -79,6 +82,18 @@ def main(argv=None) -> None:
     if spike_total is not None:
         print(f"  Avg spikes per sample: {spike_total / max(n, 1):.1f}")
     print(f"Saved to '{sharded if sharded is not None else args.output}'")
+    if metrics:
+        dt = time.perf_counter() - t0
+        # A resumed sharded run counts the whole corpus in n; its rate
+        # divides only what this run featurized.
+        n_run = getattr(ds, "featurized_this_run", n)
+        metrics.emit("stage1_wall_s", round(dt, 3), stage="create_dataset", utterances=n,
+                     utt_per_sec=round(n_run / max(dt, 1e-9), 1),
+                     filterbank=cfg.frontend.filterbank)
+        if spike_total is not None:
+            metrics.emit("avg_spikes_per_sample", round(spike_total / max(n, 1), 2),
+                         stage="create_dataset")
+        metrics.close()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Stage 2: spike dataset -> standardized LSM features (the port's
-counterpart of the repo-root extract_lsm_features.py: the same flags and
-artifacts, plus --device).
+counterpart of the repo-root extract_lsm_features.py: the same flags,
+artifacts and --metrics-out records, plus --device).
 
     python -m lsm_tpu_torch.cli.extract_lsm_features --input <.npz or shard dir>
 
@@ -16,11 +16,12 @@ model bundle with --save-model instead of a features artifact:
 from __future__ import annotations
 
 import argparse
+import time
 from pathlib import Path
 
 from lsm_tpu_torch.cli.common import (
-    add_extension_flags, add_extract_flags, build_config, refuse_unported, resolve_commands,
-    setup_logging,
+    add_extension_flags, add_extract_flags, build_config, emit_extraction_metrics,
+    metrics_from_args, resolve_commands, setup_logging,
 )
 from lsm_tpu_torch.io import artifacts
 
@@ -52,7 +53,6 @@ def main(argv=None) -> None:
                    help="With --streaming-fit: save the trained model bundle "
                         "(reservoir + scaler + readout) here.")
     args = p.parse_args(argv)
-    refuse_unported(args)
     setup_logging()
 
     from lsm_tpu_torch.device import resolve_device
@@ -69,8 +69,13 @@ def main(argv=None) -> None:
         print(f"Error: {e}")
         return
     print(f"Loaded {len(ds.x_spikes)} samples from '{args.input}'")
-    extract_lsm_features(cfg, ds, device, output_path=Path(args.output))
+    metrics = metrics_from_args(args)
+    t0 = time.perf_counter()
+    ext = extract_lsm_features(cfg, ds, device, output_path=Path(args.output))
     print(f"Extraction complete. Features saved to '{args.output}'")
+    if metrics:
+        emit_extraction_metrics(metrics, ext, cfg, len(ds.x_spikes), time.perf_counter() - t0)
+        metrics.close()
 
 
 def _run_streaming_fit(args, cfg, device) -> None:
@@ -109,6 +114,8 @@ def _run_streaming_fit(args, cfg, device) -> None:
         print("WARNING: corpus has no frontend metadata (written by an older "
               "create_dataset.py); the saved bundle will record the default "
               f"{frontend.filterbank}/{frontend.n_filters} frontend.")
+    metrics = metrics_from_args(args)
+    t0 = time.perf_counter()
     result = extract_and_train_streaming(
         cfg, source, device, class_names=names, alpha=args.ridge_alpha,
         readout=args.readout, l2_c=args.l2_c,
@@ -121,6 +128,15 @@ def _run_streaming_fit(args, cfg, device) -> None:
         save_model(Path(args.save_model), result.reservoir, result.readout, result.scaler,
                    frontend, cfg.feature_set, names)
         print(f"Model bundle saved to '{args.save_model}'")
+    if metrics:
+        dt = time.perf_counter() - t0
+        n = result.n_train + result.n_test
+        metrics.emit("streaming_fit_wall_s", round(dt, 3), stage="extract_features",
+                     utterances=n, utt_per_sec=round(n / max(dt, 1e-9), 1))
+        metrics.emit("w_critico", result.w_critico, stage="extract_features")
+        metrics.emit("test_accuracy", result.accuracy, stage="extract_features",
+                     readout=args.readout, ridge_alpha=args.ridge_alpha)
+        metrics.close()
 
 
 if __name__ == "__main__":

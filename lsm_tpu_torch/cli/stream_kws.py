@@ -16,8 +16,8 @@ Every WAV becomes one stream; audio is fed in fixed chunks (default
 --pool serves every WAV as a session of a StreamPool (models/pool.py) with
 --max-streams slots; --save-state / --restore-state write and read
 serving-state files (io/serving_state.py) that lsm_tpu reads and writes
-too. One device: --single-device (ROADMAP A14) and --metrics-out (A15) are
-refused by item.
+too. --metrics-out appends stream_kws.py's metric records; the port runs
+on one device, which --single-device asks for.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from pathlib import Path
 import numpy as np
 
 from lsm_tpu_torch.cli.common import (
-    add_device_flag, add_metrics_flag, add_single_device_flag, refuse_unported, setup_logging,
+    add_device_flag, add_metrics_flag, add_single_device_flag, metrics_from_args, setup_logging,
 )
 from lsm_tpu_torch.io.model import MODEL_FILENAME
 
@@ -50,7 +50,7 @@ def _to_wire(chunk: np.ndarray, wire: str) -> np.ndarray:
     return chunk
 
 
-def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, checkpoint):
+def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, checkpoint):
     """Session-churn serving over a StreamPool: WAV i is session i,
     admitted first come first served when a slot frees, fed its own chunks,
     finished (slot recycled) after its last one. Audio decodes at admit
@@ -117,6 +117,12 @@ def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, checkpoint)
         if args.diagnostics_every and pool.n_active and hop % args.diagnostics_every == 0:
             rep, _ = pool.diagnostics()
             print(rep.render())
+            if metrics:
+                # The static path's record (chunk=): one schema for both modes.
+                metrics.emit("serving_participation_pct", round(rep.avg_participation, 2),
+                             regime=rep.regime, scope=rep.scope, chunk=hop)
+    if metrics:
+        metrics.emit("serving_pool_sessions", int(served.sum()), slots=pool.capacity, hops=hop)
     return preds, margins, ckpt_hop == hop, served
 
 
@@ -164,8 +170,8 @@ def main(argv=None) -> None:
                    help="With --save-state: also checkpoint every N chunks during "
                         "serving (atomic temp+rename write, so a kill mid-checkpoint "
                         "keeps the previous snapshot).")
-    # Its own dest: the stage entry points' --check is the A15 sanitizer,
-    # which refuse_unported refuses; this one checks the served decisions.
+    # Its own dest, as it checks the served decisions, not the stage
+    # boundaries that the other entry points' --check validates.
     p.add_argument("--check", dest="check_decisions", action="store_true",
                    help="Validate every hop's decisions: finite logits and, in compact "
                         "and pool modes, finite non-negative margins; a NaN reservoir "
@@ -182,7 +188,6 @@ def main(argv=None) -> None:
                         "already warm.")
     add_device_flag(p)
     args = p.parse_args(argv)
-    refuse_unported(args)
     if args.save_state_every and not args.save_state:
         print("Error: --save-state-every needs --save-state <path>.", file=sys.stderr)
         sys.exit(1)
@@ -316,12 +321,13 @@ def main(argv=None) -> None:
         else:
             save_serving_state(Path(args.save_state), kws, compress=compress)
 
+    metrics = metrics_from_args(args)
     t_serve = time.perf_counter()
     preds = margins = None
     last_ckpt_chunk = -1
     if args.pool:
         preds, margins, ckpt_on_last, served = _serve_pool(
-            args, pool, files, fcfg, chunk_len, n_chunks, names, _checkpoint)
+            args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, _checkpoint)
         files = [f for f, ok in zip(files, served) if ok]
         preds = preds[served]
         margins = margins[served]
@@ -354,8 +360,16 @@ def main(argv=None) -> None:
             _checkpoint()
             last_ckpt_chunk = c
         if args.diagnostics_every and (c + 1) % args.diagnostics_every == 0:
-            print(kws.diagnostics(stream_idx=np.arange(n_real)).render())
+            rep = kws.diagnostics(stream_idx=np.arange(n_real))
+            print(rep.render())
+            if metrics:
+                metrics.emit("serving_participation_pct", round(rep.avg_participation, 2),
+                             regime=rep.regime, scope=rep.scope, chunk=c + 1)
     wall = time.perf_counter() - t_serve
+    if metrics:
+        metrics.emit("serving_stream_chunks_per_sec", round(n_chunks * n_real / wall, 2),
+                     mode=mode, streams=n_real, chunks=n_chunks, chunk_ms=served_ms,
+                     wire=args.wire, wall_s=round(wall, 3))
     print(f"Served {n_real} {'sessions' if args.pool else 'streams'} x {n_chunks} chunks in "
           f"{wall:.3f} s ({n_real * n_chunks / wall:.1f} stream-chunks/s, "
           f"{n_real / wall:.1f} {'sessions' if args.pool else 'streams'}/s) on {device}")
@@ -387,6 +401,10 @@ def main(argv=None) -> None:
     if known.any():
         acc = float((preds[known] == labels[known]).mean())
         print(f"Accuracy vs directory labels ({int(known.sum())} streams): {acc * 100:.2f}%")
+        if metrics:
+            metrics.emit("serving_accuracy", round(acc, 4), streams=int(known.sum()), mode=mode)
+    if metrics:
+        metrics.close()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Stage 3: features -> trained readout and evaluation report (the port's
-counterpart of the repo-root train_classifier.py, plus --device).
+counterpart of the repo-root train_classifier.py, its --metrics-out records
+included, plus --device).
 
     python -m lsm_tpu_torch.cli.train_classifier --input lsm_features_larger.npz
 """
@@ -8,11 +9,12 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 from pathlib import Path
 
 from lsm_tpu_torch.cli.common import (
     add_device_flag, add_metrics_flag, add_single_device_flag, add_vocab_flags, build_config,
-    refuse_unported, resolve_commands, setup_logging,
+    emit_training_metrics, metrics_from_args, resolve_commands, setup_logging,
 )
 from lsm_tpu_torch.io import artifacts
 
@@ -26,7 +28,6 @@ def main(argv=None) -> None:
     add_single_device_flag(p)
     add_device_flag(p)
     args = p.parse_args(argv)
-    refuse_unported(args)
     setup_logging()
 
     from lsm_tpu_torch.device import resolve_device
@@ -50,13 +51,19 @@ def main(argv=None) -> None:
               f"vocabulary has {len(names)} names — re-run with the --vocab/--commands "
               "the features were built with.", file=sys.stderr)
         sys.exit(1)
-    result = train_and_evaluate(build_config(args), art, device, class_names=names[:n_classes])
+    cfg = build_config(args)
+    metrics = metrics_from_args(args)
+    t0 = time.perf_counter()
+    result = train_and_evaluate(cfg, art, device, class_names=names[:n_classes])
     print("Training complete.")
     print("Evaluating performance on the test set...")
     print("\n--- Final Results ---")
     print(f"Test Accuracy: {result.accuracy * 100:.2f}%\n")
     print("Classification Report:")
     print(result.report.render())
+    if metrics:
+        emit_training_metrics(metrics, result, cfg, time.perf_counter() - t0)
+        metrics.close()
 
 
 if __name__ == "__main__":

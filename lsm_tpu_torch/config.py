@@ -137,6 +137,10 @@ class PipelineConfig:
     split_seed: int = 42
     commands: Tuple[str, ...] = COMMANDS_12
     batch_size: int = 512              # utterances per featurize/extract batch
+    # --check: validate each stage boundary on the device (finite audio and
+    # spectrogram, 0/1 spikes before any pack, finite non-constant
+    # features; utils/checks.py) and fail loudly. Costs a sync per check.
+    check: bool = False
     # Decoder -> device audio format of the WAV stages: "int16" PCM (exact
     # for PCM16 files, half the float32 bytes) or "ulaw" (uint8 G.711, a
     # quarter, lossy); featurize_batch takes both.

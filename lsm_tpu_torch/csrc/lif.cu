@@ -76,10 +76,13 @@
 // to on non-dyadic weights (chip_smoke.py and the kernel tests force it
 // through the plan).
 //
-// Above 1024 padded neurons (up to 4096) dense B2/B4 run on the
-// stream-tiled block body of sparse_lif.cu (B5/B6) with the matrix seen as
-// nb x nb blocks of 128, in the global scratch the caller passes (unused at
-// <= 1024 neurons).
+// Above 1024 padded neurons dense B2/B4 run on the stream-tiled block body
+// of sparse_lif.cu (B5/B6) with the matrix seen as nb x nb blocks of 128,
+// in the global scratch the caller passes (unused at <= 1024 neurons). The
+// body has no size limit of its own: every slot offset and stride is 64-bit
+// or bounded by N / 32 words, so its only limit is the scratch (nb^2 K-major
+// blocks of 32 KB: 212 MB at 10240 neurons), which the wrapper holds against
+// the card's free memory (ops/kernels/lif.py, `block_scratch`).
 
 #include <atomic>
 
@@ -92,7 +95,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAX_N = 1024;       // the one-thread body: one thread per padded neuron
-constexpr int MAX_WIDE_N = 4096;  // the block body: the largest dense draw
 constexpr int kSlice = 64;        // the cluster body: destination neurons a CTA
 constexpr int kMaxCluster = 16;   // the largest (non-portable) cluster
 constexpr int kMaxStreams = 24;   // streams a cluster round, one warp each
@@ -730,9 +732,7 @@ int launch(const LifArgs& a, const Plan& p, void* scratch, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if ((p.body == kBlock) != (a.Np > MAX_N)) return invalid;
-  if (p.body == kBlock)
-    return a.Np > MAX_WIDE_N ? invalid
-                             : lsm::launch_block_lif(wide_args(a, scratch), kChunk, s);
+  if (p.body == kBlock) return lsm::launch_block_lif(wide_args(a, scratch), kChunk, s);
   if (bad_shape(a.C, a.T, a.Np, a.no)) return invalid;
   if (p.body == kOneThread) return launch_one_thread<kChunk>(a, s);
   if (p.body == kCluster && !bad_cluster_plan(a, p)) return launch_cluster<kChunk>(a, p, s);

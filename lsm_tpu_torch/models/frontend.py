@@ -19,6 +19,8 @@ Both of the reference's filterbanks and all three gammatone methods:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from lsm_tpu_torch.config import FrontendConfig
@@ -26,6 +28,7 @@ from lsm_tpu_torch.ops import db as db_ops
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import hysteresis, mel, resample, stft
 from lsm_tpu_torch.ops.ulaw import decode_ulaw
+from lsm_tpu_torch.utils import checks
 
 
 def spectrogram_db(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
@@ -59,12 +62,15 @@ def _dispatch_gtgram(cfg: FrontendConfig):
     raise ValueError(f"unknown gammatone_method: {cfg.gammatone_method!r}")
 
 
-def featurize_batch(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+def featurize_batch(audio: torch.Tensor, cfg: FrontendConfig,
+                    check: Optional[str] = None) -> torch.Tensor:
     """(B, num_samples) audio on any device -> (B, n_filters * R,
     time_bins * n_thresholds) uint8 spikes on the same device.
 
     The wire formats are the reference's three: float samples in [-1, 1],
-    int16 PCM (divided by 32768 on the device) or uint8 G.711 mu-law."""
+    int16 PCM (divided by 32768 on the device) or uint8 G.711 mu-law.
+    With `check` (the --check context) non-finite audio and a non-finite
+    spectrogram raise (utils/checks.py)."""
     if audio.dtype == torch.uint8:
         audio = decode_ulaw(audio)
     elif audio.dtype == torch.int16:
@@ -74,7 +80,11 @@ def featurize_batch(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
             f"featurize_batch audio dtype {audio.dtype} is not part of the "
             "wire contract (float samples, int16 PCM, or uint8 mu-law)"
         )
+    if check:
+        checks.check_finite(audio, check, "audio samples")
     spec_db = spectrogram_db(audio.to(torch.float32), cfg)
+    if check:
+        checks.check_finite(spec_db, check, "spectrogram values")
     spec_norm = db_ops.minmax_normalize(spec_db)
     spec_norm = resample.zoom_time_axis(spec_norm, cfg.time_bins)
     spikes = hysteresis.hysteresis_encode(

@@ -3,9 +3,12 @@
     v_t = (1 - leak) * v_{t-1} + s_{t-1} @ W_rec + x_t @ W_in
     s_t = (v_t >= threshold) & not_refractory;  reset + refractory clamp
 
-Weights are drawn on the host with NumPy exactly as the reference's host
-path draws them (same rng calls in the same order), so `init_reservoir`
-gives bit-equal w_rec, w_in and leak. The simulation with its streaming
+Below 4096 neurons the weights are drawn on the host with NumPy exactly as
+the reference's host path draws them (same rng calls in the same order), so
+`init_reservoir` gives bit-equal w_rec, w_in and leak. From 4096 neurons on
+it draws on the target device as lsm_tpu does there
+(`init_reservoir_device`): the same structure and distributions from a
+torch.Generator, not jax.random's bits. The simulation with its streaming
 statistics is kernel B2 (ops/kernels/lif.py) on CUDA and its plain twin on
 the CPU; both use bf16 weight operands with f32 accumulation and f32 state.
 The continuous engine runs one chunk at a time with the state carried
@@ -18,6 +21,7 @@ is models/sparse.py (kernels B5, B6); `simulate_batch`, `simulate_chunk` and
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -28,7 +32,9 @@ from lsm_tpu_torch.config import ReservoirConfig
 from lsm_tpu_torch.ops.kernels import lif
 
 _ROUND = 128
-_HOST_INIT_MAX = 4096     # larger dense reservoirs lsm_tpu draws with jax.random
+# From this many neurons on, the weights are drawn on the device (lsm_tpu's
+# _DEVICE_INIT_THRESHOLD): no (N, N) host matrix, no host-to-device copy.
+_DEVICE_INIT_THRESHOLD = 4096
 
 
 def _round_up(x: int, m: int = _ROUND) -> int:
@@ -114,16 +120,11 @@ def init_reservoir(
     mean_weight: Optional[float] = None,
     device: torch.device | str = "cpu",
 ) -> Reservoir:
-    """Topology and weights, deterministic in cfg.seed (the reference's
-    NumPy host path, <4096 neurons)."""
-    if cfg.num_neurons >= _HOST_INIT_MAX:
-        raise NotImplementedError(
-            f"a dense reservoir of {cfg.num_neurons} neurons: lsm_tpu draws dense "
-            f"reservoirs of >= {_HOST_INIT_MAX} neurons on the device with jax.random, "
-            "which the port does not do yet (ROADMAP A16, dense device init); the "
-            "block-sparse reservoir (ReservoirConfig(sparse=True), --sparse) runs "
-            "at this size"
-        )
+    """Topology and weights, deterministic in cfg.seed: the reference's
+    NumPy host path below 4096 neurons, `init_reservoir_device` from 4096
+    on (lsm_tpu's rule)."""
+    if cfg.num_neurons >= _DEVICE_INIT_THRESHOLD:
+        return init_reservoir_device(cfg, n_channels, mean_weight, device)
     rng = np.random.default_rng(cfg.seed)
     n, n_pad = cfg.num_neurons, _round_up(cfg.num_neurons)
     c_pad = _round_up(n_channels)
@@ -166,28 +167,83 @@ def init_reservoir(
     ).to(device)
 
 
+def init_reservoir_device(
+    cfg: ReservoirConfig,
+    n_channels: int,
+    mean_weight: Optional[float] = None,
+    device: torch.device | str = "cpu",
+) -> Reservoir:
+    """lsm_tpu's `_init_reservoir_device`, drawn from one torch.Generator on
+    `device` seeded with cfg.seed, every array made there (no (N, N) host
+    matrix, no host-to-device copy): the directed Watts-Strogatz ring of
+    k/2 offsets, each edge rewired to a uniform target with probability
+    small_world_p, a rewired self-loop moved to offset + k/2, the
+    diagonal cleared (duplicate targets collapse, so a row may keep a few
+    fewer than k/2 edges), N(mean_weight, (|mean_weight|
+    sqrt(weight_variance))^2) weights on the mask, the input projection as
+    the top `fanout` of per-channel uniform scores and the leak draw. The
+    same structure and distributions as lsm_tpu's, not its bits; a
+    generator's stream differs between the CPU and the card."""
+    dev = torch.device(device)
+    n, n_pad = cfg.num_neurons, _round_up(cfg.num_neurons)
+    mw = cfg.mean_weight if mean_weight is None else mean_weight
+    half = cfg.small_world_k // 2
+    std = abs(mw) * math.sqrt(cfg.weight_variance)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+    rows = torch.arange(n, device=dev)
+    offsets = torch.arange(1, half + 1, device=dev)[:, None]
+    ring = (rows + offsets) % n                                          # (half, n)
+    rewire = torch.rand(half, n, generator=gen, device=dev) < cfg.small_world_p
+    new_t = torch.randint(0, n, (half, n), generator=gen, device=dev)
+    targets = torch.where(rewire, new_t, ring)
+    targets = torch.where(targets == rows, (rows + offsets + half) % n, targets)
+    mask = torch.zeros(n_pad, n_pad, dtype=torch.bool, device=dev)
+    mask[rows.expand(half, n), targets] = True
+    mask[rows, rows] = False                                             # no self-loops
+    del ring, rewire, new_t, targets
+
+    w_rec = torch.randn(n_pad, n_pad, generator=gen, device=dev).mul_(std).add_(mw)
+    w_rec.masked_fill_(~mask, 0.0)
+    del mask
+    w_in = device_input_projection(gen, n_channels, n, _round_up(n_channels), n_pad,
+                                   min(cfg.input_fanout, n), cfg.input_weight)
+    leak = device_leak_draw(gen, cfg, n, n_pad)
+    return Reservoir(
+        w_rec, w_in, leak,
+        n_neurons=n,
+        n_outputs=cfg.num_output_neurons,
+        n_channels=n_channels,
+        threshold=cfg.membrane_threshold,
+        refractory=cfg.refractory_period,
+        burst_isi_max=cfg.burst_isi_max,
+        n_rate_windows=cfg.n_rate_windows,
+    )
+
+
 def device_input_projection(gen: torch.Generator, n_channels: int, n: int, c_pad: int,
                             width: int, fanout: int, weight: float) -> torch.Tensor:
-    """(c_pad, width) f32 input projection: `fanout` distinct target
-    neurons per channel at `weight`, the top of per-channel uniform scores
-    (rng.choice(n, fanout, replace=False) semantics; lsm_tpu's
-    `device_input_projection`, drawn from `gen`)."""
-    scores = torch.rand(n_channels, n, generator=gen)
+    """(c_pad, width) f32 input projection on gen's device: `fanout`
+    distinct target neurons per channel at `weight`, the top of
+    per-channel uniform scores (rng.choice(n, fanout, replace=False)
+    semantics; lsm_tpu's `device_input_projection`, drawn from `gen`)."""
+    dev = gen.device
+    scores = torch.rand(n_channels, n, generator=gen, device=dev)
     proj = torch.topk(scores, fanout, dim=1).indices                  # (C, fanout)
-    w_in = torch.zeros(c_pad, width, dtype=torch.float32)
-    w_in[torch.arange(n_channels)[:, None], proj] += weight
+    w_in = torch.zeros(c_pad, width, dtype=torch.float32, device=dev)
+    w_in[torch.arange(n_channels, device=dev)[:, None], proj] += weight
     return w_in
 
 
 def device_leak_draw(gen: torch.Generator, cfg: ReservoirConfig, n: int,
                      width: int) -> torch.Tensor:
-    """Per-neuron leak, heterogeneous N(leak, (leak / divisor)^2) clipped to
-    [0, 1] when cfg.leak_variance_divisor is set, padded to `width`
-    (lsm_tpu's `device_leak_draw`, drawn from `gen`)."""
-    leak = torch.zeros(width, dtype=torch.float32)
+    """Per-neuron leak on gen's device, heterogeneous N(leak, (leak /
+    divisor)^2) clipped to [0, 1] when cfg.leak_variance_divisor is set,
+    padded to `width` (lsm_tpu's `device_leak_draw`, drawn from `gen`)."""
+    leak = torch.zeros(width, dtype=torch.float32, device=gen.device)
     if cfg.leak_variance_divisor:
         leak[:n] = torch.clamp(
-            cfg.leak_coefficient + torch.randn(n, generator=gen)
+            cfg.leak_coefficient + torch.randn(n, generator=gen, device=gen.device)
             * (cfg.leak_coefficient / cfg.leak_variance_divisor), 0.0, 1.0)
     else:
         leak[:n] = cfg.leak_coefficient

@@ -35,11 +35,17 @@ the C entry points check the plan and run it:
   redundancy 16 is 256 KB of W_in a CTA) or whose N_pad is not a multiple
   of 64 of at least 128. It takes any number of input channels (thread n
   compacts channels n, n + N_pad, ...);
-- the block body above 1024 padded neurons (up to 4096, the largest dense
-  reservoir the port draws): the stream-tiled body of csrc/sparse_lif.cu
-  with the dense matrix seen as N_pad/128 x N_pad/128 blocks, in global
-  scratch that the wrapper allocates (`block_scratch`); it keeps refrac in
-  8 bits up to refractory 255 and in 16 bits above (refractory <= 65535).
+- the block body above 1024 padded neurons: the stream-tiled body of
+  csrc/sparse_lif.cu with the dense matrix seen as N_pad/128 x N_pad/128
+  blocks, in global scratch that the wrapper allocates (`block_scratch`);
+  it keeps refrac in 8 bits up to refractory 255 and in 16 bits above
+  (refractory <= 65535). It has no size limit of its own: what it cannot
+  take is scratch past the card's free memory (the K-major weight blocks
+  alone are N_pad^2 x 2 bytes, 210 MB at 10240 neurons), where the
+  allocator's OutOfMemoryError comes back saying what the scratch holds
+  (`alloc_block_scratch`). A dense call walks all N_pad/128 source blocks
+  every step, so at 10240 neurons it reads 80 blocks a destination block
+  a step.
 
 A CUDA tensor always launches the body its plan names, or raises.
 """
@@ -60,8 +66,7 @@ STAT_KEYS = (
     "sum_isi2", "bursts", "win_sum", "win_sum2",
 )
 SEG_KEYS = STAT_KEYS[:9]  # the segment summary B4 writes
-MAX_NEURONS = 4096       # N_pad <= 1024: the cluster or one-thread body; above: the block body
-_ONE_THREAD_MAX = 1024
+_ONE_THREAD_MAX = 1024   # N_pad <= 1024: the cluster or one-thread body; above: the block body
 MAX_REFRACTORY = 65535   # the block body's refractory counter: 8 bits, 16 above 255
 # The cluster body (csrc/lif.cu, which refuses a plan past these): 64
 # destination neurons a CTA, at most 16 CTAs a cluster and 24 streams
@@ -243,9 +248,8 @@ def dense_plan(batch: int, channels: int, n_pad: int, refractory: int,
     streams a round (`cluster_smem` asks csrc/lif.cu, which owns the
     layout). The rounds are as few as those clusters allow, and M as small
     as those rounds allow: M = ceil(B / (clusters x rounds))."""
-    if not 0 < n_pad <= MAX_NEURONS or n_pad % 32:
-        raise ValueError(f"dense B2/B4 take 0 < N_pad <= {MAX_NEURONS} and N_pad % 32 == 0; "
-                         f"got N_pad={n_pad}")
+    if n_pad <= 0 or n_pad % 32:
+        raise ValueError(f"dense B2/B4 take N_pad > 0 and N_pad % 32 == 0; got N_pad={n_pad}")
     if body not in (None, *_BODY_CODE):
         raise ValueError(f"unknown body {body!r}")
     if n_pad > _ONE_THREAD_MAX:
@@ -331,7 +335,21 @@ def block_scratch(x, n_state, n_slots, n_outputs, chunk, refractory):
     fn = _build.function("lsm_block_lif_scratch_bytes", [ctypes.c_int] * 8)
     fn.restype = ctypes.c_longlong
     n_bytes = fn(B, C, T, n_state, n_slots, n_outputs, int(chunk), int(refractory))
-    return torch.empty(n_bytes, dtype=torch.uint8, device=x.device)
+    return alloc_block_scratch(n_bytes, x.device, n_state, n_slots)
+
+
+def alloc_block_scratch(n_bytes: int, device: torch.device, n_state: int,
+                        n_slots: int) -> torch.Tensor:
+    """n_bytes of uint8 scratch on `device`. The block body's one limit is
+    this allocation: where it fails, the allocator's OutOfMemoryError is
+    raised again saying what the scratch holds."""
+    try:
+        return torch.empty(n_bytes, dtype=torch.uint8, device=device)
+    except torch.OutOfMemoryError as err:
+        raise torch.OutOfMemoryError(
+            f"the block body at {n_state} neurons and {n_slots} source blocks a "
+            f"destination block needs {n_bytes / 1e6:.1f} MB of scratch (K-major weight "
+            f"blocks, spike planes, state); take fewer streams a call ({err})") from err
 
 
 def _scratch_ptr(x, plan, n_pad, n_outputs, chunk, refractory):

@@ -15,8 +15,9 @@
     -> a trained reservoir, scaler and readout, and the test report
 
 Every function takes an explicit torch device; nothing moves to another
-device silently. The reference's mesh and --check branches are not ported
-(ROADMAP A14 and A15).
+device silently. With cfg.check (--check) each stage boundary is validated
+on the device where lsm_tpu validates it (utils/checks.py). The
+reference's mesh branches are not ported (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from lsm_tpu_torch.models.diagnostics import DiagnosticsReport, run_network_diag
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.models.sparse import SparseReservoir, init_reservoir_sparse
 from lsm_tpu_torch.readout import logistic, metrics, scaler
+from lsm_tpu_torch.utils import checks
 
 log = logging.getLogger("lsm_tpu_torch")
 
@@ -52,8 +54,16 @@ def _batched(n: int, batch_size: int):
         yield start, min(start + batch_size, n)
 
 
-def _featurize_to_host(audio: np.ndarray, fcfg, device: torch.device) -> np.ndarray:
-    return featurize_batch(torch.as_tensor(audio).to(device), fcfg).cpu().numpy()
+def _featurize_to_host(audio: np.ndarray, fcfg, device: torch.device,
+                       check: Optional[str] = None) -> np.ndarray:
+    """Featurize one batch on `device` and bring the spikes to the host.
+    With `check` (the --check context) the featurizer validates its input
+    and spectrogram, and the raw spikes must be 0/1 before they leave the
+    device."""
+    spikes = featurize_batch(torch.as_tensor(audio).to(device), fcfg, check=check)
+    if check:
+        checks.check_spikes(spikes, check)
+    return spikes.cpu().numpy()
 
 
 def featurize_audio_array(
@@ -62,7 +72,8 @@ def featurize_audio_array(
     """(N, num_samples) audio (float32, int16 or uint8 mu-law) -> (N, C, T)
     uint8 spikes on the host, featurized on `device` in cfg.batch_size
     batches."""
-    out = [_featurize_to_host(audio[start:stop], cfg.frontend, device)
+    check = "featurize_audio_array" if cfg.check else None
+    out = [_featurize_to_host(audio[start:stop], cfg.frontend, device, check)
            for start, stop in _batched(audio.shape[0], cfg.batch_size)]
     return np.concatenate(out, axis=0)
 
@@ -140,7 +151,8 @@ def create_spike_dataset(
                 log.warning("Error loading %s: %s", path, err)
             if audio.shape[0] == 0:
                 continue
-            spikes = _featurize_to_host(audio, fcfg, device)
+            spikes = _featurize_to_host(audio, fcfg, device,
+                                        "create_spike_dataset" if cfg.check else None)
             labels = idx.labels[start:stop][kept]
             n_total += len(kept)
             if writer is not None:
@@ -154,7 +166,11 @@ def create_spike_dataset(
         log.info("Sharded dataset: %d samples in %d shards (%.1f utt/s)",
                  manifest["num_samples"], len(manifest["shards"]),
                  n_total / max(time.perf_counter() - t0, 1e-9))
-        return ShardedSpikeDataset(sharded_output)
+        handle = ShardedSpikeDataset(sharded_output)
+        # A resumed run's num_samples counts earlier runs' shards too; a
+        # rate divides only what this call featurized.
+        handle.featurized_this_run = n_total
+        return handle
     if not spikes_out:
         raise RuntimeError("No audio files were successfully processed.")
     x = np.concatenate(spikes_out, axis=0)
@@ -242,9 +258,8 @@ def stratified_split(
 def init_reservoir(cfg: PipelineConfig, n_channels: int, mean_weight: float,
                    device: torch.device) -> Union[res.Reservoir, SparseReservoir]:
     """The block-sparse reservoir where cfg.reservoir.use_sparse() (>= 4096
-    neurons with N % 128 == 0 unless forced), else the dense one; a dense
-    reservoir of >= 4096 neurons raises NotImplementedError and never turns
-    sparse silently."""
+    neurons with N % 128 == 0 unless forced), else the dense one (drawn on
+    `device` from 4096 neurons on, as lsm_tpu draws it)."""
     if cfg.reservoir.use_sparse():
         log.info("Using block-sparse reservoir (%d neurons)", cfg.reservoir.num_neurons)
         return init_reservoir_sparse(cfg.reservoir, n_channels, mean_weight=mean_weight,
@@ -303,6 +318,9 @@ def extract_lsm_features(
 
     train_feat = extract(x_train, "Training")
     test_feat = extract(x_test, "Testing")
+    if cfg.check:
+        checks.check_features(train_feat, "extract_lsm_features (train)")
+        checks.check_features(test_feat, "extract_lsm_features (test)")
     st = scaler.fit_scaler(train_feat)
     artifact = artifacts.FeatureArtifact(
         x_train=scaler.transform(st, train_feat).cpu().numpy(),
@@ -477,8 +495,9 @@ def extract_and_train_streaming(
     Every 8 batches the host waits for the device, which bounds the pinned
     batches in flight. The three phase timers of pass 1 (shard iteration,
     pack + transfer + dispatch, device sync) are logged as lsm_tpu logs
-    them. lsm_tpu's mesh and multi-host branches are not ported (ROADMAP
-    A14), nor its --check validation (A15)."""
+    them; with cfg.check every batch's features are validated (a sync a
+    batch). lsm_tpu's mesh and multi-host branches are not ported (ROADMAP
+    A14)."""
     from lsm_tpu_torch.readout.streaming_fit import (
         finalize_ridge, init_ridge_accum, update_ridge_accum,
     )
@@ -522,7 +541,10 @@ def extract_and_train_streaming(
     phases["calibrate"] = (t_cal, time.perf_counter())
 
     def extract(x: np.ndarray) -> torch.Tensor:
-        return res.extract_features(reservoir, spikes_to_device(x, device), keys)
+        feats = res.extract_features(reservoir, spikes_to_device(x, device), keys)
+        if cfg.check:
+            checks.check_features(feats, "extract_and_train_streaming")
+        return feats
 
     state = None
     feat_buf = None

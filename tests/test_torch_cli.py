@@ -1,12 +1,13 @@
 """`python -m lsm_tpu_torch` takes main.py's flags and builds the config
 lsm_tpu's CLI builds from them; the stage entry points
-(`lsm_tpu_torch.cli.*`) chain on a WAV corpus on the CPU, refuse the flags
-whose feature is not ported, naming its ROADMAP item, and never fall back
-from a missing card to the CPU. The serving entry point `cli.stream_kws`
-gives the root stream_kws.py's predictions and output fields in every mode
-(exact dense and sparse, compact, pool, continuous), their serving-state
-files continue each other's streams, and it exits 1 where stream_kws.py
-does."""
+(`lsm_tpu_torch.cli.*`) chain on a WAV corpus on the CPU, take lsm_tpu's
+--single-device, --check and --metrics-out, and never fall back from a
+missing card to the CPU. The serving entry point `cli.stream_kws` gives
+the root stream_kws.py's predictions, output fields and metric records in
+every mode (exact dense and sparse, compact, pool, continuous), their
+serving-state files continue each other's streams and read alike in
+`tools.inspect_state`, and it exits 1 where stream_kws.py does;
+`tools.calibrate_continuous` writes a continuous bundle lsm_tpu loads."""
 
 import argparse
 
@@ -135,20 +136,60 @@ def test_stage_entry_points_chain_on_a_wav_corpus(tmp_path, monkeypatch, capsys)
     assert p[0]["predictions"].dtype == np.int32
 
 
-REFUSED = [
-    (tcli.main, ["--single-device"], "A14"),
-    (tcli.main, ["--check"], "A15"),
-    (tcli.main, ["--metrics-out", "m.jsonl"], "A15"),
-    (train_classifier.main, ["--metrics-out", "m.jsonl"], "A15"),
-    (classify.main, ["--single-device"], "A14"),
+# The flags each entry point refused until the port had them (ROADMAP
+# A15): each now runs.
+TAKEN = [
+    (tcli.main, ["--single-device"]),
+    (tcli.main, ["--check"]),
+    (tcli.main, ["--metrics-out", "m.jsonl"]),
+    (train_classifier.main, ["--metrics-out", "m.jsonl"]),
+    (classify.main, ["--single-device"]),
 ]
 
 
-@pytest.mark.parametrize("entry,argv,item", REFUSED,
-                         ids=[f"{e.__module__.split('.')[-1]}{a[0]}" for e, a, _ in REFUSED])
-def test_unported_flags_are_refused_by_item(entry, argv, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        entry(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("entry,argv", TAKEN,
+                         ids=[f"{e.__module__.split('.')[-1]}{a[0]}" for e, a in TAKEN])
+def test_formerly_refused_flags_are_taken(entry, argv, tmp_path, monkeypatch, capsys):
+    """The run completes; --metrics-out appends the entry point's records
+    (tests/test_torch_cli_metrics.py holds them equal to lsm_tpu's)."""
+    from lsm_tpu_torch.io import artifacts as tart
+    from lsm_tpu_torch.io.model import save_model
+    from lsm_tpu_torch.models.reservoir import init_reservoir
+    from lsm_tpu_torch.readout.logistic import LogisticReadout
+    from lsm_tpu_torch.readout.scaler import Scaler
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(3)
+    if entry is tcli.main:
+        entry(argv + ["--synthetic", "--samples-per-class", "6", "--commands", "a,b,c,d",
+                      "--n-filters", "16", *RESERVOIR, "--device", "cpu", "--skip-artifacts"])
+        assert "--- Pipeline Finished ---" in capsys.readouterr().out
+        expect = ["stage1_wall_s", "avg_spikes_per_sample", "stage2_wall_s", "w_critico",
+                  "mean_weight", "regime", "stage3_wall_s", "test_accuracy"]
+    elif entry is train_classifier.main:
+        y = np.repeat(np.arange(4, dtype=np.int32), 10)
+        tart.save_features(tmp_path / "f.npz", tart.FeatureArtifact(
+            (rng.standard_normal((40, 12)) + y[:, None]).astype(np.float32), y,
+            (rng.standard_normal((8, 12)) + y[::5, None]).astype(np.float32), y[::5],
+            "original", None))
+        entry(argv + ["--input", "f.npz", "--commands", "a,b,c,d", "--device", "cpu"])
+        assert "Test Accuracy:" in capsys.readouterr().out
+        expect = ["stage3_wall_s", "test_accuracy"]
+    else:
+        tds.write_synthetic_corpus(tmp_path / "corpus", ("a", "b"), n_per_class=2, seed=5)
+        res = init_reservoir(tcfg.ReservoirConfig(num_neurons=100, num_output_neurons=50,
+                                                  small_world_k=20, mean_weight=0.02), 16)
+        save_model(tmp_path / "m.npz", res, LogisticReadout(torch.zeros(250, 2), torch.zeros(2)),
+                   Scaler(torch.zeros(250), torch.ones(250)), tcfg.FrontendConfig(n_filters=16),
+                   "original", ("a", "b"))
+        entry(argv + ["--model", "m.npz", "--data-dir", "corpus", "--device", "cpu"])
+        assert "Classified 4 utterances" in capsys.readouterr().out
+        expect = None
+    if "--metrics-out" in argv:
+        import json
+
+        records = [json.loads(r) for r in (tmp_path / "m.jsonl").read_text().splitlines()]
+        assert [r["metric"] for r in records] == expect
 
 
 @pytest.fixture(scope="module")
@@ -362,10 +403,6 @@ def test_stream_kws_state_files_cross_packages(serving_dir, monkeypatch, capsys)
                                   np.load(serving_dir / "r_j.npz")["predictions"])
 
 
-STREAM_REFUSED = [
-    (["--single-device"], "ROADMAP A14"),
-    (["--metrics-out", "m.jsonl"], "ROADMAP A15"),
-]
 STREAM_EXIT_1 = [
     (["--save-state-every", "2"], "--save-state-every needs --save-state"),
     (["--max-streams", "0"], "--max-streams must be >= 1"),
@@ -379,13 +416,86 @@ STREAM_EXIT_1 = [
 ]
 
 
-@pytest.mark.parametrize("argv,item", STREAM_REFUSED, ids=["single_device", "metrics_out"])
-def test_stream_kws_refuses_unported_flags(serving_dir, monkeypatch, argv, item):
+# --single-device and --metrics-out, which the port's stream_kws refused
+# until it had them: static and pool serving with each; the metric records
+# of both packages for the same argv.
+STREAM_TAKEN = {
+    "single_device": SERVE["exact"] + ["--single-device"],
+    "metrics_out": SERVE["exact"] + ["--metrics-out", "m.jsonl"],
+    "metrics_out_pool": SERVE["pool"] + ["--diagnostics-every", "2", "--metrics-out", "m.jsonl"],
+}
+
+
+@pytest.mark.parametrize("case", list(STREAM_TAKEN))
+def test_stream_kws_takes_single_device_and_metrics_out(serving_dir, monkeypatch, capsys,
+                                                         case):
+    import json
+
+    (serving_dir / "m.jsonl").unlink(missing_ok=True)
+    port, ref, out = _serve_both(serving_dir, ["--data-dir", "corpus", *STREAM_TAKEN[case]],
+                                 monkeypatch, capsys, case)
+    np.testing.assert_array_equal(port["predictions"], ref["predictions"])
+    assert "Accuracy vs directory labels (8 streams)" in out
+    if case == "single_device":
+        return
+    # _serve_both ran the port first, then lsm_tpu, appending to one file.
+    records = [json.loads(r) for r in (serving_dir / "m.jsonl").read_text().splitlines()]
+    half = len(records) // 2
+    t, j = records[:half], records[half:]
+    names = [r["metric"] for r in t]
+    assert names == [r["metric"] for r in j] and len(records) == 2 * half
+    n_diag = names.count("serving_participation_pct")
+    tail = ["serving_stream_chunks_per_sec", "serving_accuracy"]
+    if case == "metrics_out_pool":
+        tail = ["serving_pool_sessions"] + tail
+    assert n_diag >= 1 and names == ["serving_participation_pct"] * n_diag + tail
+    for a, b in zip(t, j):
+        assert list(a) == list(b)
+        for k in a:
+            if k not in ("ts", "value", "wall_s"):
+                assert a[k] == b[k], (a["metric"], k)
+
+
+def test_inspect_state_describes_both_packages_snapshots_alike(serving_dir, monkeypatch,
+                                                               capsys, tmp_path):
+    """Each package's continuous engine saved after the same serving run:
+    equal identity headers and leaves, and --diff finds no difference."""
+    from lsm_tpu_torch.tools import inspect_state
+
+    base = ["--data-dir", "corpus", *SERVE["continuous"], "--state-no-compress"]
+    _serve_both(serving_dir, base + ["--save-state", "insp_t.npz"], monkeypatch, capsys,
+                "insp")
+    # _serve_both's reference run overwrote insp_t.npz: write the port's
+    # file again under its own name.
     from lsm_tpu_torch.cli import stream_kws
 
-    monkeypatch.chdir(serving_dir)
-    with pytest.raises(SystemExit, match=item):
-        stream_kws.main(["--model", "dense.npz", "--data-dir", "corpus", *argv, "--device", "cpu"])
+    (serving_dir / "insp_t.npz").rename(serving_dir / "insp_j.npz")
+    stream_kws.main(base + ["--save-state", "insp_t.npz", "--output", "x.npz",
+                            "--device", "cpu"])
+    capsys.readouterr()
+    a = inspect_state.describe(serving_dir / "insp_t.npz")
+    b = inspect_state.describe(serving_dir / "insp_j.npz")
+    assert a["meta"] == b["meta"] and a["leaves"] == b["leaves"]
+    assert a["meta"]["engine"] == "continuous" and a["meta"]["n_streams"] == 8
+    assert inspect_state.diff(serving_dir / "insp_t.npz", serving_dir / "insp_j.npz") == 0
+    text = inspect_state.render(serving_dir / "insp_t.npz", a)
+    assert "engine:      continuous  (8 streams)" in text and "weights_crc: 0x" in text
+
+
+def test_calibrate_continuous_writes_a_bundle_lsm_tpu_loads(serving_dir, tmp_path, capsys):
+    from lsm_tpu.io.model import load_model as j_load
+
+    from lsm_tpu_torch.tools import calibrate_continuous
+
+    out = tmp_path / "cont.npz"
+    calibrate_continuous.main(["--model", str(serving_dir / "dense.npz"), "--out", str(out),
+                               "--synthetic", "--samples-per-class", "3", "--device", "cpu"])
+    assert "Calibrating on 12 utterances" in capsys.readouterr().out
+    bundle = j_load(out)
+    assert bundle.feature_mode == "continuous"
+    assert bundle.continuous_params == {"chunk_len": 1600, "norm_decay_db_per_bin": 0.1}
+    assert tuple(bundle.class_names) == ("a", "b", "c", "d")
+    assert np.asarray(bundle.readout.w).shape == (5 * 64, 4)
 
 
 @pytest.mark.parametrize("argv,message", STREAM_EXIT_1,

@@ -125,8 +125,8 @@ def test_the_layout_it_is_given_caps_the_round(fit, body, cap):
 
 
 @pytest.mark.parametrize("n_pad,refractory,match", [
-    (4224, 2, "N_pad"),                  # past the largest dense reservoir
-    (8192, 2, "N_pad"),
+    (4160, 2, "N_pad % 128"),            # past 4096 too: the block body's blocks
+    (8256, 2, "N_pad % 128"),
     (1000, 2, "N_pad % 32"),             # not a multiple of 32
     (2048, 65536, "refractory"),         # the block body's 16-bit counter
     (1088, 2, "N_pad % 128"),            # the block body's 128-neuron blocks

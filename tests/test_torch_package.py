@@ -106,6 +106,11 @@ def test_port_imports_nothing_of_the_reference():
         "import lsm_tpu_torch.models.pool, lsm_tpu_torch.io.serving_state\n"
         "import lsm_tpu_torch.ops.stft, lsm_tpu_torch.ops.mel\n"
         "import lsm_tpu_torch.readout.streaming_fit, lsm_tpu_torch.tools.bench_stream_train\n"
+        "import lsm_tpu_torch.utils.checks, lsm_tpu_torch.utils.logging\n"
+        "import lsm_tpu_torch.utils.profiling, lsm_tpu_torch.models.sweep\n"
+        "import lsm_tpu_torch.tools.calibrate, lsm_tpu_torch.tools.calibrate_continuous\n"
+        "import lsm_tpu_torch.tools.sensitivity, lsm_tpu_torch.tools.inspect_state\n"
+        "import lsm_tpu_torch.tools.sparse_parity, lsm_tpu_torch.tools.gtgram_conversion\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"

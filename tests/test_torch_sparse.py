@@ -250,12 +250,6 @@ def test_pipeline_extract_dispatches_sparse():
     assert ext.diagnostics is not None and len(ext.diagnostics.participation) == 5
 
 
-def test_dense_at_device_init_scale_raises():
-    cfg = tcfg.PipelineConfig(reservoir=tcfg.ReservoirConfig(num_neurons=4096, sparse=False))
-    with pytest.raises(NotImplementedError, match="dense device init"):
-        tpipe.init_reservoir(cfg, 128, 0.01, torch.device("cpu"))
-
-
 def test_sparse_wrapper_cpu_and_validation():
     sr = tsp.init_reservoir_sparse(_cfg(tcfg, n=256, k=52, seed=1), n_channels=16)
     ops, kw = sr.kernel_operands()
@@ -343,11 +337,3 @@ def test_cli_sparse_runs_without_jax(tmp_path):
                  "--- Pipeline Finished ---", "JAX_FREE"):
         assert line in proc.stdout, line
     assert not list(tmp_path.glob("*.npz"))
-
-
-def test_cli_dense_at_scale_raises():
-    from lsm_tpu_torch.__main__ import main
-
-    with pytest.raises(NotImplementedError, match="dense device init"):
-        main(["--synthetic", "--samples-per-class", "5", "--num-neurons", "4096", "--dense",
-              "--n-filters", "16", "--device", "cpu", "--skip-artifacts"])
