@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
                (the twin's block form in float64): on the sub-block
                energies at >= 1e-4 of their (row, channel) peak its largest
                relative error must stay <= 1e-3 in every channel and its
-               worst channel no worse than the twin's. B2's plan must name
+               worst channel no worse than the twin's (B1/B3 convert their
+               cascade state once a 100 ms hop, not once a sub-block:
+               ROADMAP C5). B2's plan must name
                the cluster body with K = 16; on the calibrated (non-dyadic)
                weights its statistics must be bit-equal to the one-thread
                body's (the same sums in the same order), and it is timed
@@ -106,7 +108,13 @@ Phases (any failure exits non-zero):
                `python -m lsm_tpu_torch.cli.classify` (--input <shards>,
                --data-dir) as subprocesses; the warm (shards on disk) and
                cold (WAVs on disk) rates, the decode worker's busy share of
-               the cold wall, bundle sizes and load times.
+               the cold wall for the native C++ decoder and for the NumPy
+               one, bundle sizes and load times. The native decoder must
+               build and decode every batch (io/native.py's count), and it
+               is held to the NumPy decoder on the 2400 WAVs by
+               tests/test_native.py's rule: the int16 and mu-law wires
+               bit-equal, float32 within 1e-6, the corrupt file skipped by
+               both.
  12. serving entry points - at full width on the int16 wire with 100 ms
                hops: the exact engine StreamingKWS over 1024 streams with
                phase 6's dense modules (host wall a hop after a 1 s
@@ -162,10 +170,9 @@ Phases (any failure exits non-zero):
  15. configs[2] - BASELINE configs[2]: 35 classes at 256 gammatone filters,
                the flagship reservoir, synthetic_audio_batch(30, 35, seed=77):
                B1 at C = 256 against its twin (rtol 5e-3) and against
-               float64 by phase 2's rule on phase 2's audio (every channel
-               <= 1e-3, no worse than the twin; on the configs[2] corpus
-               every channel <= 1.1e-3, no worse than the twin: ROADMAP
-               C5); B2 with 256 input channels
+               float64 by phase 2's rule on phase 2's audio and on the
+               configs[2] corpus (every channel <= 1e-3, no worse than the
+               twin); B2 with 256 input channels
                bit-equal to its twin on dyadic weights, timed with its plan
                and bound; run_pipeline_arrays on the 1050 utterances (B1 and
                B2 launched, accuracy > 0.25, 35 report rows, 2000 features;
@@ -188,6 +195,28 @@ Phases (any failure exits non-zero):
                it the fired rows re-read each step and the block body's
                traffic, every weight block each step) and peak memory. 5000 neurons (N_pad 5120): B2
                bit-equal on dyadic weights.
+ 17. distributed - the batch and training path over several ranks
+               (lsm_tpu_torch/parallel). Two gloo ranks share the card
+               (NCCL refuses two ranks on one GPU; the port uses only
+               all_reduce and broadcast, which gloo takes on CUDA tensors),
+               launched as `python3 chip_smoke.py --distributed-worker`
+               through the entry points' env contract: phase 4's 2400
+               utterances through featurize_audio_array +
+               extract_lsm_features on a 2x1 mesh, spikes and features
+               bit-equal to one process on the same weights, B1 and B2
+               (cluster body) launched in each rank; fit_ridge_dp and
+               fit_logistic_dp held to the single-process fits
+               (tests/test_readout_dp.py's problem and rule); the
+               tensor-parallel block-sparse reservoir at configs[3] width
+               on a 1x2 mesh (B = 64, T = 400) bit-equal to B5 on the
+               dyadic copy and within SPIKE_REL of its spike total on the
+               calibrated weights; make_train_step's loss falling over 5
+               steps; `python -m lsm_tpu_torch --synthetic --hard` as two
+               processes, exit 0 on both, accuracy within one test row of
+               phase 3's and its regime. One NCCL rank on a 1x1 mesh runs
+               phase 3's slice through the mesh path, features bit-equal
+               to phase 3's. Phase 4's path timed over both meshes beside
+               phase 4's single-process wall.
 
 Each phase prints its seconds ("[time] ..."). A "[record] {...}" line
 holds every number of the run as JSON. The
@@ -228,6 +257,8 @@ SPARSE_ACC_RANGE, SPARSE_MAX_DELTA = (0.66, 0.95), 0.15   # tests/test_sparse_re
 # Phase 11's WAV corpora: 12 classes of this many files each (2400, the
 # hot path's count; 360 for the two CLI subprocesses).
 OFFLINE_PER_CLASS, CLI_PER_CLASS = 200, 30
+# Phase 17's rank processes: this script in its worker mode.
+DISTRIBUTED_WORKER = (sys.executable, str(REPO / "chip_smoke.py"), "--distributed-worker")
 # Phase 13's configs[0] slice: 4 words of this many utterances each.
 CONFIGS0_PER_CLASS = 200
 # Phase 14's corpus: configs[4]'s 100k-utterance training corpus cut to
@@ -241,11 +272,6 @@ SPIKE_REL = 1e-3
 # B1/B3 against the float64 cascade: the largest relative error of a
 # channel's sub-block energies at >= 1e-4 of their peak.
 F64_REL = 1e-3
-# B1 at 256 channels on the configs[2] corpus, where the kernel's
-# conversion of its state at every sub-block reads 1.074e-3 in channel 3
-# (ROADMAP C5; a float32 emulation of the kernel's arithmetic gives the
-# same figure): held to that reading with 2.4 % of room until C5 is fixed.
-F64_REL_CONFIGS2 = 1.1e-3
 # The device functions of one B5/B6 call (csrc/sparse_lif.cu), as the
 # profiler names them.
 SPARSE_LIF_KERNELS = ("block_step_kernel", "transpose_blocks_kernel", "pack_input_kernel",
@@ -317,12 +343,12 @@ def gtgram_bound(wave, fb, *outs) -> dict:
                  nbytes(wave, fb.coeffs, *outs))
 
 
-def float64_errors(e, e64, s=None, s64=None, twin=None, limit: float = F64_REL) -> dict:
+def float64_errors(e, e64, s=None, s64=None, twin=None) -> dict:
     """A gtgram kernel's (and its twin's) largest relative error against
     the float64 cascade, per channel, over the sub-block energies (n_sub,
     B, C) at >= 1e-4 of their (row, channel) peak; with s, s64 also the
     largest absolute error of the final state (B, 8, C). Fails when a
-    channel of the kernel's exceeds `limit` (1e-3) or its worst channel is
+    channel of the kernel's exceeds F64_REL or its worst channel is
     worse than the twin's."""
     keep = e64 >= 1e-4 * e64.amax(dim=0, keepdim=True)
 
@@ -336,9 +362,9 @@ def float64_errors(e, e64, s=None, s64=None, twin=None, limit: float = F64_REL) 
            "kernel_by_channel": k.tolist(), "twin_by_channel": t.tolist()}
     if s is not None:
         rec["state_max_abs_err"] = float((s.double() - s64).abs().max())
-    if rec["kernel_worst"] > limit or rec["kernel_worst"] > rec["twin_worst"]:
+    if rec["kernel_worst"] > F64_REL or rec["kernel_worst"] > rec["twin_worst"]:
         fail(f"against float64 the kernel's worst channel reads {rec['kernel_worst']:.3e} "
-             f"(channel {rec['kernel_worst_channel']}; limit {limit}, twin "
+             f"(channel {rec['kernel_worst_channel']}; limit {F64_REL}, twin "
              f"{rec['twin_worst']:.3e})")
     return rec
 
@@ -771,6 +797,8 @@ def main() -> None:
         fail(f"a kernel of the path was not launched: {launches}")
     if not on_cluster_body(every):
         fail(f"B2 did not run on the cluster body: {every['dense_bodies']}")
+    phase3 = {"x_train": ext.artifact.x_train, "x_test": ext.artifact.x_test,
+              "accuracy": result.accuracy, "regime": ext.diagnostics.regime}
     laps("3 slice")
 
     # ---- 4. hot inference path at 2400 utterances ------------------------
@@ -876,6 +904,10 @@ def main() -> None:
         laps("15 configs[2]")
     record["dense_large"] = dense_large(dev, card, spikes)
     laps("16 dense large")
+    with tempfile.TemporaryDirectory(prefix="lsm_distributed_") as tmp_name:
+        record["distributed"] = distributed(dev, card, Path(tmp_name), phase3, spikes,
+                                            [record["hot"]["wall_s_min"]])
+    laps("17 distributed")
 
     def row(name, key, source, replaces, rec, launches_):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1631,10 +1663,13 @@ def offline(dev, card, sparse_modules, tmp: Path) -> dict:
     corpus: `python -m lsm_tpu_torch --data-dir ... --save-model`, then
     `python -m lsm_tpu_torch.cli.classify` with that bundle over its shards
     (--input) and over its WAVs (--data-dir), whose predictions must both
-    equal the in-process ones of that bundle. Times: the
-    warm rate (classifying the shards on disk), the cold rate (WAVs to
-    predictions) with the share of its wall the decode worker is busy, the
-    bundles' sizes and load times."""
+    equal the in-process ones of that bundle. The native C++ decoder must
+    build and decode every batch; on the corpus it is held to the NumPy
+    decoder (int16 and mu-law wires bit-equal, float32 within 1e-6, the
+    corrupt file skipped by both). Times: the warm rate (classifying the
+    shards on disk), the cold rate (WAVs to predictions) with the share of
+    its wall the decode worker is busy, for the native decoder and the
+    NumPy one, the bundles' sizes and load times."""
     import dataclasses
 
     from lsm_tpu_torch import pipeline
@@ -1657,13 +1692,48 @@ def offline(dev, card, sparse_modules, tmp: Path) -> dict:
     corrupt = corpus / COMMANDS_12[5] / "00007_corrupt.wav"
     corrupt.write_bytes(b"RIFF\x24\x00\x00\x00WAVEfmt " + bytes(8))
 
-    # ---- featurize: four routes ------------------------------------
+    # ---- the native decoder against the NumPy one ------------------
+    from lsm_tpu_torch.io import native
+
+    if not native.available():
+        fail(f"the native WAV decoder did not build on the card's host: "
+             f"{native.unavailable_reason()}")
     files = dataset.index_speech_commands(corpus, cfg.commands, cfg.max_samples_per_class).files
     n_batches = -(-n_utt // cfg.batch_size)
+    b1_want = -(-len(files) // cfg.batch_size)
+    decoders = {}
+    for wire in ("int16", "ulaw", "float32"):
+        before = native.batches
+        t_nat, (nat, kept_n, err_n) = timed(lambda: load_audio_batch(files, dtype=wire))
+        native_ran = native.batches == before + 1
+        t_np, (ref, kept_r, err_r) = timed(
+            lambda: load_audio_batch(files, use_native=False, dtype=wire))
+        same_rows = kept_n == kept_r and [p.name for p, _ in err_n] == \
+            [p.name for p, _ in err_r] == [corrupt.name]
+        if wire == "float32":
+            held = same_rows and bool(np.allclose(nat, ref, rtol=0, atol=1e-6))
+        else:
+            held = same_rows and bool(np.array_equal(nat, ref))
+        decoders[wire] = {"native_s": t_nat, "numpy_s": t_np, "native_ran": native_ran,
+                          "held": held, "max_abs_diff": float(np.abs(
+                              nat.astype(np.float64) - ref.astype(np.float64)).max())
+                          if nat.shape == ref.shape else None}
+    del nat, ref
+    rec["decoders"] = decoders
+    print(f"[offline] native decoder vs NumPy on {len(files)} WAVs: " + "; ".join(
+        f"{w} native {d['native_s']:.3f} s NumPy {d['numpy_s']:.3f} s held {d['held']} "
+        f"(max |diff| {d['max_abs_diff']})" for w, d in decoders.items()) + f" ({card})")
+    if not all(d["native_ran"] and d["held"] for d in decoders.values()):
+        fail(f"the native decoder against the NumPy one: {decoders}")
+
+    # ---- featurize: four routes ------------------------------------
     reset_launches()
+    before = native.batches
     rec["featurize_int16_s"], ds = timed(lambda: pipeline.create_spike_dataset(cfg, corpus, dev))
     rec["launches_featurize_int16"] = read_launches()
-    b1_want = -(-len(files) // cfg.batch_size)
+    if native.batches - before != b1_want:
+        fail(f"the native decoder decoded {native.batches - before} of create_spike_dataset's "
+             f"{b1_want} batches")
     rec["decode_float32_s"], (audio, kept, errors) = timed(
         lambda: load_audio_batch(files, dtype="float32"))
     sp_f32 = pipeline.featurize_audio_array(cfg, audio, dev)
@@ -1745,37 +1815,54 @@ def offline(dev, card, sparse_modules, tmp: Path) -> dict:
         cfg, ShardedSpikeDataset(tmp / "shards"), bundle.reservoir, bundle.readout,
         bundle.scaler, dev))[0] for _ in range(3)]
     # The decode worker's busy seconds inside each cold run (wrapping
-    # the loader create_spike_dataset calls), against that run's wall.
+    # the loader create_spike_dataset calls), against that run's wall; the
+    # native decoder, then the NumPy one, in the same call.
     decode_busy = []
 
-    def busy_decode(*args, **kw):
-        t0 = time.perf_counter()
-        out = load_audio_batch(*args, **kw)
-        decode_busy.append(time.perf_counter() - t0)
-        return out
+    def busy_decode(use_native):
+        def decode(*args, **kw):
+            t0 = time.perf_counter()
+            out = load_audio_batch(*args, use_native=use_native, **kw)
+            decode_busy.append(time.perf_counter() - t0)
+            return out
+        return decode
 
-    cold = []
-    pipeline.load_audio_batch = busy_decode
+    cold = {}
     try:
-        for _ in range(3):
-            decode_busy.clear()
-            wall, _ = timed(lambda: pipeline.classify_spikes_streaming(
-                cfg, pipeline.InMemorySource(pipeline.create_spike_dataset(cfg, corpus, dev)),
-                bundle.reservoir, bundle.readout, bundle.scaler, dev))
-            cold.append((wall, sum(decode_busy)))
+        for name, use_native in (("native", True), ("numpy", False)):
+            pipeline.load_audio_batch = busy_decode(use_native)
+            cold[name] = []
+            for _ in range(3):
+                decode_busy.clear()
+                before = native.batches
+                wall, _ = timed(lambda: pipeline.classify_spikes_streaming(
+                    cfg, pipeline.InMemorySource(pipeline.create_spike_dataset(cfg, corpus, dev)),
+                    bundle.reservoir, bundle.readout, bundle.scaler, dev))
+                cold[name].append((wall, sum(decode_busy)))
+                if (native.batches - before == b1_want) != use_native:
+                    fail(f"the {name} cold run's batches went through the native decoder "
+                         f"{native.batches - before} times of {b1_want}")
     finally:
         pipeline.load_audio_batch = load_audio_batch
-    best = min(cold)
-    rec.update(warm_s=warm, cold_s=[c[0] for c in cold],
-               cold_decode_s=[c[1] for c in cold], warm_utt_per_s=n_utt / min(warm),
+    best = min(cold["native"])
+    best_np = min(cold["numpy"])
+    rec.update(warm_s=warm, cold_s=[c[0] for c in cold["native"]],
+               cold_decode_s=[c[1] for c in cold["native"]], warm_utt_per_s=n_utt / min(warm),
                warm_utt_per_s_median=n_utt / statistics.median(warm),
-               cold_utt_per_s=n_utt / best[0], decode_share_of_cold=best[1] / best[0])
+               cold_utt_per_s=n_utt / best[0], decode_share_of_cold=best[1] / best[0],
+               cold_numpy_s=[c[0] for c in cold["numpy"]],
+               cold_numpy_decode_s=[c[1] for c in cold["numpy"]],
+               cold_numpy_utt_per_s=n_utt / best_np[0],
+               decode_share_of_cold_numpy=best_np[1] / best_np[0])
     print(f"[offline] warm: {n_utt} utt from shards on disk -> predictions "
           f"{rec['warm_utt_per_s']:.1f} utt/s (walls " + " ".join(f"{w:.3f}" for w in warm)
-          + f" s); cold: WAVs on disk -> predictions {rec['cold_utt_per_s']:.1f} utt/s (walls "
-          + " ".join(f"{c[0]:.3f}" for c in cold) + " s; the decode worker busy "
-          + " ".join(f"{c[1]:.3f}" for c in cold) + f" s, "
-          f"{100 * rec['decode_share_of_cold']:.1f} % of the fastest wall) ({card})")
+          + " s)")
+    for name, runs in cold.items():
+        b = min(runs)
+        print(f"[offline] cold, {name} decoder: WAVs on disk -> predictions "
+              f"{n_utt / b[0]:.1f} utt/s (walls " + " ".join(f"{c[0]:.3f}" for c in runs)
+              + " s; the decode worker busy " + " ".join(f"{c[1]:.3f}" for c in runs)
+              + f" s, {100 * b[1] / b[0]:.1f} % of the fastest wall) ({card})")
 
     # ---- the sparse bundle (phase 9's configs[3] modules) ------------
     s_res, s_ro, s_sc = sparse_modules
@@ -2575,8 +2662,7 @@ def configs2(dev, card, tmp: Path) -> dict:
           **gtgram_bound(audio, fb, e_k)}
     if not b1["allclose"]:
         fail("B1 at C = 256 disagrees with its plain twin beyond rtol 5e-3 / atol 1e-6")
-    b1["float64_corpus"] = f64 = float64_errors(e_k, e_64, twin=e_p,
-                                                limit=F64_REL_CONFIGS2)
+    b1["float64_corpus"] = f64 = float64_errors(e_k, e_64, twin=e_p)
     del e_64
     hard_np, _ = dataset.synthetic_audio_batch_hard(22, 12, seed=7)      # phase 2's audio
     hard = torch.as_tensor(hard_np[:256]).to(dev)
@@ -2850,5 +2936,352 @@ def dense_large(dev, card, spikes) -> dict:
                            "max_abs_err": finite_err(s5k, s5p)}}
 
 
+# ---- 17. distributed ---------------------------------------------------------
+
+def _dp_hot_walls(mesh, audio_np, reservoir, st, ro, fcfg, keys, dev, reps: int = 5) -> list:
+    """Host walls of phase 4's inference path over the mesh: each rank
+    featurizes and extracts its rows (audio already on the card), scales,
+    predicts, and the predictions are gathered; every wall starts after a
+    barrier and ends in `synchronize()`."""
+    from lsm_tpu_torch.parallel import mesh as ml
+    from lsm_tpu_torch.parallel.sharded import extract_features_dp, featurize_dp
+    from lsm_tpu_torch.readout import logistic, scaler
+
+    audio = ml.shard_batch(audio_np, mesh)
+
+    def hot():
+        f = extract_features_dp(reservoir, featurize_dp(audio, fcfg, mesh), keys, mesh)
+        return ml.host_local(logistic.predict(ro, scaler.transform(st, f)), mesh)
+
+    hot()
+    walls = []
+    for _ in range(reps):
+        ml.barrier(mesh)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        hot()
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def distributed_worker(task: str, out_dir: Path) -> None:
+    """One rank of phase 17, launched by `distributed` through the entry
+    points' env contract. task "pair": two gloo ranks sharing the card;
+    "single": one NCCL rank. Writes out_dir/<task>.npz (rank 0) and
+    out_dir/<task>_rank<r>.json."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from lsm_tpu_torch import pipeline
+    from lsm_tpu_torch.config import FEATURE_SETS, PipelineConfig, ReservoirConfig
+    from lsm_tpu_torch.device import resolve_device
+    from lsm_tpu_torch.io import artifacts, dataset
+    from lsm_tpu_torch.models import sparse
+    from lsm_tpu_torch.models.calibration import calibrate_weight
+    from lsm_tpu_torch.models.reservoir import init_reservoir
+    from lsm_tpu_torch.parallel import mesh as ml
+    from lsm_tpu_torch.parallel.sharded import simulate_model_sharded_sparse
+    from lsm_tpu_torch.parallel.train_step import ReadoutState, make_train_step
+    from lsm_tpu_torch.readout import logistic
+
+    if not ml.maybe_init_distributed_from_env():
+        fail("the distributed worker found no LSM_TPU_COORDINATOR in its environment")
+    dev = resolve_device("cuda")
+    rank = dist.get_rank()
+    args = json.loads((out_dir / "args.json").read_text())
+    cfg = PipelineConfig()
+    keys = tuple(FEATURE_SETS[cfg.feature_set])
+    rec = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+    arrays = {}
+    audio, labels = dataset.synthetic_audio_batch(200, 12, seed=42)   # phase 4's corpus
+    mesh = ml.make_mesh(dist.get_world_size(), 1, device=dev)
+    if task == "single":
+        audio_h, labels_h = dataset.synthetic_audio_batch_hard(30, 12, seed=42)
+        reset_launches()
+        result, ext_h = pipeline.run_pipeline_arrays(PipelineConfig(batch_size=64), audio_h,
+                                                     labels_h, dev, mesh=mesh)
+        rec.update(launches=read_launches(), accuracy=result.accuracy)
+        arrays.update(x_train=ext_h.artifact.x_train, x_test=ext_h.artifact.x_test)
+    reset_launches()
+    ml.barrier(mesh)
+    t0 = time.perf_counter()
+    spikes = pipeline.featurize_audio_array(cfg, audio, dev, mesh=mesh)
+    ext = pipeline.extract_lsm_features(cfg, artifacts.SpikeDataset(spikes, labels), dev,
+                                        run_diagnostics=False, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    rec["stages_wall_s"] = time.perf_counter() - t0
+    rec["stages_launches"] = read_launches()
+    rec["spikes_sha256"] = hashlib.sha256(spikes.tobytes()).hexdigest()
+    if task == "pair":
+        arrays.update(x_train=ext.artifact.x_train, x_test=ext.artifact.x_test)
+        toy_x, toy_y = np.asarray(args["toy_x"], np.float32), np.asarray(args["toy_y"])
+        ridge = logistic.fit_ridge_dp(toy_x, toy_y, 5, mesh)
+        lg, it = logistic.fit_logistic_dp(toy_x, toy_y, 5, mesh, max_iter=200)
+        arrays.update(ridge_w=ridge.w.cpu().numpy(), ridge_b=ridge.b.cpu().numpy(),
+                      logistic_w=lg.w.cpu().numpy(), logistic_b=lg.b.cpu().numpy())
+        rec["logistic_iters"] = it
+
+        # The tensor-parallel block-sparse reservoir at configs[3] width on
+        # a 1x2 mesh: B = 64 rows of phase 2's spikes, the dyadic copy and
+        # the calibrated weights, bf16 weights as B5 rounds them.
+        tp = ml.make_mesh(1, 2, device=dev)
+        x = np.load(out_dir / "tp_spikes.npy")
+        sr = sparse.init_reservoir_sparse(ReservoirConfig(num_neurons=N_10K, small_world_k=K_10K),
+                                          x.shape[1], mean_weight=args["mw_10k"], device=dev)
+        for name, r in (("dyadic", sr.dyadic()), ("calibrated", sr)):
+            ml.barrier(tp)
+            t0 = time.perf_counter()
+            st = simulate_model_sharded_sparse(r, ml.shard_batch(x, tp), tp,
+                                               matmul_dtype=torch.bfloat16)
+            torch.cuda.synchronize(dev)
+            rec[f"tp_{name}_s"] = time.perf_counter() - t0
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    arrays[f"tp_{name}_{k}"] = v.cpu().numpy()
+        del sr
+
+        # The fused train step on the 2x1 mesh, five steps from a zero
+        # readout, on every tenth utterance (all twelve classes).
+        x_tr, y_tr = spikes[::10], labels[::10]
+        _, mw = calibrate_weight(cfg.reservoir, x_tr, cfg.multiplier)
+        res_d = init_reservoir(cfg.reservoir, x_tr.shape[1], mean_weight=mw, device=dev)
+        step = make_train_step(res_d, keys, 12, mesh)
+        d = len(keys) * res_d.n_outputs
+        state = ReadoutState(torch.zeros(d, 12, device=dev), torch.zeros(12, device=dev))
+        losses = []
+        for _ in range(5):
+            loss, state = step(ml.shard_batch(x_tr, mesh), ml.shard_batch(y_tr, mesh), state)
+            losses.append(float(loss))
+        rec["train_losses"] = losses
+
+    # Phase 4's path over the mesh (2400 utterances), with a ridge readout
+    # of their features.
+    x_all = np.concatenate([ext.artifact.x_train, ext.artifact.x_test])
+    y_all = np.concatenate([ext.artifact.y_train, ext.artifact.y_test])
+    ro = logistic.fit_ridge(torch.as_tensor(x_all).to(dev), torch.as_tensor(y_all).to(dev), 12)
+    rec["hot_walls_s"] = _dp_hot_walls(mesh, audio, ext.reservoir, ext.scaler, ro,
+                                       cfg.frontend, keys, dev)
+    rec["hot_utt_per_s"] = audio.shape[0] / min(rec["hot_walls_s"])
+    if rank == 0:
+        np.savez(out_dir / f"{task}.npz", **arrays)
+    (out_dir / f"{task}_rank{rank}.json").write_text(json.dumps(rec))
+    ml.barrier(mesh)
+    dist.destroy_process_group()
+
+
+def _launch_ranks(argv: list, n: int, cwd: Path, timeout: int, card: str) -> list:
+    """Start n processes of argv with the env contract (a coordinator on a
+    free localhost port), wait for all, and fail unless every one exits 0.
+    Returns their stdouts."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(REPO), "LSM_TPU_COORDINATOR": f"localhost:{port}",
+           "LSM_TPU_NUM_PROCESSES": str(n)}
+    procs = [subprocess.Popen(argv, cwd=cwd, env={**env, "LSM_TPU_PROCESS_ID": str(i)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-4000:])
+            fail(f"rank {i} of {n} of `{' '.join(map(str, argv[1:4]))}` exited "
+                 f"{p.returncode} ({card})")
+    return outs
+
+
+def distributed(dev, card, tmp: Path, phase3: dict, phase2_spikes, hot_walls: list) -> dict:
+    """Phase 17: the batch and training path over several ranks (ROADMAP
+    A14). Two gloo ranks share the card (NCCL refuses two ranks on one
+    GPU; gloo takes CUDA tensors for all_reduce and broadcast, the only
+    collectives the port uses): featurize_audio_array + extract_lsm_features
+    on the 2400-utterance hot-path corpus on a 2x1 mesh, bit-equal to the
+    single-process run on the same weights, B1 and B2 launched in each
+    rank on the cluster body; fit_ridge_dp / fit_logistic_dp on
+    tests/test_readout_dp.py's problem held to the single-process fits; the
+    tensor-parallel block-sparse reservoir at configs[3] width on a 1x2
+    mesh against B5 (bit-equal on the dyadic copy, spike totals within
+    SPIKE_REL on the calibrated weights); make_train_step's loss falling
+    over 5 steps; `python -m lsm_tpu_torch` as two processes on the hard
+    slice. One NCCL rank on a 1x1 mesh runs phase 3's slice through the
+    mesh path, bit-equal to phase 3. Walls beside phase 4's."""
+    from lsm_tpu_torch import pipeline
+    from lsm_tpu_torch.config import ReservoirConfig
+    from lsm_tpu_torch.io import artifacts, dataset
+    from lsm_tpu_torch.models import sparse
+    from lsm_tpu_torch.models.calibration import calibrate_weight
+    from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
+    from lsm_tpu_torch.readout import logistic
+    from lsm_tpu_torch.config import PipelineConfig
+
+    out = tmp / "distributed"
+    out.mkdir()
+    rng = np.random.default_rng(0)          # tests/test_readout_dp.py's _toy_problem
+    centers = rng.normal(0, 2.0, (5, 24)).astype(np.float32)
+    toy_y = rng.integers(0, 5, 257).astype(np.int32)
+    toy_x = (centers[toy_y] + rng.normal(0, 1.0, (257, 24)).astype(np.float32)).astype(np.float32)
+    rcfg10 = ReservoirConfig(num_neurons=N_10K, small_world_k=K_10K)
+    _, mw10 = calibrate_weight(rcfg10, phase2_spikes, MULT_10K)
+    np.save(out / "tp_spikes.npy", phase2_spikes[:64].cpu().numpy())
+    (out / "args.json").write_text(json.dumps({"toy_x": toy_x.tolist(), "toy_y": toy_y.tolist(),
+                                               "mw_10k": mw10}))
+    rec = {}
+    worker = list(DISTRIBUTED_WORKER)
+    t0 = time.perf_counter()
+    _launch_ranks(worker + ["pair", str(out)], 2, tmp, 400, card)
+    rec["pair_process_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _launch_ranks(worker + ["single", str(out)], 1, tmp, 300, card)
+    rec["single_process_s"] = time.perf_counter() - t0
+    pair = [json.loads((out / f"pair_rank{r}.json").read_text()) for r in (0, 1)]
+    single = json.loads((out / "single_rank0.json").read_text())
+    got, one = np.load(out / "pair.npz"), np.load(out / "single.npz")
+    rec["backends"] = {"pair": [p["backend"] for p in pair], "single": single["backend"]}
+    print(f"[distributed] two ranks on the card: backend {rec['backends']['pair']}; one "
+          f"rank: backend {rec['backends']['single']}")
+    if rec["backends"] != {"pair": ["gloo", "gloo"], "single": "nccl"}:
+        fail(f"phase 17's backends: {rec['backends']}")
+
+    # The hot-path corpus on 2 ranks against one process on the same weights.
+    cfg = PipelineConfig()
+    audio, labels = dataset.synthetic_audio_batch(200, 12, seed=42)
+    spikes = pipeline.featurize_audio_array(cfg, audio, dev, mesh=None)
+    ext = pipeline.extract_lsm_features(cfg, artifacts.SpikeDataset(spikes, labels), dev,
+                                        run_diagnostics=False, mesh=None)
+    sha = __import__("hashlib").sha256(spikes.tobytes()).hexdigest()
+    rec["pair"] = {
+        "spikes_bit_equal": all(p["spikes_sha256"] == sha for p in pair),
+        "features_bit_equal": bool(np.array_equal(got["x_train"], ext.artifact.x_train)
+                                   and np.array_equal(got["x_test"], ext.artifact.x_test)),
+        "launches": [p["stages_launches"] for p in pair],
+        "stages_wall_s": [p["stages_wall_s"] for p in pair]}
+    each = rec["pair"]["launches"]
+    print(f"[distributed] 2400 utterances on a 2x1 mesh: spikes bit-equal "
+          f"{rec['pair']['spikes_bit_equal']}, features bit-equal "
+          f"{rec['pair']['features_bit_equal']}; launches rank 0 B1 {each[0]['B1']} B2 "
+          f"{each[0]['B2']}, rank 1 B1 {each[1]['B1']} B2 {each[1]['B2']} (dense bodies "
+          f"{each[0]['dense_bodies']}, {each[1]['dense_bodies']})")
+    if not (rec["pair"]["spikes_bit_equal"] and rec["pair"]["features_bit_equal"]):
+        fail(f"the 2-rank features differ from the single process's: {rec['pair']}")
+    if not all(e["B1"] > 0 and e["B2"] > 0 and on_cluster_body(e) for e in each):
+        fail(f"B1 and B2 on the cluster body were not launched in each rank: {each}")
+
+    # The data-parallel readout fits against the single-process ones.
+    xt, yt = torch.as_tensor(toy_x).to(dev), torch.as_tensor(toy_y).to(dev)
+    ridge = logistic.fit_ridge(xt, yt, 5)
+    lg, _ = logistic.fit_logistic(xt, yt, 5, max_iter=200)
+    ridge_ok = bool(np.allclose(got["ridge_w"], ridge.w.cpu().numpy(), rtol=1e-4, atol=1e-5)
+                    and np.allclose(got["ridge_b"], ridge.b.cpu().numpy(), rtol=1e-4, atol=1e-5))
+    pred_dp = np.argmax(toy_x @ got["logistic_w"] + got["logistic_b"], axis=1)
+    lg_ok = bool(np.allclose(got["logistic_w"], lg.w.cpu().numpy(), rtol=0, atol=5e-3)
+                 and np.allclose(got["logistic_b"], lg.b.cpu().numpy(), rtol=0, atol=5e-3)
+                 and np.array_equal(pred_dp, logistic.predict(lg, xt).cpu().numpy()))
+    rec["readouts"] = {
+        "ridge_max_abs_err": float(np.abs(got["ridge_w"] - ridge.w.cpu().numpy()).max()),
+        "logistic_max_abs_err": float(np.abs(got["logistic_w"] - lg.w.cpu().numpy()).max()),
+        "ridge_ok": ridge_ok, "logistic_ok": lg_ok}
+    print(f"[distributed] fit_ridge_dp vs fit_ridge max |dW| "
+          f"{rec['readouts']['ridge_max_abs_err']:.2e} ({ridge_ok}); fit_logistic_dp vs "
+          f"fit_logistic max |dW| {rec['readouts']['logistic_max_abs_err']:.2e}, equal "
+          f"predictions ({lg_ok})")
+    if not (ridge_ok and lg_ok):
+        fail(f"the data-parallel readout fits: {rec['readouts']}")
+
+    # The tensor-parallel sparse reservoir against B5.
+    sr = sparse.init_reservoir_sparse(rcfg10, phase2_spikes.shape[1], mean_weight=mw10,
+                                      device=dev)
+    x64 = phase2_spikes[:64].contiguous()
+    tp = {}
+    for name, r in (("dyadic", sr.dyadic()), ("calibrated", sr)):
+        ops, kw = r.kernel_operands()
+        stats, all_counts = ksp.sparse_lif_stats(x64, *ops, **kw)
+        ref = dict(zip(["counts", "sum_t", "sum_t2", "first", "last", "n_isi", "sum_isi",
+                        "sum_isi2", "bursts", "win_sum", "win_sum2"], stats.cpu().numpy()))
+        port_total = float(got[f"tp_{name}_all_counts"].sum())
+        b5_total = float(all_counts.sum())
+        tp[name] = {
+            "stats_bit_equal": all(np.array_equal(got[f"tp_{name}_{k}"], v)
+                                   for k, v in ref.items()),
+            "all_counts_bit_equal": bool(np.array_equal(got[f"tp_{name}_all_counts"],
+                                                        all_counts.cpu().numpy())),
+            "spikes_tp": port_total, "spikes_B5": b5_total,
+            "spike_rel": abs(port_total - b5_total) / max(b5_total, 1.0),
+            "seconds": pair[0][f"tp_{name}_s"]}
+    rec["tensor_parallel_sparse"] = tp
+    print(f"[distributed] tensor-parallel sparse reservoir, 1x2 mesh, N={N_10K} B=64 T=400: "
+          f"dyadic stats bit-equal to B5 {tp['dyadic']['stats_bit_equal']} (all_counts "
+          f"{tp['dyadic']['all_counts_bit_equal']}, {tp['dyadic']['seconds']:.2f} s); calibrated "
+          f"spikes {tp['calibrated']['spikes_tp']:.0f} vs B5 {tp['calibrated']['spikes_B5']:.0f} "
+          f"(rel {tp['calibrated']['spike_rel']:.2e}, {tp['calibrated']['seconds']:.2f} s)")
+    if not (tp["dyadic"]["stats_bit_equal"] and tp["dyadic"]["all_counts_bit_equal"]):
+        fail("the tensor-parallel sparse reservoir is not bit-equal to B5 on the dyadic copy")
+    if tp["calibrated"]["spike_rel"] > SPIKE_REL:
+        fail(f"tensor-parallel spike totals part from B5's by {tp['calibrated']['spike_rel']:.2e}")
+
+    losses = pair[0]["train_losses"]
+    rec["train_losses"] = losses
+    print(f"[distributed] make_train_step on 2x1, 5 steps: losses "
+          + " ".join(f"{v:.4f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        fail(f"the train step's loss did not fall: {losses}")
+
+    # One NCCL rank: phase 3's slice through the mesh path.
+    rec["single"] = {"features_bit_equal": bool(
+        np.array_equal(one["x_train"], phase3["x_train"])
+        and np.array_equal(one["x_test"], phase3["x_test"])),
+        "accuracy": single["accuracy"], "launches": single["launches"]}
+    print(f"[distributed] one NCCL rank, 1x1 mesh, the hard slice: features bit-equal to "
+          f"phase 3 {rec['single']['features_bit_equal']}, accuracy {single['accuracy']:.4f} "
+          f"(phase 3 {phase3['accuracy']:.4f}), launches B1 {single['launches']['B1']} B2 "
+          f"{single['launches']['B2']}")
+    if not rec["single"]["features_bit_equal"]:
+        fail("the 1x1 NCCL mesh path's features differ from phase 3's")
+
+    # The pipeline entry point as two processes (env contract) on the hard slice.
+    cli = [sys.executable, "-m", "lsm_tpu_torch", "--synthetic", "--hard",
+           "--samples-per-class", "30", "--batch-size", "64", "--skip-artifacts"]
+    t0 = time.perf_counter()
+    logs = _launch_ranks(cli, 2, tmp, 300, card)
+    rec["cli_process_s"] = time.perf_counter() - t0
+    import re
+
+    accs = [float(re.search(r"Test Accuracy: ([0-9.]+)%", s).group(1)) / 100 for s in logs]
+    regimes = [re.search(r"STATUS: ([A-Z -]+)", s).group(1).strip() for s in logs]
+    n_test = len(phase3["x_test"])
+    rec["cli"] = {"accuracy": accs, "regime": regimes}
+    print(f"[distributed] `python -m lsm_tpu_torch --synthetic --hard` on 2 processes: exit 0 "
+          f"on both, accuracy {accs} regime {regimes} (phase 3: {phase3['accuracy']:.4f} "
+          f"{phase3['regime']}) in {rec['cli_process_s']:.1f} s")
+    if not all(abs(a - phase3["accuracy"]) <= 1.0 / n_test + 1e-9 for a in accs) or \
+            any(r != phase3["regime"] for r in regimes):
+        fail(f"the 2-process CLI: {rec['cli']} against phase 3's {phase3['accuracy']} "
+             f"{phase3['regime']}")
+
+    rec["walls"] = {"single_process_phase4_s": min(hot_walls),
+                    "two_ranks_s": min(pair[0]["hot_walls_s"]),
+                    "one_nccl_rank_s": min(single["hot_walls_s"])}
+    print(f"[distributed] phase 4's path, 2400 utterances, min of 5 walls: one process "
+          f"{rec['walls']['single_process_phase4_s'] * 1e3:.2f} ms; two gloo ranks sharing the "
+          f"card {rec['walls']['two_ranks_s'] * 1e3:.2f} ms; one NCCL rank on a 1x1 mesh "
+          f"{rec['walls']['one_nccl_rank_s'] * 1e3:.2f} ms ({card})")
+    return rec
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 4 and sys.argv[1] == "--distributed-worker":
+        distributed_worker(sys.argv[2], Path(sys.argv[3]))
+    else:
+        main()

@@ -8,7 +8,11 @@ reservoir (drawn on the device from 4096 neurons on) or the block-sparse
 one of the scaled configuration (models/sparse.py). The entry points take
 lsm_tpu's --check (utils/checks.py), --metrics-out (utils/logging.py) and
 --single-device; utils/profiling.py, models/sweep.py and the operator
-tools (`python -m lsm_tpu_torch.tools.<name>`) come with them.
+tools (`python -m lsm_tpu_torch.tools.<name>`) come with them. The batch
+and training path also runs over several ranks of a process group
+(parallel/: data-parallel stages, the tensor-parallel reservoir, the fused
+training step), and WAVs decode on a native C++ decoder (csrc/wavio.cpp,
+io/native.py) where g++ can build it.
 
 The JAX package `lsm_tpu` is the reference; this package mirrors its
 layout (ops/, models/, readout/, pipeline.py) so each module's counterpart

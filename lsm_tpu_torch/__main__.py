@@ -1,5 +1,6 @@
-"""`python -m lsm_tpu_torch`: the full pipeline on one device, the port's
-counterpart of the repo-root main.py.
+"""`python -m lsm_tpu_torch`: the full pipeline, the port's counterpart of
+the repo-root main.py, on one device or data-parallel over the ranks of a
+multi-process launch (cli/common.py).
 
 main.py's flags (cli/common.py), plus --device (default cuda; no silent
 CPU fallback) and --hard (the frozen hard synthetic corpus). Without
@@ -19,8 +20,8 @@ from pathlib import Path
 
 from lsm_tpu_torch.cli.common import (
     add_extension_flags, add_extract_flags, add_frontend_flags, build_config,
-    emit_extraction_metrics, emit_training_metrics, metrics_from_args, resolve_commands,
-    setup_logging, synthetic_n_per,
+    emit_extraction_metrics, emit_training_metrics, mesh_from_args, metrics_from_args,
+    resolve_commands, setup_logging, synthetic_n_per, write_once,
 )
 from lsm_tpu_torch.io import artifacts, dataset
 
@@ -57,6 +58,7 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = build_config(args)
+    mesh = mesh_from_args(args)
     metrics = metrics_from_args(args)
 
     print("--- Running Pipeline ---")
@@ -66,12 +68,13 @@ def main(argv=None) -> None:
     if args.synthetic:
         make = dataset.synthetic_audio_batch_hard if args.hard else dataset.synthetic_audio_batch
         audio, labels = make(n_per_class=synthetic_n_per(args), n_classes=len(cfg.commands))
-        ds = artifacts.SpikeDataset(x_spikes=featurize_audio_array(cfg, audio, device),
-                                    y_labels=labels)
+        ds = artifacts.SpikeDataset(
+            x_spikes=featurize_audio_array(cfg, audio, device, mesh=mesh), y_labels=labels)
         if spike_path is not None:
-            artifacts.save_spike_dataset(spike_path, ds)
+            write_once(artifacts.save_spike_dataset, spike_path, ds)
     else:
-        ds = create_spike_dataset(cfg, Path(args.data_dir), device, output_path=spike_path)
+        ds = create_spike_dataset(cfg, Path(args.data_dir), device, output_path=spike_path,
+                                  mesh=mesh)
     print(f"  Shape: {ds.x_spikes.shape}")
     n = len(ds.x_spikes)
     if metrics:
@@ -84,14 +87,14 @@ def main(argv=None) -> None:
     print("\n--- Step 2: Extracting LSM Features ---")
     t0 = time.perf_counter()
     feat_path = None if args.skip_artifacts else Path(artifacts.FEATURES_FILENAME)
-    ext = extract_lsm_features(cfg, ds, device, output_path=feat_path)
+    ext = extract_lsm_features(cfg, ds, device, output_path=feat_path, mesh=mesh)
     if metrics:
         dt = time.perf_counter() - t0
         emit_extraction_metrics(metrics, ext, cfg, n, dt)
 
     print("\n--- Step 3: Training and Evaluating Classifier ---")
     t0 = time.perf_counter()
-    result = train_and_evaluate(cfg, ext.artifact, device)
+    result = train_and_evaluate(cfg, ext.artifact, device, mesh=mesh)
     if metrics:
         emit_training_metrics(metrics, result, cfg, time.perf_counter() - t0)
     print("\n--- Final Results ---")
@@ -102,9 +105,9 @@ def main(argv=None) -> None:
     if args.save_model:
         from lsm_tpu_torch.io.model import save_model
 
-        save_model(Path(args.save_model), reservoir=ext.reservoir, readout=result.readout,
-                   scaler=ext.scaler, frontend=cfg.frontend, feature_set=cfg.feature_set,
-                   class_names=cfg.commands)
+        write_once(save_model, Path(args.save_model), reservoir=ext.reservoir,
+                   readout=result.readout, scaler=ext.scaler, frontend=cfg.frontend,
+                   feature_set=cfg.feature_set, class_names=cfg.commands)
         print(f"Model saved to '{args.save_model}'")
     if metrics:
         metrics.close()

@@ -16,7 +16,8 @@ from pathlib import Path
 import numpy as np
 
 from lsm_tpu_torch.cli.common import (
-    add_audio_wire_flag, add_device_flag, add_single_device_flag, setup_logging,
+    add_audio_wire_flag, add_device_flag, add_single_device_flag, mesh_from_args, setup_logging,
+    write_once,
 )
 from lsm_tpu_torch.config import PipelineConfig, ReservoirConfig
 from lsm_tpu_torch.io import artifacts
@@ -70,8 +71,9 @@ def main(argv=None) -> None:
         max_samples_per_class=args.samples_per_class or 1_000_000_000,
     )
 
+    mesh = mesh_from_args(args)
     if args.data_dir is not None:
-        ds = pipeline.create_spike_dataset(cfg, Path(args.data_dir), device)
+        ds = pipeline.create_spike_dataset(cfg, Path(args.data_dir), device, mesh=mesh)
         source = pipeline.InMemorySource(ds)
     elif args.input is not None:
         path = Path(args.input)
@@ -82,10 +84,9 @@ def main(argv=None) -> None:
         sys.exit(1)
 
     preds, labels = pipeline.classify_spikes_streaming(
-        cfg, source, bundle.reservoir, bundle.readout, bundle.scaler, device)
-    np.savez_compressed(Path(args.output), predictions=preds.astype(np.int32),
-                        labels=labels.astype(np.int32),
-                        class_names=np.asarray(bundle.class_names))
+        cfg, source, bundle.reservoir, bundle.readout, bundle.scaler, device, mesh=mesh)
+    write_once(np.savez_compressed, Path(args.output), predictions=preds.astype(np.int32),
+               labels=labels.astype(np.int32), class_names=np.asarray(bundle.class_names))
     print(f"Classified {len(preds)} utterances -> '{args.output}'")
     counts = np.bincount(preds, minlength=len(bundle.class_names))
     for name, c in zip(bundle.class_names, counts):

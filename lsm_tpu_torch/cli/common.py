@@ -2,9 +2,12 @@
 counterpart of lsm_tpu/cli/common.py).
 
 The flag names and defaults are the reference scripts'. The port adds
---device (cuda by default; no silent CPU fallback). It always runs on one
-device, which is what lsm_tpu's --single-device asks for, so that flag is
-taken and changes nothing.
+--device (cuda by default; no silent CPU fallback). Launched as several
+processes (LSM_TPU_COORDINATOR, LSM_TPU_NUM_PROCESSES and LSM_TPU_PROCESS_ID
+on each, or LSM_TPU_DISTRIBUTED=1 under torchrun), every entry point joins
+one process group in `setup_logging` and each batch stage runs
+data-parallel over the ranks; --single-device turns the mesh off. Rank 0
+writes the files and the metric records.
 """
 
 from __future__ import annotations
@@ -18,8 +21,29 @@ from lsm_tpu_torch.config import (
 )
 
 def setup_logging() -> None:
+    """Process set-up of every entry point: join the process group the
+    environment describes (parallel/mesh.py's env contract), then stdout
+    logging."""
+    from lsm_tpu_torch.parallel.mesh import maybe_init_distributed_from_env
+
+    maybe_init_distributed_from_env()
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout, force=True)
+
+
+def write_once(fn, *args, **kw) -> None:
+    """Call the file writer `fn` on rank 0 only; every rank waits for it."""
+    from lsm_tpu_torch.parallel.mesh import barrier, is_primary
+
+    if is_primary():
+        fn(*args, **kw)
+    barrier()
+
+
+def mesh_from_args(args: argparse.Namespace):
+    """The pipeline's `mesh` argument the flags imply."""
+    return None if getattr(args, "single_device", False) else "auto"
+
 
 
 def add_frontend_flags(p: argparse.ArgumentParser) -> None:
@@ -93,8 +117,8 @@ def add_extension_flags(p: argparse.ArgumentParser) -> None:
 
 def add_single_device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--single-device", action="store_true",
-                   help="Run every stage on one device (lsm_tpu's flag; the port always "
-                        "does).")
+                   help="Disable the automatic data-parallel mesh over the ranks of a "
+                        "multi-process launch and run every stage on this process's device.")
 
 
 def add_metrics_flag(p: argparse.ArgumentParser) -> None:
@@ -105,8 +129,10 @@ def add_metrics_flag(p: argparse.ArgumentParser) -> None:
 
 def metrics_from_args(args: argparse.Namespace):
     """MetricLogger for --metrics-out (None when the flag is unset)."""
+    from lsm_tpu_torch.parallel.mesh import is_primary
+
     path = getattr(args, "metrics_out", None)
-    if not path:
+    if not path or not is_primary():          # rank 0 writes the records
         return None
     from lsm_tpu_torch.utils.logging import MetricLogger
 

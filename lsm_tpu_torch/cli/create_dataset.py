@@ -14,7 +14,8 @@ from pathlib import Path
 import numpy as np
 
 from lsm_tpu_torch.cli.common import (
-    add_extension_flags, add_frontend_flags, build_config, metrics_from_args, setup_logging,
+    add_extension_flags, add_frontend_flags, build_config, mesh_from_args, metrics_from_args,
+    setup_logging, write_once,
     synthetic_n_per,
 )
 from lsm_tpu_torch.config import corpus_meta
@@ -43,6 +44,7 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = build_config(args)
+    mesh = mesh_from_args(args)
     metrics = metrics_from_args(args)
     t0 = time.perf_counter()
     print(f"Creating dataset with filterbank: {cfg.frontend.filterbank}, "
@@ -51,24 +53,28 @@ def main(argv=None) -> None:
     if args.synthetic:
         audio, labels = dataset.synthetic_audio_batch(n_per_class=synthetic_n_per(args),
                                                       n_classes=len(cfg.commands))
-        ds = artifacts.SpikeDataset(featurize_audio_array(cfg, audio, device), labels)
+        ds = artifacts.SpikeDataset(featurize_audio_array(cfg, audio, device, mesh=mesh),
+                                    labels)
         if sharded is not None:
-            # One write, no resume: a synthetic corpus has no file list to
-            # fingerprint. The same metadata as the WAV route.
-            writer = ShardedSpikeDatasetWriter(sharded, args.shard_size,
-                                               compress=not args.no_compress,
-                                               meta=corpus_meta(cfg))
-            writer.append(np.asarray(ds.x_spikes), np.asarray(ds.y_labels))
-            writer.close()
+            def write_shards():
+                # One write, no resume: a synthetic corpus has no file list
+                # to fingerprint. The same metadata as the WAV route.
+                writer = ShardedSpikeDatasetWriter(sharded, args.shard_size,
+                                                   compress=not args.no_compress,
+                                                   meta=corpus_meta(cfg))
+                writer.append(np.asarray(ds.x_spikes), np.asarray(ds.y_labels))
+                writer.close()
+
+            write_once(write_shards)
             ds = ShardedSpikeDataset(sharded)
         else:
-            artifacts.save_spike_dataset(Path(args.output), ds)
+            write_once(artifacts.save_spike_dataset, Path(args.output), ds)
     else:
         ds = create_spike_dataset(
             cfg, Path(args.data_dir), device,
             output_path=None if sharded else Path(args.output),
             sharded_output=sharded, shard_size=args.shard_size,
-            compress=not args.no_compress,
+            compress=not args.no_compress, mesh=mesh,
         )
 
     print("\nDataset created successfully.")

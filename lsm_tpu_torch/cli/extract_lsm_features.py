@@ -21,7 +21,7 @@ from pathlib import Path
 
 from lsm_tpu_torch.cli.common import (
     add_extension_flags, add_extract_flags, build_config, emit_extraction_metrics,
-    metrics_from_args, resolve_commands, setup_logging,
+    mesh_from_args, metrics_from_args, resolve_commands, setup_logging, write_once,
 )
 from lsm_tpu_torch.io import artifacts
 
@@ -71,7 +71,8 @@ def main(argv=None) -> None:
     print(f"Loaded {len(ds.x_spikes)} samples from '{args.input}'")
     metrics = metrics_from_args(args)
     t0 = time.perf_counter()
-    ext = extract_lsm_features(cfg, ds, device, output_path=Path(args.output))
+    ext = extract_lsm_features(cfg, ds, device, output_path=Path(args.output),
+                               mesh=mesh_from_args(args))
     print(f"Extraction complete. Features saved to '{args.output}'")
     if metrics:
         emit_extraction_metrics(metrics, ext, cfg, len(ds.x_spikes), time.perf_counter() - t0)
@@ -118,15 +119,15 @@ def _run_streaming_fit(args, cfg, device) -> None:
     t0 = time.perf_counter()
     result = extract_and_train_streaming(
         cfg, source, device, class_names=names, alpha=args.ridge_alpha,
-        readout=args.readout, l2_c=args.l2_c,
+        readout=args.readout, l2_c=args.l2_c, mesh=mesh_from_args(args),
     )
     print("\n--- Final Results ---")
     print(f"Test Accuracy: {result.accuracy * 100:.2f}%\n")
     print("Classification Report:")
     print(result.report.render())
     if args.save_model:
-        save_model(Path(args.save_model), result.reservoir, result.readout, result.scaler,
-                   frontend, cfg.feature_set, names)
+        write_once(save_model, Path(args.save_model), result.reservoir, result.readout,
+                   result.scaler, frontend, cfg.feature_set, names)
         print(f"Model bundle saved to '{args.save_model}'")
     if metrics:
         dt = time.perf_counter() - t0

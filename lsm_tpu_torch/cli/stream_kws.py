@@ -195,6 +195,13 @@ def main(argv=None) -> None:
         print("Error: --max-streams must be >= 1.", file=sys.stderr)
         sys.exit(1)
     setup_logging()
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1 and not args.single_device:
+        print("Error: serving over several processes (the engines' mesh path) is not "
+              "ported yet; launch one process, or pass --single-device to serve on each "
+              "process's own device.", file=sys.stderr)
+        sys.exit(2)
 
     from lsm_tpu_torch.device import resolve_device
     from lsm_tpu_torch.io.model import load_model

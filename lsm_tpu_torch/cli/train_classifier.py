@@ -14,7 +14,7 @@ from pathlib import Path
 
 from lsm_tpu_torch.cli.common import (
     add_device_flag, add_metrics_flag, add_single_device_flag, add_vocab_flags, build_config,
-    emit_training_metrics, metrics_from_args, resolve_commands, setup_logging,
+    emit_training_metrics, mesh_from_args, metrics_from_args, resolve_commands, setup_logging,
 )
 from lsm_tpu_torch.io import artifacts
 
@@ -54,7 +54,8 @@ def main(argv=None) -> None:
     cfg = build_config(args)
     metrics = metrics_from_args(args)
     t0 = time.perf_counter()
-    result = train_and_evaluate(cfg, art, device, class_names=names[:n_classes])
+    result = train_and_evaluate(cfg, art, device, class_names=names[:n_classes],
+                                mesh=mesh_from_args(args))
     print("Training complete.")
     print("Evaluating performance on the test set...")
     print("\n--- Final Results ---")

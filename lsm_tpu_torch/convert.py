@@ -3,8 +3,9 @@
 Each function takes the reference package's parameter object
 (`ReservoirParams`, `SparseReservoirParams`, `ScalerState`,
 `LogisticParams`, the continuous engine's `ContinuousState`, the exact
-engine's ring buffer, the streaming trainer's `RidgeAccumState`) or
-anything with the same attributes; every array
+engine's ring buffer, the streaming trainer's `RidgeAccumState`, the
+multi-device train step's `ReadoutState`) or anything with the same
+attributes; every array
 goes through `np.asarray`, so this module needs no jax. Tests use it to
 make both packages compute with the same weights and from the same stream
 state. Serving-state files (io/serving_state.py) carry stream state across
@@ -19,6 +20,7 @@ import torch
 from lsm_tpu_torch.models.continuous import ContinuousState
 from lsm_tpu_torch.models.reservoir import Reservoir
 from lsm_tpu_torch.models.sparse import SparseReservoir
+from lsm_tpu_torch.parallel.train_step import ReadoutState
 from lsm_tpu_torch.readout.logistic import LogisticReadout
 from lsm_tpu_torch.readout.scaler import Scaler
 from lsm_tpu_torch.readout.streaming_fit import RidgeAccumState
@@ -96,3 +98,15 @@ def ridge_accum(state, device: torch.device | str = "cpu") -> RidgeAccumState:
     port's, float32 on `device`."""
     return RidgeAccumState(*(torch.as_tensor(_f32(getattr(state, f))).to(device)
                              for f in RidgeAccumState._fields))
+
+
+def readout_state(state, device: torch.device | str = "cpu") -> ReadoutState:
+    """lsm_tpu's train-step ReadoutState (w (D, K), b (K,)) -> the port's."""
+    return ReadoutState(torch.as_tensor(_f32(state.w)).to(device),
+                        torch.as_tensor(_f32(state.b)).to(device))
+
+
+def readout_state_arrays(state: ReadoutState) -> tuple:
+    """The port's ReadoutState -> (w, b) float32 NumPy arrays, the fields of
+    lsm_tpu's ReadoutState (which wraps them in jax arrays)."""
+    return _f32(state.w.detach().cpu()), _f32(state.b.detach().cpu())

@@ -32,11 +32,20 @@
 // take small increments instead.
 //
 // State. The carried state is the block form's: section k's TDF2 states
-// (s1, s2) at index 2k + j of (B, 8, C), with s1 = w1 and s2 = w2 - w1. Each
-// sub-block converts it in (w2 = s1 + s2) and out (s2 = w2 - w1), so every
-// sub-block runs the same instructions from the same float32 state wherever
-// a chunk boundary falls: B3 chunks that thread the state are bit-equal to
-// one call over the whole signal, and B3 from a zero state to B1.
+// (s1, s2) at index 2k + j of (B, 8, C), with s1 = w1 and s2 = w2 - w1. The
+// state is converted in (w2 = s1 + s2) at the start of every period of
+// conv_sub sub-blocks, counted from the call's first sample, and out
+// (s2 = w2 - w1) at every period's end and at the call's end; in between it
+// stays in the delta form. Both conversions run in place on w2, so the
+// state takes 8 registers (a copy in TDF2 form beside it cost 8 more and
+// 5.6 % of B3's time). The callers pass one serving hop (1600 samples at
+// 16 kHz, 20 sub-blocks at g = 80; a continuous engine its chunk), so a
+// call that starts and ends on hop boundaries converts at the same sample
+// positions as one call over the whole signal: B3 hops that thread the
+// state are bit-equal to one whole-second call, and B3 from a zero state to
+// B1. The round trip is not exact in float32, and converting once a
+// sub-block cost the low channels up to 1.07e-3 against float64; once a
+// hop it costs what no conversion costs.
 //
 // Layout. A CTA holds up to 128 channels of one row, one thread a channel,
 // so a warp is 32 channels of one row. The row's samples pass through shared
@@ -85,7 +94,7 @@ gtgram_kernel(const float* __restrict__ wave,       // (B, n_sub * g)
               const float* __restrict__ state_in,   // (B, 8, C) if kCarry
               float* __restrict__ state_out,        // (B, 8, C) if kCarry
               float* __restrict__ out,              // (n_sub, B, C)
-              int B, int C, int n_sub, int g) {
+              int B, int C, int n_sub, int g, int conv_sub) {
   __shared__ float xs[2][kTile];
   const int b = blockIdx.x;
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
@@ -93,10 +102,12 @@ gtgram_kernel(const float* __restrict__ wave,       // (B, n_sub * g)
   const long long S = (long long)n_sub * g;
   const float* row = wave + (size_t)b * S;
 
-  // Dead lanes (c >= C) run zeros and write nothing.
-  float n0 = 0.f, a1 = 0.f, a2 = 0.f, be1[4], be2[4], s1[4], s2[4];
+  // Dead lanes (c >= C) run zeros and write nothing. Section k's state is
+  // (w1, w2): the TDF2 state (s1, s2) between periods, the delta state
+  // within one (w1 = s1 throughout; only w2 converts).
+  float n0 = 0.f, a1 = 0.f, a2 = 0.f, be1[4], be2[4], w1[4], w2[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) be1[k] = be2[k] = s1[k] = s2[k] = 0.f;
+  for (int k = 0; k < 4; ++k) be1[k] = be2[k] = w1[k] = w2[k] = 0.f;
   if (live) {
     const float* q = coef + (size_t)c * kCoef;
     n0 = q[0];
@@ -107,8 +118,8 @@ gtgram_kernel(const float* __restrict__ wave,       // (B, n_sub * g)
       be1[k] = q[3 + k];
       be2[k] = q[7 + k];
       if (kCarry) {
-        s1[k] = state_in[((size_t)b * 8 + 2 * k) * C + c];
-        s2[k] = state_in[((size_t)b * 8 + 2 * k + 1) * C + c];
+        w1[k] = state_in[((size_t)b * 8 + 2 * k) * C + c];
+        w2[k] = state_in[((size_t)b * 8 + 2 * k + 1) * C + c];
       }
     }
   }
@@ -122,8 +133,9 @@ gtgram_kernel(const float* __restrict__ wave,       // (B, n_sub * g)
     cp_async_commit();
   };
 
-  float w1[4], w2[4], e = 0.f;
+  float e = 0.f;
   int pos = 0, k_sub = 0;           // sample within the sub-block, sub-block
+  int k_per = 0;                    // sub-block within the conversion period
   stage(0);
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {
@@ -136,11 +148,10 @@ gtgram_kernel(const float* __restrict__ wave,       // (B, n_sub * g)
     const float* xt = xs[t & 1];
     const int n = static_cast<int>(min((long long)kTile, S - (long long)t * kTile));
     for (int i = 0; i < n;) {
-      if (pos == 0) {               // a sub-block starts: TDF2 -> delta state
+      if (pos == 0) {
+        if (k_per == 0) {           // a period starts: TDF2 -> delta state
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          w1[k] = s1[k];
-          w2[k] = __fadd_rn(s1[k], s2[k]);
+          for (int k = 0; k < 4; ++k) w2[k] = __fadd_rn(w1[k], w2[k]);
         }
         e = 0.f;
       }
@@ -160,11 +171,11 @@ gtgram_kernel(const float* __restrict__ wave,       // (B, n_sub * g)
       }
       i += m;
       pos += m;
-      if (pos == g) {               // the sub-block ends: delta -> TDF2 state
+      if (pos == g) {               // the sub-block ends
+        if (++k_per == conv_sub || k_sub + 1 == n_sub) {  // and a period: delta -> TDF2
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          s1[k] = w1[k];
-          s2[k] = __fsub_rn(w2[k], w1[k]);
+          for (int k = 0; k < 4; ++k) w2[k] = __fsub_rn(w2[k], w1[k]);
+          k_per = 0;
         }
         if (live) out[((size_t)k_sub * B + b) * C + c] = e;
         pos = 0;
@@ -176,35 +187,37 @@ gtgram_kernel(const float* __restrict__ wave,       // (B, n_sub * g)
   if (kCarry && live) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      state_out[((size_t)b * 8 + 2 * k) * C + c] = s1[k];
-      state_out[((size_t)b * 8 + 2 * k + 1) * C + c] = s2[k];
+      state_out[((size_t)b * 8 + 2 * k) * C + c] = w1[k];
+      state_out[((size_t)b * 8 + 2 * k + 1) * C + c] = w2[k];
     }
   }
 }
 
 template <bool kCarry>
 int launch(const float* wave, const float* coef, const float* state_in, float* state_out,
-           float* out, int B, int C, int n_sub, int g, void* stream) {
-  if (n_sub <= 0 || g <= 0) return static_cast<int>(cudaErrorInvalidValue);
+           float* out, int B, int C, int n_sub, int g, int conv_sub, void* stream) {
+  if (n_sub <= 0 || g <= 0 || conv_sub <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || C <= 0) return 0;
   const int threads = std::min(kMaxThreads, (C + 31) / 32 * 32);
   const dim3 grid(B, (C + threads - 1) / threads);
   gtgram_kernel<kCarry><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      wave, coef, state_in, state_out, out, B, C, n_sub, g);
+      wave, coef, state_in, state_out, out, B, C, n_sub, g, conv_sub);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int lsm_gtgram_sub_energy(const float* wave, const float* coef, float* out,
-                                     int B, int C, int n_sub, int g, void* stream) {
-  return launch<false>(wave, coef, nullptr, nullptr, out, B, C, n_sub, g, stream);
+                                     int B, int C, int n_sub, int g, int conv_sub,
+                                     void* stream) {
+  return launch<false>(wave, coef, nullptr, nullptr, out, B, C, n_sub, g, conv_sub, stream);
 }
 
 extern "C" int lsm_gtgram_chunk(const float* wave, const float* coef, const float* state_in,
                                 float* state_out, float* out, int B, int C, int n_sub, int g,
-                                void* stream) {
-  return launch<true>(wave, coef, state_in, state_out, out, B, C, n_sub, g, stream);
+                                int conv_sub, void* stream) {
+  return launch<true>(wave, coef, state_in, state_out, out, B, C, n_sub, g, conv_sub,
+                      stream);
 }
 
 extern "C" const char* lsm_cuda_error_string(int err) {

@@ -255,8 +255,10 @@ class ContinuousKWS:
         if self._is_mel:
             return self._featurize_mel(chunk, st)
         fcfg = self.fcfg
+        # B3 converts its state once a chunk: at the chunk's ends.
         iir, sub_e = gt.gtgram_chunk(chunk, st.iir, fcfg.sample_rate,
-                                     fcfg.n_filters, fcfg.gt_f_min, self._g)
+                                     fcfg.n_filters, fcfg.gt_f_min, self._g,
+                                     conv_sub=self.chunk_len // self._g)
         all_e = torch.cat([st.tail, sub_e], dim=0)            # (tail + n_sub, B, C)
         h = self._h_per
         span = (self._n_cols - 1) * h + 1

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu) and the native
+WAV decoder (csrc/wavio.cpp).
 
 One shared library with a plain C interface, compiled by nvcc for sm_90a
 at first use and loaded with ctypes (no PyTorch headers, so a build takes
@@ -9,6 +10,12 @@ from a stale build. In a source checkout the output goes to
 build/lsm_tpu_torch/ at the checkout's root (build/ is git-ignored); an
 installed package builds into the user's cache directory instead of
 site-packages.
+
+The decoder is plain C++: g++ builds it at first use with the JAX package's
+native/Makefile flags into the same directory, keyed by a hash of the
+source, the flags, the compiler's version and the host CPU's target
+flags (-march=native resolves per machine, and a checkout may be copied to
+another host).
 """
 
 from __future__ import annotations
@@ -143,3 +150,43 @@ def check(err: int, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {fn(err).decode()}")
+
+
+WAVIO_SOURCE = CSRC_DIR / "wavio.cpp"
+# native/Makefile's CXXFLAGS and LDFLAGS.
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
+CXX_LDFLAGS = ("-shared", "-pthread")
+_wavio_lock = threading.Lock()
+
+
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("g++ not found: the native WAV decoder builds from source "
+                           "at first use")
+    return found
+
+
+def build_wavio() -> Path:
+    """Compile csrc/wavio.cpp into BUILD_DIR/libwavio_<hash>.so unless that
+    exact build exists. Returns the library path."""
+    cxx = _cxx()
+    target = _run([cxx, "-march=native", "-Q", "--help=target"]).stdout
+    h = hashlib.sha256(" ".join((cxx, *CXX_FLAGS, *CXX_LDFLAGS)).encode())
+    h.update(_run([cxx, "--version"]).stdout.encode())
+    h.update(target.encode())
+    h.update(WAVIO_SOURCE.read_bytes())
+    lib_path = BUILD_DIR / f"libwavio_{h.hexdigest()[:16]}.so"
+    with _wavio_lock:
+        if lib_path.exists():
+            return lib_path
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            so = Path(tmp) / lib_path.name
+            cmd = [cxx, *CXX_FLAGS, str(WAVIO_SOURCE), "-o", str(so), *CXX_LDFLAGS]
+            proc = _run(cmd)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(so, lib_path)
+    return lib_path

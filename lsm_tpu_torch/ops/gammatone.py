@@ -224,17 +224,28 @@ def block_system(fs: float, channels: int, f_min: float, g: int,
     return k
 
 
+CONVERSION_TIME = 0.1    # s: one serving hop, the kernels' state-conversion period
+
+
+def conversion_period(fs: float, g: int) -> int:
+    """Sub-blocks of g samples in one serving hop (CONVERSION_TIME): 20
+    at 16 kHz and g = 80. Kernels B1/B3 convert their cascade state between
+    the block form's TDF2 and their delta form once a period."""
+    return max(1, _round_half_away(CONVERSION_TIME * fs) // g)
+
+
 @functools.lru_cache(maxsize=None)
 def filterbank(fs: float, channels: int, f_min: float, g: int,
                device: torch.device, dtype: torch.dtype = torch.float32):
     """The operands of kernels B1/B3 and their twins at sub-block length g,
     made once per device: `cascade_coeffs` for the kernels and
     `block_system` for the plain twins, in float32 (or float64, the
-    exact reference)."""
+    exact reference), and the kernels' `conversion_period`."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return gtgram_kernel.Filterbank(
         torch.as_tensor(cascade_coeffs(fs, channels, f_min).astype(np_dtype)).to(device),
-        torch.as_tensor(block_system(fs, channels, f_min, g, np_dtype)).to(device))
+        torch.as_tensor(block_system(fs, channels, f_min, g, np_dtype)).to(device),
+        conversion_period(fs, g))
 
 
 def gtgram_chunk(
@@ -244,14 +255,17 @@ def gtgram_chunk(
     channels: int,
     f_min: float,
     g: int,
+    conv_sub: int | None = None,
 ):
     """One chunk of the block scan from a carried cascade state.
     wave (B, n_sub*g) float32, state (B, 8, C) -> (final state (B, 8, C),
     sub-block energies (n_sub, B, C)): kernel B3 on CUDA, its plain twin on
     the CPU. Chunked calls that thread the state are bit-equal to one call
-    over the whole signal."""
+    over the whole signal where each chunk is a whole number of the
+    kernel's conversion periods (`conv_sub` sub-blocks, default one
+    serving hop)."""
     fb = filterbank(fs, channels, f_min, g, wave.device)
-    return gtgram_kernel.chunk(wave.contiguous(), fb, state.contiguous())
+    return gtgram_kernel.chunk(wave.contiguous(), fb, state.contiguous(), conv_sub)
 
 
 def gtgram_iir_scan(

@@ -15,8 +15,10 @@ the transposed direct form II (25 float32 instructions a sample against the
 block form's ~97 at g = 80; its coefficients are `Filterbank.coeffs`). What
 bounds it on an H100: float32 instruction throughput and each section's
 recurrence latency, hidden by the rows and channels in flight. The carried
-state is the block form's TDF2 state, converted in and out at every
-sub-block, so chunked calls that thread it are bit-equal to one call. No
+state is the block form's TDF2 state, converted in and out once every
+`conv_sub` sub-blocks (one 100 ms serving hop by default,
+`Filterbank.conv_sub`) and at a call's ends, so chunked calls on hop
+boundaries that thread it are bit-equal to one call. No
 tensor cores: the state path stays exact float32, without TF32 or bf16.
 chip_smoke.py's bound counts Slaney's cascade (17 float32 instructions a
 sample).
@@ -43,11 +45,13 @@ chunk_launches = 0       # B3 kernel launches
 class Filterbank(NamedTuple):
     """One gammatone filterbank at sub-block length g on one device
     (ops/gammatone.py `filterbank`): the kernels' cascade coefficients
-    `coeffs` (C, N_COEF) and the plain twins' block system `kmat`
-    (C, g+8, g+8)."""
+    `coeffs` (C, N_COEF), the plain twins' block system `kmat`
+    (C, g+8, g+8), and the kernels' default state-conversion period in
+    sub-blocks, `conv_sub` (one 100 ms hop)."""
 
     coeffs: torch.Tensor
     kmat: torch.Tensor
+    conv_sub: int
 
     @property
     def g(self) -> int:
@@ -94,8 +98,9 @@ def sub_energy_plain(wave: torch.Tensor, fb: Filterbank) -> torch.Tensor:
     return chunk_plain(wave, fb, state)[1]
 
 
-def _check(wave: torch.Tensor, fb: Filterbank) -> None:
-    coeffs, kmat = fb
+def _check(wave: torch.Tensor, fb: Filterbank, conv_sub: int | None) -> int:
+    """Validates the operands; returns the conversion period to launch with."""
+    coeffs, kmat = fb.coeffs, fb.kmat
     if not all(t.dtype == torch.float32 for t in (wave, coeffs, kmat)):
         raise TypeError(f"gtgram kernels want float32, got {wave.dtype}, "
                         f"{coeffs.dtype}, {kmat.dtype}")
@@ -111,6 +116,11 @@ def _check(wave: torch.Tensor, fb: Filterbank) -> None:
         raise ValueError(f"wave on {wave.device}, operands on {coeffs.device}, {kmat.device}")
     if not all(t.is_contiguous() for t in (wave, coeffs, kmat)):
         raise ValueError("gtgram kernels want contiguous tensors")
+    conv_sub = fb.conv_sub if conv_sub is None else conv_sub
+    if int(conv_sub) != conv_sub or conv_sub <= 0:
+        raise ValueError(f"conversion period {conv_sub} is not a positive number of "
+                         "sub-blocks")
+    return int(conv_sub)
 
 
 def _stream(dev: torch.device) -> int:
@@ -119,31 +129,36 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def sub_energy(wave: torch.Tensor, fb: Filterbank) -> torch.Tensor:
+def sub_energy(wave: torch.Tensor, fb: Filterbank, conv_sub: int | None = None) -> torch.Tensor:
     """Sub-block energies (n_sub, B, C) from a zero state: kernel B1 on
-    CUDA, the plain twin on CPU."""
+    CUDA, the plain twin on CPU. The kernel converts its state every
+    `conv_sub` sub-blocks (default `fb.conv_sub`); the twin has no
+    conversion."""
     global launches
-    _check(wave, fb)
+    conv_sub = _check(wave, fb, conv_sub)
     if wave.device.type == "cpu":
         return sub_energy_plain(wave, fb)
     B, S = wave.shape
     C, g = fb.coeffs.shape[0], fb.g
     out = torch.empty(S // g, B, C, dtype=torch.float32, device=wave.device)
     fn = _build.function("lsm_gtgram_sub_energy", [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p])
+        ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(wave.device):
         err = fn(wave.data_ptr(), fb.coeffs.data_ptr(), out.data_ptr(), B, C, S // g, g,
-                 _stream(wave.device))
+                 conv_sub, _stream(wave.device))
     _build.check(err, "lsm_gtgram_sub_energy")
     launches += 1
     return out
 
 
-def chunk(wave: torch.Tensor, fb: Filterbank, state: torch.Tensor):
+def chunk(wave: torch.Tensor, fb: Filterbank, state: torch.Tensor,
+          conv_sub: int | None = None):
     """(final state (B, 8, C), energies (n_sub, B, C)) of one chunk from the
-    carried state: kernel B3 on CUDA, the plain twin on CPU."""
+    carried state: kernel B3 on CUDA, the plain twin on CPU. The kernel
+    converts its state every `conv_sub` sub-blocks from the call's start
+    (default `fb.conv_sub`) and at the call's end."""
     global chunk_launches
-    _check(wave, fb)
+    conv_sub = _check(wave, fb, conv_sub)
     B, S = wave.shape
     C, g = fb.coeffs.shape[0], fb.g
     if state.dtype != torch.float32:
@@ -157,10 +172,10 @@ def chunk(wave: torch.Tensor, fb: Filterbank, state: torch.Tensor):
     state_out = torch.empty_like(state)
     out = torch.empty(S // g, B, C, dtype=torch.float32, device=wave.device)
     fn = _build.function("lsm_gtgram_chunk", [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p])
+        ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(wave.device):
         err = fn(wave.data_ptr(), fb.coeffs.data_ptr(), state.data_ptr(), state_out.data_ptr(),
-                 out.data_ptr(), B, C, S // g, g, _stream(wave.device))
+                 out.data_ptr(), B, C, S // g, g, conv_sub, _stream(wave.device))
     _build.check(err, "lsm_gtgram_chunk")
     chunk_launches += 1
     return state_out, out

@@ -110,12 +110,19 @@ def lif_stats_plain(
 
 
 def stats_scan(x, recurrent, w_in, leak_keep, *, threshold, refractory,
-               burst_isi_max, n_outputs, n_win):
+               burst_isi_max, n_outputs, n_win, gather=None):
     """The twins' batch scan from a zero state: per step the drive
     recurrent(s_prev) + x_t @ f32(w_in), the LIF update, and the output
     neurons' streaming statistics (the first n_win-1 windows are win_len
     steps, later steps fold into the last). `recurrent` maps the (B, N) f32
-    spike vector to its (B, N) f32 drive."""
+    spike vector to its (B, N) f32 drive.
+
+    The tensor-parallel reservoir (parallel/sharded.py) runs the same scan
+    over its slice of the neurons: w_in and leak_keep hold the slice's
+    columns, `gather` assembles the full (B, N) spike vector from the
+    slice's each step, `recurrent` maps it to the slice's drive, and the
+    statistics accumulate on the gathered output neurons. all_counts is
+    then the slice's."""
     B, C, T = x.shape
     n_state = leak_keep.shape[0]
     c_pad = w_in.shape[0]
@@ -129,7 +136,9 @@ def stats_scan(x, recurrent, w_in, leak_keep, *, threshold, refractory,
     def zeros(width):
         return torch.zeros(B, width, dtype=torch.float32, device=dev)
 
-    v, s, all_counts = zeros(n_state), zeros(n_state), zeros(n_state)
+    gather = gather or (lambda s_local: s_local)
+    v, all_counts = zeros(n_state), zeros(n_state)
+    s = gather(zeros(n_state))
     refrac = torch.zeros(B, n_state, dtype=torch.int32, device=dev)
     st = {k: zeros(no) for k in STAT_KEYS}
     st["first"].fill_(float("inf"))
@@ -141,9 +150,10 @@ def stats_scan(x, recurrent, w_in, leak_keep, *, threshold, refractory,
                                        leak_keep, threshold, refractory)
         s = spike.to(torch.float32)
         all_counts += s
+        s = gather(s)
 
-        sb = spike[:, :no]
         so = s[:, :no]
+        sb = so > 0.0
         tf = float(t)
         st["counts"] += so
         st["sum_t"] += so * tf

@@ -1,5 +1,5 @@
 """The batch classification path as library functions
-(port of lsm_tpu/pipeline.py, single device).
+(port of lsm_tpu/pipeline.py).
 
     WAV tree -> create_spike_dataset (or audio arrays ->
     featurize_audio_array) -> spikes (host uint8, the stage-1 artifact, in
@@ -16,8 +16,16 @@
 
 Every function takes an explicit torch device; nothing moves to another
 device silently. With cfg.check (--check) each stage boundary is validated
-on the device where lsm_tpu validates it (utils/checks.py). The
-reference's mesh branches are not ported (ROADMAP A14).
+on the device where lsm_tpu validates it (utils/checks.py).
+
+Every stage is data-parallel over the ranks of a process group by default
+(lsm_tpu's convention): with more than one rank, `mesh="auto"` puts every
+rank on the data axis (parallel/mesh.py), each rank featurizes and
+simulates its rows of every batch (B1, B2 or B5 in each rank), and the
+readout fits all-reduce their sums. Every rank calls the stage with the
+same inputs and returns the same result; files are written by rank 0.
+`mesh=None` forces the single-device path; a `Mesh` is used as given, and
+its device is the rank's compute device.
 """
 
 from __future__ import annotations
@@ -43,10 +51,45 @@ from lsm_tpu_torch.models.calibration import calibrate_weight
 from lsm_tpu_torch.models.diagnostics import DiagnosticsReport, run_network_diagnostics
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.models.sparse import SparseReservoir, init_reservoir_sparse
+from lsm_tpu_torch.parallel import mesh as meshlib
+from lsm_tpu_torch.parallel.mesh import Mesh
+from lsm_tpu_torch.parallel.sharded import extract_features_dp, featurize_dp
 from lsm_tpu_torch.readout import logistic, metrics, scaler
 from lsm_tpu_torch.utils import checks
 
 log = logging.getLogger("lsm_tpu_torch")
+
+# The `mesh` argument of the stages:
+#   "auto" (default) -> every rank on the data axis when there are >1 ranks;
+#   None             -> the single-device path;
+#   a Mesh           -> used as given.
+MeshArg = Union[str, None, Mesh]
+
+
+def _resolve_mesh(mesh: MeshArg, device: torch.device) -> Optional[Mesh]:
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"unknown mesh spec: {mesh!r}")
+        return meshlib.auto_mesh(device=device)
+    if mesh is not None and mesh.device.type != torch.device(device).type:
+        raise ValueError(f"the mesh computes on {mesh.device}, the stage was given {device}")
+    return mesh
+
+
+def _effective_batch(batch_size: int, mesh: Optional[Mesh]) -> int:
+    """Round the compute batch up to a shard multiple of the data axis."""
+    if mesh is None:
+        return batch_size
+    n = mesh.shape[meshlib.DATA_AXIS]
+    return -(-batch_size // n) * n
+
+
+def _place_batch(x: np.ndarray, mesh: Optional[Mesh], device: torch.device) -> torch.Tensor:
+    """Host batch -> the device: this rank's rows under a mesh (the batch
+    must divide over the data axis), else all of it."""
+    if mesh is None:
+        return torch.as_tensor(np.asarray(x)).to(device)
+    return meshlib.shard_batch(np.asarray(x), mesh)
 
 
 def _batched(n: int, batch_size: int):
@@ -54,27 +97,44 @@ def _batched(n: int, batch_size: int):
         yield start, min(start + batch_size, n)
 
 
+def _write(mesh: Optional[Mesh], fn, *args) -> None:
+    """A file write: on rank 0 only, the other ranks waiting for it."""
+    if meshlib.is_primary():
+        fn(*args)
+    meshlib.barrier(mesh)
+
+
 def _featurize_to_host(audio: np.ndarray, fcfg, device: torch.device,
-                       check: Optional[str] = None) -> np.ndarray:
+                       check: Optional[str] = None, mesh: Optional[Mesh] = None) -> np.ndarray:
     """Featurize one batch on `device` and bring the spikes to the host.
     With `check` (the --check context) the featurizer validates its input
     and spectrogram, and the raw spikes must be 0/1 before they leave the
-    device."""
-    spikes = featurize_batch(torch.as_tensor(audio).to(device), fcfg, check=check)
+    device. Under a mesh each rank featurizes its rows (the batch padded to
+    the data axis) and the spikes are gathered."""
+    if mesh is None:
+        spikes = featurize_batch(torch.as_tensor(audio).to(device), fcfg, check=check)
+    else:
+        padded, n_real = meshlib.pad_to_multiple(np.asarray(audio),
+                                                 mesh.shape[meshlib.DATA_AXIS])
+        spikes = featurize_dp(_place_batch(padded, mesh, device), fcfg, mesh, check=check)
     if check:
         checks.check_spikes(spikes, check)
+    if mesh is not None:
+        spikes = meshlib.host_local(spikes, mesh)[:n_real]
     return spikes.cpu().numpy()
 
 
 def featurize_audio_array(
-    cfg: PipelineConfig, audio: np.ndarray, device: torch.device
+    cfg: PipelineConfig, audio: np.ndarray, device: torch.device, mesh: MeshArg = "auto"
 ) -> np.ndarray:
     """(N, num_samples) audio (float32, int16 or uint8 mu-law) -> (N, C, T)
     uint8 spikes on the host, featurized on `device` in cfg.batch_size
-    batches."""
+    batches (data-parallel over the mesh)."""
+    mesh = _resolve_mesh(mesh, device)
+    bs = _effective_batch(cfg.batch_size, mesh)
     check = "featurize_audio_array" if cfg.check else None
-    out = [_featurize_to_host(audio[start:stop], cfg.frontend, device, check)
-           for start, stop in _batched(audio.shape[0], cfg.batch_size)]
+    out = [_featurize_to_host(audio[start:stop], cfg.frontend, device, check, mesh)
+           for start, stop in _batched(audio.shape[0], bs)]
     return np.concatenate(out, axis=0)
 
 
@@ -100,18 +160,21 @@ def create_spike_dataset(
     sharded_output: Optional[Path] = None,
     shard_size: int = 8192,
     compress: bool = True,
+    mesh: MeshArg = "auto",
 ):
     """Featurize a Speech Commands-style tree (<base>/<command>/*.wav) into
     spike trains on `device`, cfg.batch_size files at a time, on the
-    cfg.audio_wire wire. The next batch decodes (NumPy) on a worker thread
-    while the main thread runs the device work; results are consumed in
-    order. A file that fails to decode is logged and skipped, its label
-    with it.
+    cfg.audio_wire wire. The next batch decodes on a worker thread (the
+    native C++ decoder, io/native.py, where it builds; else NumPy) while
+    the main thread runs the device work; results are consumed in order. A
+    file that fails to decode is logged and skipped, its label with it.
+    Under a mesh every rank decodes the whole batch and featurizes its rows.
 
     Returns an artifacts.SpikeDataset (and writes it to `output_path` if
     given), or with `sharded_output` a ShardedSpikeDataset handle over
-    shards written as the batches finish; a rerun under the same
-    fingerprint resumes after the last complete shard."""
+    shards written as the batches finish (by rank 0); a rerun under the
+    same fingerprint resumes after the last complete shard."""
+    mesh = _resolve_mesh(mesh, device)
     idx = dataset.index_speech_commands(base_path, cfg.commands, cfg.max_samples_per_class)
     for w in idx.warnings:
         log.warning(w)
@@ -121,18 +184,25 @@ def create_spike_dataset(
     writer = None
     first_file = 0
     if sharded_output is not None:
-        writer = ShardedSpikeDatasetWriter(
-            sharded_output, shard_size, resume=True, compress=compress,
-            fingerprint=_fingerprint(cfg, idx.files), meta=corpus_meta(cfg),
-        )
-        first_file = writer.resume_file_index + 1
-        if first_file:
-            log.info("Resuming featurization at file %d/%d (%d shards complete)",
-                     first_file, len(idx.files), len(writer.completed_shards()))
+        if meshlib.is_primary():
+            writer = ShardedSpikeDatasetWriter(
+                sharded_output, shard_size, resume=True, compress=compress,
+                fingerprint=_fingerprint(cfg, idx.files), meta=corpus_meta(cfg),
+            )
+            first_file = writer.resume_file_index + 1
+            if first_file:
+                log.info("Resuming featurization at file %d/%d (%d shards complete)",
+                         first_file, len(idx.files), len(writer.completed_shards()))
+        if mesh is not None:             # rank 0's resume point, on every rank
+            first_file = int(meshlib.replicate_to_mesh(
+                torch.tensor([first_file], device=mesh.device), mesh)[0])
+        else:
+            meshlib.barrier(None)        # rank 0 has created the directory
 
     fcfg = cfg.frontend
+    bs = _effective_batch(cfg.batch_size, mesh)
     chunks = [(start + first_file, stop + first_file)
-              for start, stop in _batched(len(idx.files) - first_file, cfg.batch_size)]
+              for start, stop in _batched(len(idx.files) - first_file, bs)]
 
     def decode(start: int, stop: int):
         return load_audio_batch(idx.files[start:stop], fcfg.sample_rate, fcfg.duration,
@@ -152,20 +222,23 @@ def create_spike_dataset(
             if audio.shape[0] == 0:
                 continue
             spikes = _featurize_to_host(audio, fcfg, device,
-                                        "create_spike_dataset" if cfg.check else None)
+                                        "create_spike_dataset" if cfg.check else None, mesh)
             labels = idx.labels[start:stop][kept]
             n_total += len(kept)
-            if writer is not None:
-                writer.append(spikes, labels, np.arange(start, stop)[kept])
+            if sharded_output is not None:
+                if writer is not None:
+                    writer.append(spikes, labels, np.arange(start, stop)[kept])
             else:
                 spikes_out.append(spikes)
                 labels_out.append(labels)
 
-    if writer is not None:
-        manifest = writer.close()
-        log.info("Sharded dataset: %d samples in %d shards (%.1f utt/s)",
-                 manifest["num_samples"], len(manifest["shards"]),
-                 n_total / max(time.perf_counter() - t0, 1e-9))
+    if sharded_output is not None:
+        if writer is not None:
+            manifest = writer.close()
+            log.info("Sharded dataset: %d samples in %d shards (%.1f utt/s)",
+                     manifest["num_samples"], len(manifest["shards"]),
+                     n_total / max(time.perf_counter() - t0, 1e-9))
+        meshlib.barrier(mesh)
         handle = ShardedSpikeDataset(sharded_output)
         # A resumed run's num_samples counts earlier runs' shards too; a
         # rate divides only what this call featurized.
@@ -179,7 +252,7 @@ def create_spike_dataset(
              x.shape, x.sum() / len(x), len(x) / max(time.perf_counter() - t0, 1e-9))
     ds = artifacts.SpikeDataset(x_spikes=x, y_labels=y)
     if output_path is not None:
-        artifacts.save_spike_dataset(output_path, ds)
+        _write(mesh, artifacts.save_spike_dataset, output_path, ds)
     return ds
 
 
@@ -274,14 +347,18 @@ def extract_lsm_features(
     device: torch.device,
     output_path: Optional[Path] = None,
     run_diagnostics: bool = True,
+    mesh: MeshArg = "auto",
 ) -> ExtractionResult:
     """Split, calibrate w_critico, build the reservoir, diagnose it, and
-    extract standardized features for both splits."""
+    extract standardized features for both splits. Under a mesh the
+    calibration's spike counts are all-reduced, the weights replicated from
+    rank 0, and each rank simulates its rows of every batch (B2 or B5)."""
+    mesh = _resolve_mesh(mesh, device)
     x_train, x_test, y_train, y_test = stratified_split(
         ds.x_spikes, ds.y_labels, cfg.test_size, cfg.split_seed
     )
     wc, mean_weight = calibrate_weight(
-        cfg.reservoir, x_train[: min(500, len(x_train))], cfg.multiplier
+        cfg.reservoir, x_train[: min(500, len(x_train))], cfg.multiplier, mesh=mesh
     )
     log.info("Theoretical w_critico: %.8f", wc)
     log.info("Using weight: %.8f (multiplier: %.2f)", mean_weight, cfg.multiplier)
@@ -291,7 +368,10 @@ def extract_lsm_features(
             cfg.reservoir.leak_variance_divisor,
         )
 
-    reservoir = init_reservoir(cfg, ds.x_spikes.shape[1], mean_weight, device)
+    dev = mesh.device if mesh is not None else device
+    reservoir = init_reservoir(cfg, ds.x_spikes.shape[1], mean_weight, dev)
+    if mesh is not None:
+        meshlib.replicate_to_mesh(reservoir, mesh)
     report = None
     if run_diagnostics:
         report = run_network_diagnostics(reservoir, x_train)
@@ -299,18 +379,22 @@ def extract_lsm_features(
 
     keys = tuple(FEATURE_SETS[cfg.feature_set])
     log.info("Extracting feature set: '%s'", cfg.feature_set)
+    bs = _effective_batch(cfg.batch_size, mesh)
+
+    def extract_batch(x: np.ndarray) -> torch.Tensor:
+        if mesh is None:
+            return res.extract_features(reservoir, torch.as_tensor(x).to(dev), keys)
+        padded, n_real = meshlib.pad_to_multiple(x, mesh.shape[meshlib.DATA_AXIS])
+        local = extract_features_dp(reservoir, _place_batch(padded, mesh, dev), keys, mesh)
+        return meshlib.host_local(local, mesh)[:n_real]
 
     def extract(split: np.ndarray, desc: str) -> torch.Tensor:
         t0 = time.perf_counter()
-        out = [
-            res.extract_features(
-                reservoir, torch.as_tensor(split[start:stop]).to(device), keys
-            )
-            for start, stop in _batched(split.shape[0], cfg.batch_size)
-        ]
+        out = [extract_batch(split[start:stop])
+               for start, stop in _batched(split.shape[0], bs)]
         feats = torch.cat(out, dim=0)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
         log.info("%s: %d samples in %.2fs (%.1f utt/s)",
                  desc, split.shape[0], dt, split.shape[0] / max(dt, 1e-9))
@@ -331,7 +415,7 @@ def extract_lsm_features(
         leak_variance_divisor=cfg.reservoir.leak_variance_divisor,
     )
     if output_path is not None:
-        artifacts.save_features(output_path, artifact)
+        _write(mesh, artifacts.save_features, output_path, artifact)
     return ExtractionResult(
         artifact=artifact,
         w_critico=wc,
@@ -355,9 +439,24 @@ def train_and_evaluate(
     artifact: artifacts.FeatureArtifact,
     device: torch.device,
     class_names: Optional[Sequence[str]] = None,
+    mesh: MeshArg = "auto",
 ) -> TrainResult:
-    """Fit the logistic readout on the train split and score the test split."""
+    """Fit the logistic readout on the train split and score the test split.
+    Under a mesh the fit is data-parallel (`logistic.fit_logistic_dp`) and
+    each rank predicts its rows of the test split."""
+    mesh = _resolve_mesh(mesh, device)
     names = list(class_names or cfg.commands)
+    if mesh is not None:
+        readout, iters = logistic.fit_logistic_dp(
+            artifact.x_train, artifact.y_train, num_classes=len(names), mesh=mesh,
+            l2_c=cfg.readout.l2_c, max_iter=cfg.readout.max_iter, tol=cfg.readout.tol)
+        xt, n_real = meshlib.pad_to_multiple(np.asarray(artifact.x_test, np.float32),
+                                             mesh.shape[meshlib.DATA_AXIS])
+        y_pred = meshlib.host_local(logistic.predict(readout, _place_batch(xt, mesh, device)),
+                                    mesh)[:n_real].cpu().numpy()
+        rep = metrics.classification_report(artifact.y_test, y_pred, names)
+        log.info("Test Accuracy: %.2f%%", rep.accuracy * 100)
+        return TrainResult(accuracy=rep.accuracy, report=rep, readout=readout, n_iters=iters)
     x_train = torch.as_tensor(artifact.x_train, dtype=torch.float32).to(device)
     y_train = torch.as_tensor(artifact.y_train, dtype=torch.int64).to(device)
     x_test = torch.as_tensor(artifact.x_test, dtype=torch.float32).to(device)
@@ -411,6 +510,7 @@ def classify_spikes_streaming(
     readout: logistic.LogisticReadout,
     st: scaler.Scaler,
     device: torch.device,
+    mesh: MeshArg = "auto",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Classify a spike corpus batch by batch: `source.iter_batches(
     cfg.batch_size)` (a ShardedSpikeDataset streams from disk, host memory
@@ -418,17 +518,30 @@ def classify_spikes_streaming(
     reservoir) -> scaler -> predictions, which stay on `device` until the
     end. Batches whose T is a multiple of 8 travel bit-packed (an eighth of
     the bytes) and are unpacked on the device. Returns (predictions, labels),
-    (N,) int32 each, in storage order."""
+    (N,) int32 each, in storage order. Under a mesh the modules are
+    replicated from rank 0 and each rank classifies its rows of every
+    batch; the predictions are gathered at the end."""
+    mesh = _resolve_mesh(mesh, device)
+    dev = mesh.device if mesh is not None else device
+    if mesh is not None:
+        meshlib.replicate_to_mesh((reservoir, readout, st), mesh)
     keys = tuple(FEATURE_SETS[cfg.feature_set])
-    preds_dev, labels_out = [], []
+    bs = _effective_batch(cfg.batch_size, mesh)
+    preds_dev, n_reals, labels_out = [], [], []
     t0 = time.perf_counter()
-    for chunk in source.iter_batches(cfg.batch_size):
-        feats = res.extract_features(reservoir, spikes_to_device(chunk.x_spikes, device), keys)
+    for chunk in source.iter_batches(bs):
+        x, n_real = np.asarray(chunk.x_spikes), len(chunk.y_labels)
+        if mesh is not None:
+            x = meshlib.pad_to_multiple(x, mesh.shape[meshlib.DATA_AXIS])[0]
+            x = x[meshlib.local_rows(x.shape[0], mesh)]
+        feats = res.extract_features(reservoir, spikes_to_device(x, dev), keys)
         preds_dev.append(logistic.predict(readout, scaler.transform(st, feats)))
+        n_reals.append(n_real)
         labels_out.append(np.asarray(chunk.y_labels))
-        if len(preds_dev) % 8 == 0 and device.type == "cuda":
+        if len(preds_dev) % 8 == 0 and dev.type == "cuda":
             # Backpressure: bound the batches queued on the card.
-            torch.cuda.current_stream(device).synchronize()
+            torch.cuda.current_stream(dev).synchronize()
+    preds_dev = [meshlib.host_local(p, mesh)[:n] for p, n in zip(preds_dev, n_reals)]
     preds = torch.cat(preds_dev).to(torch.int32).cpu().numpy() if preds_dev \
         else np.zeros(0, np.int32)
     labels = np.concatenate(labels_out).astype(np.int32) if labels_out \
@@ -472,6 +585,7 @@ def extract_and_train_streaming(
     readout: str = "ridge",
     l2_c: float = 1.0,
     max_iter: int = 1000,
+    mesh: MeshArg = "auto",
 ) -> StreamingTrainResult:
     """Fused stage 2+3 over a sharded spike corpus with flat host memory.
 
@@ -496,11 +610,19 @@ def extract_and_train_streaming(
     batches in flight. The three phase timers of pass 1 (shard iteration,
     pack + transfer + dispatch, device sync) are logged as lsm_tpu logs
     them; with cfg.check every batch's features are validated (a sync a
-    batch). lsm_tpu's mesh and multi-host branches are not ported (ROADMAP
-    A14)."""
+    batch).
+
+    Under a mesh every rank iterates the same batches (padded to the data
+    axis, padding weighted 0) and extracts its rows; each rank's ridge
+    statistics are all-reduced once before the solve, the logistic buffer
+    holds each rank's own rows and `fit_logistic` all-reduces over them,
+    and the test predictions are gathered at the end."""
     from lsm_tpu_torch.readout.streaming_fit import (
-        finalize_ridge, init_ridge_accum, update_ridge_accum,
+        all_reduce_accum, finalize_ridge, init_ridge_accum, update_ridge_accum,
     )
+
+    mesh = _resolve_mesh(mesh, device)
+    device = mesh.device if mesh is not None else device
 
     if readout not in ("ridge", "logistic"):
         raise ValueError(f"readout must be 'ridge' or 'logistic', got {readout!r}")
@@ -524,33 +646,48 @@ def extract_and_train_streaming(
     train_mask[np.asarray(idx_tr)] = True
 
     calib = source.gather_rows(np.asarray(idx_tr)[: min(500, len(idx_tr))])
-    wc, mean_weight = calibrate_weight(cfg.reservoir, calib, cfg.multiplier)
+    wc, mean_weight = calibrate_weight(cfg.reservoir, calib, cfg.multiplier, mesh=mesh)
     log.info("Theoretical w_critico: %.8f", wc)
     log.info("Using weight: %.8f (multiplier: %.2f)", mean_weight, cfg.multiplier)
     reservoir = init_reservoir(cfg, calib.shape[1], mean_weight, device)
+    if mesh is not None:
+        meshlib.replicate_to_mesh(reservoir, mesh)
     report = None
     if run_diagnostics:
         report = run_network_diagnostics(reservoir, calib)
         log.info("\n%s", report.render())
 
     keys = tuple(FEATURE_SETS[cfg.feature_set])
-    bs = cfg.batch_size
+    bs = _effective_batch(cfg.batch_size, mesh)
+    n_data = 1 if mesh is None else mesh.shape[meshlib.DATA_AXIS]
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
     phases["calibrate"] = (t_cal, time.perf_counter())
 
+    def local(a: np.ndarray) -> np.ndarray:
+        """This rank's rows of a batch padded to the data axis (all of it
+        without a mesh)."""
+        if mesh is None:
+            return a
+        a = meshlib.pad_to_multiple(np.asarray(a), n_data)[0]
+        return a[meshlib.local_rows(a.shape[0], mesh)]
+
     def extract(x: np.ndarray) -> torch.Tensor:
-        feats = res.extract_features(reservoir, spikes_to_device(x, device), keys)
+        feats = res.extract_features(reservoir, spikes_to_device(local(x), device), keys)
         if cfg.check:
             checks.check_features(feats, "extract_and_train_streaming")
         return feats
 
     state = None
     feat_buf = None
-    y_buf = torch.empty(len(idx_tr), dtype=torch.int64, device=device) \
+    # Each rank's rows of the train split (padded batches): the buffer's rows.
+    n_slots = len(idx_tr) if mesh is None else -(-len(idx_tr) // bs) * bs // n_data
+    y_buf = torch.empty(n_slots, dtype=torch.int64, device=device) \
         if readout == "logistic" else None
-    n_train = n_batches = 0
+    w_buf = torch.zeros(n_slots, dtype=torch.float32, device=device) \
+        if readout == "logistic" and mesh is not None else None
+    n_train = n_batches = n_rows = 0
     t_iter = t_disp = t_sync = 0.0
     t0 = time.perf_counter()
     it = iter(source.iter_batches(bs, mask=train_mask))
@@ -563,16 +700,28 @@ def extract_and_train_streaming(
         tp = time.perf_counter()
         nb = batch.x_spikes.shape[0]
         feats = extract(batch.x_spikes)
-        yb = torch.as_tensor(np.asarray(batch.y_labels, np.int64)).to(device)
+        yb = torch.as_tensor(local(np.asarray(batch.y_labels, np.int64))).to(device)
+        wb = None
+        if mesh is not None:
+            wb = torch.as_tensor(local(np.ones(nb, np.float32))).to(device)
         if state is None:
-            state = init_ridge_accum(torch.mean(feats, dim=0), k)
-        update_ridge_accum(state, feats, yb)
+            if mesh is None:
+                shift = torch.mean(feats, dim=0)
+            else:           # the first batch's mean over every rank's real rows
+                shift = meshlib.all_reduce_sum(torch.sum(feats * wb[:, None], dim=0), mesh) \
+                    / meshlib.all_reduce_sum(torch.sum(wb), mesh)
+            state = init_ridge_accum(shift, k)
+        update_ridge_accum(state, feats, yb, wb)
         if readout == "logistic":
             if feat_buf is None:
-                feat_buf = torch.empty(len(idx_tr), feats.shape[1], dtype=torch.float32,
+                feat_buf = torch.empty(n_slots, feats.shape[1], dtype=torch.float32,
                                        device=device)
-            feat_buf[n_train:n_train + nb] = feats
-            y_buf[n_train:n_train + nb] = yb
+            m = feats.shape[0]
+            feat_buf[n_rows:n_rows + m] = feats
+            y_buf[n_rows:n_rows + m] = yb
+            if wb is not None:
+                w_buf[n_rows:n_rows + m] = wb
+            n_rows += m
         n_train += nb
         n_batches += 1
         t_disp += time.perf_counter() - tp
@@ -584,6 +733,8 @@ def extract_and_train_streaming(
             t_sync += time.perf_counter() - tp
     if state is None:
         raise ValueError("streaming fit: no training rows in corpus")
+    if mesh is not None:
+        all_reduce_accum(state, mesh)
     readout_mod, st = finalize_ridge(state, alpha=alpha)
     if cuda:
         torch.cuda.synchronize(device)
@@ -596,9 +747,15 @@ def extract_and_train_streaming(
         # The reference readout on the device-resident buffer, standardized
         # in place: the in-memory path's objective on the same rows.
         t0 = time.perf_counter()
-        z = feat_buf.sub_(st.mean).div_(st.scale)
+        z = feat_buf[:n_rows].sub_(st.mean).div_(st.scale)
         feat_buf = None
-        readout_mod, iters = logistic.fit_logistic(z, y_buf, k, l2_c=l2_c, max_iter=max_iter)
+        if mesh is None:
+            readout_mod, iters = logistic.fit_logistic(z, y_buf, k, l2_c=l2_c,
+                                                       max_iter=max_iter)
+        else:
+            readout_mod, iters = logistic.fit_logistic(
+                z, y_buf[:n_rows], k, l2_c=l2_c, max_iter=max_iter, weights=w_buf[:n_rows],
+                mesh=mesh)
         del z
         phases["solve"] = (t0, time.perf_counter())
         log.info("Streaming logistic solve: %d LBFGS iters in %.2fs",
@@ -612,6 +769,7 @@ def extract_and_train_streaming(
         y_true.append(np.asarray(batch.y_labels))
         if len(preds_dev) % 8 == 0 and cuda:          # the same backpressure
             torch.cuda.current_stream(device).synchronize()
+    preds_dev = [meshlib.host_local(p, mesh)[:len(y)] for p, y in zip(preds_dev, y_true)]
     preds = torch.cat(preds_dev).cpu().numpy() if preds_dev else np.zeros(0, np.int64)
     y_test = np.concatenate(y_true) if y_true else np.zeros(0, np.int64)
     phases["eval_pass"] = (t0, time.perf_counter())
@@ -629,11 +787,13 @@ def extract_and_train_streaming(
 
 
 def run_pipeline_arrays(
-    cfg: PipelineConfig, audio: np.ndarray, labels: np.ndarray, device: torch.device
+    cfg: PipelineConfig, audio: np.ndarray, labels: np.ndarray, device: torch.device,
+    mesh: MeshArg = "auto",
 ) -> Tuple[TrainResult, ExtractionResult]:
-    """Audio arrays in, trained and evaluated readout out, on `device`."""
-    spikes = featurize_audio_array(cfg, audio, device)
+    """Audio arrays in, trained and evaluated readout out, on `device`
+    (data-parallel over the mesh)."""
+    spikes = featurize_audio_array(cfg, audio, device, mesh=mesh)
     ds = artifacts.SpikeDataset(x_spikes=spikes, y_labels=labels)
-    ext = extract_lsm_features(cfg, ds, device)
-    result = train_and_evaluate(cfg, ext.artifact, device)
+    ext = extract_lsm_features(cfg, ds, device, mesh=mesh)
+    result = train_and_evaluate(cfg, ext.artifact, device, mesh=mesh)
     return result, ext

@@ -16,11 +16,16 @@ two large numbers: reservoir statistics such as spike times have means far
 from zero, where the raw form fails in float32. The scaler's mean is the
 train mean, so the scaled features are exactly centered and the scaled
 Gram and cross term are diagonal rescalings of the centered raw ones.
+
+Under a mesh every rank folds its rows of each batch (0/1 row weights mask
+the padding of a batch that does not divide over the data axis) into its
+own statistics around the same shift, and `all_reduce_accum` sums them
+over the data axis once, before the solve.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,16 +35,16 @@ from lsm_tpu_torch.readout.scaler import Scaler, fit_scaler_from_moments
 
 class RidgeAccumState(NamedTuple):
     """Sufficient statistics of a scaled, centered ridge fit over rows f_i
-    with labels y_i, float32 on one device (lsm_tpu's fields; its 0/1 row
-    weights mask padding, which the port's unpadded batches do not have).
+    with labels y_i and 0/1 weights w_i (1 but for padding), float32 on one
+    device (lsm_tpu's fields).
 
     shift: (D,)   the fixed centering point c (the first batch's mean)
-    gram:  (D, D) sum_i (f_i - c)(f_i - c)^T
-    xte:   (D, K) sum_i (f_i - c) e_{y_i}^T
-    s1:    (D,)   sum_i (f_i - c)
-    s2:    (D,)   sum_i (f_i - c)^2
-    cnt:   (K,)   per-class counts
-    n:     ()     the row count
+    gram:  (D, D) sum_i w_i (f_i - c)(f_i - c)^T
+    xte:   (D, K) sum_i w_i (f_i - c) e_{y_i}^T
+    s1:    (D,)   sum_i w_i (f_i - c)
+    s2:    (D,)   sum_i w_i (f_i - c)^2
+    cnt:   (K,)   per-class weighted counts
+    n:     ()     sum_i w_i
     """
 
     shift: torch.Tensor
@@ -61,19 +66,34 @@ def init_ridge_accum(shift: torch.Tensor, num_classes: int) -> RidgeAccumState:
 
 
 def update_ridge_accum(state: RidgeAccumState, feats: torch.Tensor,
-                       labels: torch.Tensor) -> RidgeAccumState:
-    """Fold one (B, D) feature batch into `state`, in place, and return it.
-    Labels must lie in [0, K): the caller checks the range (torch's one_hot
-    raises on a bad label where lsm_tpu's zeroes the row)."""
+                       labels: torch.Tensor, weights: Optional[torch.Tensor] = None
+                       ) -> RidgeAccumState:
+    """Fold one (B, D) feature batch into `state`, in place, and return it;
+    `weights` (0/1, default all 1) masks padded rows. Labels must lie in
+    [0, K): the caller checks the range (torch's one_hot raises on a bad
+    label where lsm_tpu's zeroes the row)."""
     k = state.xte.shape[1]
     y1 = torch.nn.functional.one_hot(labels.to(torch.int64), k).to(torch.float32)
     fc = feats.to(torch.float32) - state.shift[None, :]
-    state.gram.addmm_(fc.T, fc)
-    state.xte.addmm_(fc.T, y1)
-    state.s1.add_(torch.sum(fc, dim=0))
-    state.s2.add_(torch.sum(fc * fc, dim=0))
-    state.cnt.add_(torch.sum(y1, dim=0))
-    state.n.add_(float(fc.shape[0]))
+    w = torch.ones(fc.shape[0], device=fc.device) if weights is None \
+        else weights.to(torch.float32)
+    fcw = fc * w[:, None]
+    state.gram.addmm_(fcw.T, fc)
+    state.xte.addmm_(fcw.T, y1)
+    state.s1.add_(torch.sum(fcw, dim=0))
+    state.s2.add_(torch.sum(fc * fcw, dim=0))
+    state.cnt.add_(torch.sum(y1 * w[:, None], dim=0))
+    state.n.add_(torch.sum(w))
+    return state
+
+
+def all_reduce_accum(state: RidgeAccumState, mesh) -> RidgeAccumState:
+    """Sum every rank's statistics (all but the common shift) over the
+    mesh's data axis, in place."""
+    from lsm_tpu_torch.parallel.mesh import all_reduce_sum
+
+    for f in RidgeAccumState._fields[1:]:
+        all_reduce_sum(getattr(state, f), mesh)
     return state
 
 

@@ -1,18 +1,21 @@
-"""What kernel B1's per-sub-block state conversion costs against float64, on
-the configs[2] corpus, emulated on the CPU (ROADMAP C5).
+"""What kernel B1/B3's state conversion costs against float64, on the
+configs[2] corpus, emulated on the CPU (ROADMAP C5, fixed).
 
 Kernel B1/B3 (csrc/gtgram.cu) runs each (row, channel) cascade in the
 delta-operator TDF2 and converts its state to the block form's TDF2 state
-and back at every sub-block, so that chained B3 hops are bit-equal to one
-call. This emulates the kernel's float32 arithmetic in NumPy (each fmaf
-rounded once) with the conversions ("kernel") and without them
-("no_conversion"), on the first rows of `synthetic_audio_batch(30, 35,
-seed=77)` at 256 filters, and prints per channel the largest relative
-error against the float64 cascade of the sub-block energies at >= 1e-4 of
-their (row, channel) peak: chip_smoke.py phase 15's measure.
+and back once every period of `conv_sub` sub-blocks (one 1600-sample
+serving hop by default), so that chained B3 hops are bit-equal to one call.
+This emulates the kernel's float32 arithmetic in NumPy (each fmaf rounded
+once) as the kernel now runs it ("kernel": a conversion every `--period`
+samples), as it ran before ("per_sub_block": a conversion every sub-block)
+and without conversions ("no_conversion"), on the first rows of
+`synthetic_audio_batch(30, 35, seed=77)` at 256 filters, and prints per
+channel the largest relative error against the float64 cascade of the
+sub-block energies at >= 1e-4 of their (row, channel) peak: chip_smoke.py
+phase 15's measure.
 
     python -m lsm_tpu_torch.tools.gtgram_conversion [--rows 256]
-        [--channels 0 1 2 3] [--samples 16000]
+        [--channels 0 1 2 3] [--samples 16000] [--period 1600]
 """
 
 from __future__ import annotations
@@ -32,11 +35,21 @@ def _add(a, b):
     return (a.astype(F64) + b.astype(F64)).astype(F32)
 
 
-def sub_energies(form: str, x: np.ndarray, q: np.ndarray, sec: tuple, g: int) -> np.ndarray:
+FORMS = ("kernel", "per_sub_block", "no_conversion")
+
+
+def sub_energies(form: str, x: np.ndarray, q: np.ndarray, sec: tuple, g: int,
+                 period: int = 1600) -> np.ndarray:
     """Sub-block energies (n_sub, B, C) of x (B, S) from a zero state:
-    "float64" (Slaney's TDF2 on float64 `sec` = (n0, n1, b1, b2)), "kernel"
-    or "no_conversion" (the delta form on the float32 of `q`, (C, 11)
-    `gammatone.cascade_coeffs` rows)."""
+    "float64" (Slaney's TDF2 on float64 `sec` = (n0, n1, b1, b2)), or the
+    delta form on the float32 of `q`, (C, 11) `gammatone.cascade_coeffs`
+    rows, converting its state every `period` samples ("kernel", a multiple
+    of g), every g samples ("per_sub_block") or never ("no_conversion")."""
+    if form not in ("float64",) + FORMS:
+        raise ValueError(f"unknown form {form!r}")
+    every = {"kernel": period, "per_sub_block": g}.get(form)
+    if every is not None and (every <= 0 or every % g):
+        raise ValueError(f"period {every} is not a positive multiple of g = {g}")
     shape = (x.shape[0], q.shape[0])
     dt = F64 if form == "float64" else F32
     n0, b1, b2 = (np.broadcast_to(v, shape) for v in (sec[0], sec[2], sec[3]))
@@ -47,7 +60,7 @@ def sub_energies(form: str, x: np.ndarray, q: np.ndarray, sec: tuple, g: int) ->
     w1, w2 = list(s1), list(s2)
     out, e = [], np.zeros(shape, dt)
     for i in range(x.shape[1]):
-        if form == "kernel" and i % g == 0:            # TDF2 -> delta state
+        if every is not None and i % every == 0:       # TDF2 -> delta state
             w1, w2 = list(s1), [_add(s1[k], s2[k]) for k in range(4)]
         xv = np.broadcast_to(x[:, i:i + 1].astype(dt), shape)
         for k in range(4):
@@ -60,9 +73,9 @@ def sub_energies(form: str, x: np.ndarray, q: np.ndarray, sec: tuple, g: int) ->
                 w2[k] = _fma(-c[2], y, _fma(c[7 + k], xv, w2[k]))
             xv = y
         e = xv * xv + e if form == "float64" else _fma(xv, xv, e)
+        if every is not None and (i + 1) % every == 0:  # delta -> TDF2 state
+            s1, s2 = list(w1), [_add(w2[k], -w1[k]) for k in range(4)]
         if (i + 1) % g == 0:
-            if form == "kernel":                         # delta -> TDF2 state
-                s1, s2 = list(w1), [_add(w2[k], -w1[k]) for k in range(4)]
             out.append(e)
             e = np.zeros(shape, dt)
     return np.stack(out)
@@ -80,6 +93,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--channels", type=int, nargs="+", default=[0, 1, 2, 3])
     ap.add_argument("--samples", type=int, default=16000,
                     help="Samples of each row to run (a multiple of the sub-block).")
+    ap.add_argument("--period", type=int, default=1600,
+                    help="Samples between the kernel's state conversions (a multiple "
+                         "of the sub-block; one serving hop by default).")
     args = ap.parse_args(argv)
 
     from lsm_tpu_torch.config import FrontendConfig
@@ -99,10 +115,11 @@ def main(argv=None) -> dict:
     x = np.ascontiguousarray(audio[:args.rows, :args.samples // g * g], F32)
     ref = sub_energies("float64", x, q, sec, g)
     print(f"synthetic_audio_batch(30, 35, seed=77)[:{args.rows}], {x.shape[1]} samples, "
-          f"g {g}, 256 filters; worst relative error against float64 at >= 1e-4 of peak")
+          f"g {g}, 256 filters, kernel period {args.period} samples; worst relative error "
+          "against float64 at >= 1e-4 of peak")
     result = {}
-    for form in ("kernel", "no_conversion"):
-        result[form] = worst_by_channel(sub_energies(form, x, q, sec, g), ref)
+    for form in FORMS:
+        result[form] = worst_by_channel(sub_energies(form, x, q, sec, g, args.period), ref)
         print(f"  {form:14s} " + " ".join(f"ch{c} {v:.3e}" for c, v in
                                             zip(args.channels, result[form])))
     return result

@@ -99,7 +99,8 @@ def test_decode_and_load_wav_bit_equal(wav_files):
 
 @pytest.mark.parametrize("dtype", ["float32", "int16", "ulaw"])
 def test_load_audio_batch_bit_equal(wav_files, dtype):
-    t_batch, t_kept, t_err = twav.load_audio_batch(wav_files, 16000, 1.0, dtype=dtype)
+    t_batch, t_kept, t_err = twav.load_audio_batch(wav_files, 16000, 1.0, use_native=False,
+                                                   dtype=dtype)
     j_batch, j_kept, j_err = jwav.load_audio_batch(wav_files, 16000, 1.0, use_native=False,
                                                    dtype=dtype)
     np.testing.assert_array_equal(t_batch, j_batch)

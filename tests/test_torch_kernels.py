@@ -162,6 +162,29 @@ def test_gtgram_chunk_kernel_chaining_is_exact(cuda, fs, g):
     assert torch.equal(e_whole, e_b1)
 
 
+@pytest.mark.parametrize("conv_sub", [1, 10, 200])
+def test_gtgram_conversion_period(cuda, conv_sub):
+    """Chunks of one conversion period (conv_sub sub-blocks) threading the
+    state are bit-equal to one call at that period, and every period stays
+    within the twin's tolerance; the period must be positive."""
+    wave = _wave(cuda, 33, 16000, conv_sub)
+    fb = gt.filterbank(16000.0, 64, 50.0, 80, cuda)
+    st = torch.zeros(33, 8, 64, device=cuda)
+    s_whole, e_whole = kgt.chunk(wave, fb, st, conv_sub=conv_sub)
+    step = conv_sub * 80
+    parts = []
+    for c in range(0, 16000, step):
+        st, e = kgt.chunk(wave[:, c:c + step].contiguous(), fb, st, conv_sub=conv_sub)
+        parts.append(e)
+    e_b1 = kgt.sub_energy(wave, fb, conv_sub=conv_sub)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts), e_whole) and torch.equal(st, s_whole)
+    assert torch.equal(e_whole, e_b1)
+    torch.testing.assert_close(e_b1, kgt.sub_energy_plain(wave, fb), rtol=5e-3, atol=1e-6)
+    with pytest.raises(ValueError, match="period"):
+        kgt.sub_energy(wave, fb, conv_sub=0)
+
+
 @pytest.mark.parametrize("n_new_win", [1, 2])
 def test_lif_chunk_kernel_bit_equal_over_chained_chunks(cuda, n_new_win):
     cfg = ReservoirConfig(mean_weight=0.0114)

@@ -111,6 +111,8 @@ def test_port_imports_nothing_of_the_reference():
         "import lsm_tpu_torch.tools.calibrate, lsm_tpu_torch.tools.calibrate_continuous\n"
         "import lsm_tpu_torch.tools.sensitivity, lsm_tpu_torch.tools.inspect_state\n"
         "import lsm_tpu_torch.tools.sparse_parity, lsm_tpu_torch.tools.gtgram_conversion\n"
+        "import lsm_tpu_torch.parallel.mesh, lsm_tpu_torch.parallel.sharded\n"
+        "import lsm_tpu_torch.parallel.train_step, lsm_tpu_torch.io.native\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"
@@ -124,3 +126,27 @@ def test_port_imports_nothing_of_the_reference():
 def test_kernels_build_into_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "lsm_tpu_torch"
     assert [p.name for p in _build.sources()] == ["gtgram.cu", "lif.cu", "sparse_lif.cu"]
+
+
+def test_the_decoder_builds_into_the_checkout_and_nowhere_else(tmp_path):
+    """csrc/wavio.cpp compiles into build/lsm_tpu_torch/ of the checkout:
+    nothing lands in HOME, the cache or TMPDIR or in the package's tree."""
+    if not __import__("shutil").which("g++"):
+        pytest.skip("g++ is missing: the native decoder builds with it")
+    home = tmp_path / "home"
+    home.mkdir()
+    before = {p for p in (REPO / "lsm_tpu_torch").rglob("*") if p.is_file()}
+    code = ("from lsm_tpu_torch.io import native\n"
+            "from lsm_tpu_torch.ops import _build\n"
+            "assert native.available(), native.unavailable_reason()\n"
+            "print(_build.build_wavio())\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(home), TMPDIR=str(home),
+               XDG_CACHE_HOME=str(home / "cache"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lib = Path(proc.stdout.strip().splitlines()[-1])
+    assert lib.parent == REPO / "build" / "lsm_tpu_torch" and lib.is_file()
+    assert not list(home.rglob("*"))
+    after = {p for p in (REPO / "lsm_tpu_torch").rglob("*") if p.is_file()}
+    assert not {p for p in after - before if "__pycache__" not in p.parts}

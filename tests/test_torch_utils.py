@@ -245,7 +245,7 @@ def test_gtgram_conversion_tool_runs(capsys):
 
     out = gtgram_conversion.main(["--rows", "2", "--channels", "3", "40",
                                   "--samples", "1600"])
-    assert set(out) == {"kernel", "no_conversion"}
+    assert set(out) == {"kernel", "per_sub_block", "no_conversion"}
     for err in out.values():
         assert err.shape == (2,) and np.isfinite(err).all() and (err < 1e-2).all()
     assert "ch3" in capsys.readouterr().out
