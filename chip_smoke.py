@@ -217,6 +217,34 @@ Phases (any failure exits non-zero):
                phase 3's slice through the mesh path, features bit-equal
                to phase 3's. Phase 4's path timed over both meshes beside
                phase 4's single-process wall.
+ 18. serving over ranks - the serving engines over a mesh, launched as
+               `python3 chip_smoke.py --distributed-worker serve_pair|
+               serve_single` through the env contract, each rank with a
+               timeout. Two gloo ranks sharing the card: ContinuousKWS at
+               1024 streams (512 a rank) with phase 6's modules (phase 12's
+               continuous bundle), int16 wire, ten hops after a 1 s
+               warm-up: the state leaves, features and snapshot bit-equal
+               to one process on the same bundle, the logits bit-equal or
+               within 1e-5 of each stream's largest with the argmax equal,
+               B3 and B4 (cluster body) launched in each rank, the hop wall
+               beside phase 7's and one process's; step_active at 25 %
+               bit-equal to step with silence in the other rows; a reset of
+               half the streams by mask; rank 0 saves with
+               save_serving_state, one process loads the file and the ranks
+               reload it, both continuing bit-equal. The exact engine at
+               256 streams (B1 and B2 once a hop in each rank) and phase
+               9's 10240-neuron block-sparse continuous engine at 256 (B6
+               in each rank, spike total within SPIKE_REL, bits reported),
+               both against one process. `python -m
+               lsm_tpu_torch.cli.stream_kws --pool --max-streams 1024` as
+               two processes on phase 11's WAVs: predictions equal to phase
+               12's static run, `mesh x2`, rank 1 silent. One NCCL rank on
+               a 1x1 mesh: the continuous sequence bit-equal to one
+               process. Then each measurement tool
+               (lsm_tpu_torch/tools/{bench_streaming, bench_continuous,
+               bench_state, bench_tp, profile_stages}) once at a small size
+               as a subprocess (bench_tp and a --mesh bench_streaming on
+               two ranks): exit 0 and a JSON line.
 
 Each phase prints its seconds ("[time] ..."). A "[record] {...}" line
 holds every number of the run as JSON. The
@@ -283,27 +311,22 @@ def fail(msg: str) -> None:
 
 
 def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    """nvidia-smi's name and power limit of the card (the port's tools
+    print the same line)."""
+    from lsm_tpu_torch.tools.common import gpu_line as query
+
+    line = query()
+    if line is None:
+        fail("nvidia-smi --query-gpu=name,power.limit failed")
+    return line
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call from CUDA events around `reps` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean milliseconds per call from CUDA events around `reps` calls
+    (lsm_tpu_torch/tools/common.py, which the port's tools time with)."""
+    from lsm_tpu_torch.tools.common import cuda_ms as ms
+
+    return ms(fn, reps, warmup)
 
 
 def check_no_reference() -> None:
@@ -902,12 +925,14 @@ def main() -> None:
         laps("14 training")
         record["configs2"] = configs2(dev, card, tmp)
         laps("15 configs[2]")
-    record["dense_large"] = dense_large(dev, card, spikes)
-    laps("16 dense large")
-    with tempfile.TemporaryDirectory(prefix="lsm_distributed_") as tmp_name:
-        record["distributed"] = distributed(dev, card, Path(tmp_name), phase3, spikes,
-                                            [record["hot"]["wall_s_min"]])
-    laps("17 distributed")
+        record["dense_large"] = dense_large(dev, card, spikes)
+        laps("16 dense large")
+        with tempfile.TemporaryDirectory(prefix="lsm_distributed_") as tmp_name:
+            record["distributed"] = distributed(dev, card, Path(tmp_name), phase3, spikes,
+                                                [record["hot"]["wall_s_min"]])
+        laps("17 distributed")
+        record["serving_ranks"] = serving_ranks(dev, card, tmp, record["serving"])
+        laps("18 serving over ranks")
 
     def row(name, key, source, replaces, rec, launches_):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3280,8 +3305,375 @@ def distributed(dev, card, tmp: Path, phase3: dict, phase2_spikes, hot_walls: li
     return rec
 
 
+# ---- 18. serving over ranks ---------------------------------------------------
+
+# Phase 18's exact and block-sparse engines serve this many streams (the
+# exact hop re-runs the 1 s window; B6 at 10240 neurons is the sparse hop).
+N_RANKS_EXACT = N_RANKS_SPARSE = 256
+# The mesh engines' logits against one process's, relative to each
+# stream's largest logit: the readout product on half the rows takes
+# another cuBLAS algorithm (the features feeding it are bit-equal).
+LOGITS_REL = 1e-5
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _rows(kws):
+    """The rows of a full host chunk that this rank's engine takes."""
+    return lambda h: np.ascontiguousarray(h[kws.rows])
+
+
+def serve_sequence(kws, hops, path: Path, barrier) -> tuple:
+    """Phase 18's continuous-engine sequence, the same on one process and
+    on the ranks of a mesh (each feeding its rows): one window of warm-up,
+    ten hops timed on the host (a barrier, then synchronize() around each
+    step), the features' and the snapshot's hashes, step_active with 25 %
+    of the streams against step with silence in the other rows (logits and
+    this rank's state), a reset of every other stream by mask and two
+    hops, the state file (rank 0 writes), two more hops. Returns (record,
+    arrays)."""
+    from lsm_tpu_torch.io.serving_state import save_serving_state
+
+    local = _rows(kws)
+    reset_launches()
+    for h in hops:
+        kws.step(local(h))
+    walls, logits = [], []
+    for h in hops:
+        barrier()
+        torch.cuda.synchronize(kws.device)
+        t0 = time.perf_counter()
+        logits.append(kws.step(local(h)))
+        torch.cuda.synchronize(kws.device)
+        walls.append(time.perf_counter() - t0)
+    rec = {"launches": read_launches(), "hop_walls_s": walls,
+           "features_sha": _sha(kws.features()),
+           "state_sha": {k: _sha(v) for k, v in kws.snapshot().items()}}
+    arrays = {"logits": np.stack(logits)}
+    idx = np.arange(0, kws.n_streams, 4)
+    h = hops[0]
+    before = kws.state                       # every step makes new tensors
+    arrays["active"] = kws.step_active(h[idx], idx)
+    after = kws._state_leaves()
+    kws.state = before
+    silent = np.zeros_like(h)
+    silent[idx] = h[idx]
+    rec["active_equals_silence"] = bool(
+        np.array_equal(arrays["active"], kws.step(local(silent)))
+        and all(torch.equal(after[k], v) for k, v in kws._state_leaves().items()))
+    mask = np.zeros(kws.n_streams, bool)
+    mask[::2] = True
+    kws.reset(mask)
+    arrays["after_reset"] = np.stack([kws.step(local(h)) for h in hops[1:3]])
+    save_serving_state(path, kws, compress=False)
+    arrays["continued"] = np.stack([kws.step(local(h)) for h in hops[3:5]])
+    return rec, arrays
+
+
+def serve_exact(kws, hops) -> tuple:
+    """The exact engine over its first n streams: one window of warm-up,
+    then three hops with the launches counted."""
+    local, n = _rows(kws), kws.n_streams
+    for h in hops:
+        kws.step(local(h[:n]))
+    reset_launches()
+    logits = np.stack([kws.step(local(h[:n])) for h in hops[:3]])
+    return {"launches": read_launches()}, {"logits": logits}
+
+
+def serve_sparse(kws, hops) -> tuple:
+    """The block-sparse continuous engine over its first n streams: ten
+    hops with the launches counted, the snapshot's hashes and the window's
+    output spike total."""
+    local, n = _rows(kws), kws.n_streams
+    reset_launches()
+    for h in hops:
+        last = kws.step(local(h[:n]))
+    snap = kws.snapshot()
+    return ({"launches": read_launches(), "state_sha": {k: _sha(v) for k, v in snap.items()},
+             "spikes": float(snap["seg:counts"].sum())}, {"logits": last})
+
+
+def serving_worker(task: str, out_dir: Path) -> None:
+    """One rank of phase 18, launched by `serving_ranks` through the entry
+    points' env contract. task "serve_pair": two gloo ranks sharing the
+    card run the continuous engine's sequence at 1024 streams (and reload
+    the ranks' state file), the exact engine and the block-sparse
+    continuous engine at 256; "serve_single": one NCCL rank on a 1x1 mesh
+    runs the continuous sequence. Writes out_dir/<task>.npz (rank 0) and
+    out_dir/<task>_rank<r>.json."""
+    import torch.distributed as dist
+
+    from lsm_tpu_torch.device import resolve_device
+    from lsm_tpu_torch.io.model import load_model
+    from lsm_tpu_torch.io.serving_state import load_serving_state
+    from lsm_tpu_torch.models.continuous import ContinuousKWS
+    from lsm_tpu_torch.models.streaming import StreamingKWS
+    from lsm_tpu_torch.parallel import mesh as ml
+
+    if not ml.maybe_init_distributed_from_env():
+        fail("the serving worker found no LSM_TPU_COORDINATOR in its environment")
+    mesh = ml.make_mesh(dist.get_world_size(), 1, device=resolve_device("cuda"))
+    rank = dist.get_rank()
+    rec = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+    hops = serving_hops(N_SERVE)["pcm16"]
+    dense = load_model(out_dir / "cont.npz", mesh.device)
+
+    def cont(bundle, n):
+        return ContinuousKWS(bundle.reservoir, bundle.readout, bundle.scaler, bundle.frontend,
+                             bundle.feature_set, n_streams=n, chunk_len=CHUNK, mesh=mesh)
+
+    kws = cont(dense, N_SERVE)
+    state = out_dir / f"{task}_state.npz"
+    rec["continuous"], got = serve_sequence(kws, hops, state, lambda: ml.barrier(mesh))
+    arrays = {f"cont_{k}": v for k, v in got.items()}
+    if task == "serve_pair":
+        fresh = cont(dense, N_SERVE)
+        load_serving_state(state, fresh)
+        arrays["cont_reloaded"] = np.stack([fresh.step(_rows(fresh)(h)) for h in hops[3:5]])
+        del kws, fresh
+        ex = StreamingKWS(dense.reservoir, dense.readout, dense.scaler, dense.frontend,
+                          dense.feature_set, n_streams=N_RANKS_EXACT, mesh=mesh)
+        rec["exact"], got = serve_exact(ex, hops)
+        arrays.update({f"exact_{k}": v for k, v in got.items()})
+        del ex
+        sparse = load_model(out_dir / "sparse.npz", mesh.device)
+        rec["sparse"], got = serve_sparse(cont(sparse, N_RANKS_SPARSE), hops)
+        arrays.update({f"sparse_{k}": v for k, v in got.items()})
+    if rank == 0:
+        np.savez(out_dir / f"{task}.npz", **arrays)
+    (out_dir / f"{task}_rank{rank}.json").write_text(json.dumps(rec))
+    ml.barrier(mesh)
+    dist.destroy_process_group()
+
+
+def logits_rule(a, b) -> dict:
+    """The mesh engines' logits against one process's: bit-equal, or
+    within LOGITS_REL of the stream's largest logit magnitude (a logit
+    sums ~2000 terms that cancel, so its own size says little) with the
+    argmax equal."""
+    a, b = np.asarray(a), np.asarray(b)
+    bits = bool(np.array_equal(a, b))
+    scale = np.maximum(np.abs(b).max(-1, keepdims=True), np.finfo(np.float32).tiny)
+    rel = float((np.abs(a - b) / scale).max())
+    argmax = bool(np.array_equal(a.argmax(-1), b.argmax(-1)))
+    return {"bit_equal": bits, "max_abs_err": float(np.abs(a - b).max()),
+            "max_row_rel_err": rel, "argmax_equal": argmax,
+            "ok": bits or (rel <= LOGITS_REL and argmax)}
+
+
+def serving_ranks(dev, card, tmp: Path, phase7: dict) -> dict:
+    """Phase 18: the serving engines over ranks (ROADMAP A14's serving
+    half). Two gloo ranks share the card: ContinuousKWS at 1024 streams
+    (512 a rank) with phase 6's modules (phase 12's continuous bundle) on
+    the int16 wire, serve_sequence's steps; the state leaves, features and
+    the snapshot bit-equal to one process on the same bundle, the logits
+    by logits_rule, B3 and B4 (cluster body) launched in each rank, the
+    hop wall beside phase 7's; step_active at 25 % bit-equal to step with
+    silence; the ranks' state file loaded by one process and by the ranks
+    again, both continuing bit-equal. The exact engine at 256 streams (B1
+    and B2 in each rank) and the 10240-neuron block-sparse continuous
+    engine of phase 9's bundle at 256 (B6 in each rank, spike total within
+    SPIKE_REL, bits reported). `python -m lsm_tpu_torch.cli.stream_kws
+    --pool --max-streams 1024` as two processes on phase 11's WAVs predicts
+    as phase 12's static run, rank 0 alone writing. One NCCL rank on a 1x1
+    mesh runs serve_sequence bit-equal to one process."""
+    from lsm_tpu_torch.io.model import load_model
+    from lsm_tpu_torch.io.serving_state import load_serving_state
+    from lsm_tpu_torch.models.continuous import ContinuousKWS
+    from lsm_tpu_torch.models.streaming import StreamingKWS
+
+    out = tmp / "serve_ranks"
+    out.mkdir()
+    for name in ("cont.npz", "sparse.npz"):
+        (out / name).symlink_to(tmp / name)
+    worker = list(DISTRIBUTED_WORKER)
+    rec = {}
+    rec["pair_process_s"], _ = timed(lambda: _launch_ranks(worker + ["serve_pair", str(out)], 2,
+                                                           tmp, 400, card))
+    rec["single_process_s"], _ = timed(lambda: _launch_ranks(
+        worker + ["serve_single", str(out)], 1, tmp, 300, card))
+    pair = [json.loads((out / f"serve_pair_rank{r}.json").read_text()) for r in (0, 1)]
+    single = json.loads((out / "serve_single_rank0.json").read_text())
+    got, one = np.load(out / "serve_pair.npz"), np.load(out / "serve_single.npz")
+    rec["backends"] = {"pair": [p["backend"] for p in pair], "single": single["backend"]}
+    if rec["backends"] != {"pair": ["gloo", "gloo"], "single": "nccl"}:
+        fail(f"phase 18's backends: {rec['backends']}")
+
+    # One process on the same bundles, the same sequences.
+    hops = serving_hops(N_SERVE)["pcm16"]
+    dense = load_model(tmp / "cont.npz", dev)
+
+    def cont(bundle, n):
+        return ContinuousKWS(bundle.reservoir, bundle.readout, bundle.scaler, bundle.frontend,
+                             bundle.feature_set, n_streams=n, chunk_len=CHUNK)
+
+    ref_rec, ref = serve_sequence(cont(dense, N_SERVE), hops, out / "one_state.npz", lambda: None)
+    fresh = cont(dense, N_SERVE)
+    load_serving_state(out / "serve_pair_state.npz", fresh)
+    from_ranks = np.stack([fresh.step(h) for h in hops[3:5]])
+    del fresh
+    ex_rec, ex_ref = serve_exact(StreamingKWS(dense.reservoir, dense.readout, dense.scaler,
+                                              dense.frontend, dense.feature_set,
+                                              n_streams=N_RANKS_EXACT), hops)
+    sparse = load_model(tmp / "sparse.npz", dev)
+    sp_rec, sp_ref = serve_sparse(cont(sparse, N_RANKS_SPARSE), hops)
+    del sparse
+
+    c = [p["continuous"] for p in pair]
+    cont_rec = {
+        "state_bit_equal": all(p["state_sha"] == ref_rec["state_sha"] for p in c),
+        "features_bit_equal": all(p["features_sha"] == ref_rec["features_sha"] for p in c),
+        "logits": {k: logits_rule(got[f"cont_{k}"], ref[k])
+                   for k in ("logits", "active", "after_reset", "continued")},
+        "active_equals_silence": [p["active_equals_silence"] for p in c],
+        "ranks_reload_bit_equal": bool(np.array_equal(got["cont_reloaded"],
+                                                      got["cont_continued"])),
+        "one_process_load_bit_equal": bool(np.array_equal(from_ranks, ref["continued"])),
+        "launches": [p["launches"] for p in c],
+        "hop_wall_ms_median": [statistics.median(p["hop_walls_s"]) * 1e3 for p in c],
+        "hop_wall_ms_min": [min(p["hop_walls_s"]) * 1e3 for p in c],
+        "one_process_hop_wall_ms_median": statistics.median(ref_rec["hop_walls_s"]) * 1e3,
+        "one_process_hop_wall_ms_min": min(ref_rec["hop_walls_s"]) * 1e3,
+        "phase7_hop_wall_ms_median": phase7["hop_wall_ms_median"],
+        "phase7_hop_wall_ms_min": phase7["hop_wall_ms_min"]}
+    rec["continuous"] = cont_rec
+    print(f"[serving ranks] ContinuousKWS N={dense.reservoir.n_neurons}, {N_SERVE} streams on "
+          f"two gloo ranks sharing the card, int16 wire: state leaves bit-equal to one process "
+          f"{cont_rec['state_bit_equal']}, features {cont_rec['features_bit_equal']}; logits "
+          + ", ".join(f"{k} bit-equal {v['bit_equal']} (max |d| {v['max_abs_err']:.2e}, "
+                      f"{v['max_row_rel_err']:.2e} of the row's largest, argmax equal "
+                      f"{v['argmax_equal']})" for k, v in cont_rec["logits"].items())
+          + f"; step_active 25 % = step with silence {cont_rec['active_equals_silence']}; the "
+          f"ranks' state file: reloaded by the ranks bit-equal "
+          f"{cont_rec['ranks_reload_bit_equal']}, by one process "
+          f"{cont_rec['one_process_load_bit_equal']} ({card})")
+    print(f"[serving ranks] hop wall (median / min of 10): rank 0 "
+          f"{cont_rec['hop_wall_ms_median'][0]:.3f} / {cont_rec['hop_wall_ms_min'][0]:.3f} ms, "
+          f"rank 1 {cont_rec['hop_wall_ms_median'][1]:.3f} / {cont_rec['hop_wall_ms_min'][1]:.3f}"
+          f" ms; one process in this phase {cont_rec['one_process_hop_wall_ms_median']:.3f} / "
+          f"{cont_rec['one_process_hop_wall_ms_min']:.3f} ms; phase 7 "
+          f"{phase7['hop_wall_ms_median']:.3f} / {phase7['hop_wall_ms_min']:.3f} ms; launches "
+          f"rank 0 {c[0]['launches']}, rank 1 {c[1]['launches']} ({card})")
+    if not (cont_rec["state_bit_equal"] and cont_rec["features_bit_equal"]
+            and all(v["ok"] for v in cont_rec["logits"].values())
+            and all(cont_rec["active_equals_silence"]) and cont_rec["ranks_reload_bit_equal"]
+            and cont_rec["one_process_load_bit_equal"]):
+        fail(f"the continuous engine over two ranks: {cont_rec}")
+    if not all(e["B3"] > 0 and e["B4"] > 0 and on_cluster_body(e) for e in cont_rec["launches"]):
+        fail(f"B3 and B4 on the cluster body were not launched in each rank: "
+             f"{cont_rec['launches']}")
+
+    ex = [p["exact"] for p in pair]
+    rec["exact"] = {"logits": logits_rule(got["exact_logits"], ex_ref["logits"]),
+                    "launches": [p["launches"] for p in ex], "one_process": ex_rec["launches"]}
+    sp = [p["sparse"] for p in pair]
+    spikes = sp[0]["spikes"]
+    rec["sparse"] = {"state_bit_equal": all(p["state_sha"] == sp_rec["state_sha"] for p in sp),
+                     "logits": logits_rule(got["sparse_logits"], sp_ref["logits"]),
+                     "spikes": spikes, "one_process_spikes": sp_rec["spikes"],
+                     "spike_rel": abs(spikes - sp_rec["spikes"]) / max(sp_rec["spikes"], 1.0),
+                     "launches": [p["launches"] for p in sp]}
+    e, q = rec["exact"], rec["sparse"]
+    print(f"[serving ranks] exact engine, {N_RANKS_EXACT} streams on two ranks: logits bit-equal "
+          f"{e['logits']['bit_equal']} (max |d| {e['logits']['max_abs_err']:.2e}), launches rank 0 "
+          f"B1 {e['launches'][0]['B1']} B2 {e['launches'][0]['B2']}, rank 1 B1 "
+          f"{e['launches'][1]['B1']} B2 {e['launches'][1]['B2']}; sparse continuous N="
+          f"{N_10K}, {N_RANKS_SPARSE} streams: state bit-equal {q['state_bit_equal']}, spikes "
+          f"{q['spikes']:.0f} vs one process {q['one_process_spikes']:.0f} (rel "
+          f"{q['spike_rel']:.2e}), logits bit-equal {q['logits']['bit_equal']}, B6 rank 0 "
+          f"{q['launches'][0]['B6']} rank 1 {q['launches'][1]['B6']} ({card})")
+    if not (e["logits"]["ok"] and all(x["B1"] == 3 and x["B2"] == 3 and on_cluster_body(x)
+                                      for x in e["launches"])):
+        fail(f"the exact engine over two ranks: {e}")
+    if q["spike_rel"] > SPIKE_REL or not all(x["B6"] > 0 for x in q["launches"]):
+        fail(f"the sparse continuous engine over two ranks: {q}")
+
+    s = single["continuous"]
+    rec["single"] = {"state_bit_equal": s["state_sha"] == ref_rec["state_sha"],
+                     "features_bit_equal": s["features_sha"] == ref_rec["features_sha"],
+                     "logits_bit_equal": all(np.array_equal(one[f"cont_{k}"], ref[k])
+                                             for k in ref),
+                     "hop_wall_ms_median": statistics.median(s["hop_walls_s"]) * 1e3,
+                     "hop_wall_ms_min": min(s["hop_walls_s"]) * 1e3, "launches": s["launches"]}
+    print(f"[serving ranks] one NCCL rank, 1x1 mesh: state, features and every logit "
+          f"bit-equal to one process {rec['single']['state_bit_equal']}, "
+          f"{rec['single']['features_bit_equal']}, {rec['single']['logits_bit_equal']}; hop "
+          f"wall {rec['single']['hop_wall_ms_median']:.3f} / {rec['single']['hop_wall_ms_min']:.3f}"
+          f" ms ({card})")
+    if not (rec["single"]["state_bit_equal"] and rec["single"]["features_bit_equal"]
+            and rec["single"]["logits_bit_equal"]):
+        fail(f"the 1x1 NCCL mesh engine differs from one process: {rec['single']}")
+
+    # The serving entry point as two processes, --pool over 1024 slots.
+    cli = [sys.executable, "-m", "lsm_tpu_torch.cli.stream_kws", "--model", str(tmp / "m.npz"),
+           "--data-dir", str(tmp / "corpus"), "--wire", "pcm16", "--pool", "--max-streams",
+           str(N_SERVE), "--output", str(out / "pool2.npz")]
+    rec["pool_process_s"], logs = timed(lambda: _launch_ranks(cli, 2, tmp, 400, card))
+    st, po = np.load(tmp / "static.npz"), np.load(out / "pool2.npz")
+    by_file = dict(zip(st["files"], st["predictions"]))
+    rec["pool"] = {
+        "equals_static": bool(len(po["files"]) == len(st["files"]) and all(
+            by_file[f] == p for f, p in zip(po["files"], po["predictions"]))),
+        "mesh_x2": "mesh x2" in logs[0],
+        "rank1_silent": "Final predictions" not in logs[1] and "Served" not in logs[1],
+        "served": _served(logs[0])}
+    print(f"[serving ranks] cli.stream_kws --pool --max-streams {N_SERVE} on two processes, "
+          f"{len(po['files'])} WAVs: predictions = phase 12's static run "
+          f"{rec['pool']['equals_static']}, mesh x2 {rec['pool']['mesh_x2']}, rank 1 printed "
+          f"nothing {rec['pool']['rank1_silent']}; {rec['pool']['served'].get('served_line')} "
+          f"({rec['pool_process_s']:.1f} s) ({card})")
+    if not all(rec["pool"][k] for k in ("equals_static", "mesh_x2", "rank1_silent")):
+        fail(f"the pool over two processes: {rec['pool']}")
+    rec["tools"] = measurement_tools(card, tmp)
+    return rec
+
+
+# Each measurement tool once at a small size (its JSON line is its result):
+# (name, arguments, ranks).
+TOOL_RUNS = (
+    ("bench_streaming", ["--pcm16", "--streams", "1", "1024", "--steps", "5"], 1),
+    ("bench_streaming", ["--continuous", "--pcm16", "--mesh", "--streams", "1024",
+                         "--steps", "5"], 2),
+    ("bench_continuous", ["--n-per-class", "5", "--bench-streams", "1024", "--steps", "3"], 1),
+    ("bench_state", ["--streams", "256", "--reps", "1"], 1),
+    ("bench_tp", ["--sparse", "--num-neurons", str(N_10K), "--batch", "16", "--t", "100",
+                  "--repeats", "1"], 2),
+    ("profile_stages", ["--n", "1024", "--continuous", "--repeats", "2"], 1),
+)
+
+
+def measurement_tools(card, tmp: Path) -> dict:
+    """`python -m lsm_tpu_torch.tools.<name>` for each of TOOL_RUNS as
+    subprocesses on the card (the ranks through the env contract): each
+    must exit 0 and end in its JSON line."""
+    rec = {}
+    for name, args, ranks in TOOL_RUNS:
+        argv = [sys.executable, "-m", f"lsm_tpu_torch.tools.{name}", *args]
+        seconds, outs = timed(lambda: _launch_ranks(argv, ranks, tmp, 400, card))
+        # Rank 0's stdout and stderr come merged: its last JSON object line
+        # (a process group's exit may log after it).
+        lines = [ln for ln in outs[0].splitlines() if ln.startswith("{")]
+        try:
+            got = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            print(outs[0][-3000:])
+            fail(f"{name} {' '.join(args)} printed no JSON line ({card})")
+        got["process_s"] = seconds
+        rec[f"{name} {' '.join(args)}"] = got
+        print(f"[tools] {name} {' '.join(args)} on {ranks} rank(s): {seconds:.1f} s; "
+              + json.dumps({k: v for k, v in got.items() if k != "tool"})[:1500])
+    return rec
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--distributed-worker":
-        distributed_worker(sys.argv[2], Path(sys.argv[3]))
+        worker = serving_worker if sys.argv[2].startswith("serve") else distributed_worker
+        worker(sys.argv[2], Path(sys.argv[3]))
     else:
         main()

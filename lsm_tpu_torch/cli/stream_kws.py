@@ -16,8 +16,15 @@ Every WAV becomes one stream; audio is fed in fixed chunks (default
 --pool serves every WAV as a session of a StreamPool (models/pool.py) with
 --max-streams slots; --save-state / --restore-state write and read
 serving-state files (io/serving_state.py) that lsm_tpu reads and writes
-too. --metrics-out appends stream_kws.py's metric records; the port runs
-on one device, which --single-device asks for.
+too. --metrics-out appends stream_kws.py's metric records.
+
+Launched as several processes (parallel/mesh.py's env contract:
+LSM_TPU_COORDINATOR, LSM_TPU_NUM_PROCESSES and LSM_TPU_PROCESS_ID on
+each), the engine serves over the ranks: every rank loads the same WAVs
+and feeds its own stream rows, the static batch is padded to a multiple of
+the ranks (the pool's slot count rounded up to one), and rank 0 alone
+prints, writes the metric records, --output and --save-state.
+--single-device serves on each process's own device instead.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ def _to_wire(chunk: np.ndarray, wire: str) -> np.ndarray:
     return chunk
 
 
-def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, checkpoint):
+def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, checkpoint,
+                pid0: bool):
     """Session-churn serving over a StreamPool: WAV i is session i,
     admitted first come first served when a slot frees, fed its own chunks,
     finished (slot recycled) after its last one. Audio decodes at admit
@@ -60,7 +68,8 @@ def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, ch
     (preds, margins, checkpointed on the final hop, served mask), one
     decision per served session — in exact mode equal to the static
     one-slot-per-file run's, since a slot's state depends only on its own
-    session's audio after the admit reset."""
+    session's audio after the admit reset. Over a mesh every rank runs the
+    same loop on the same files; rank 0 (`pid0`) prints."""
     from lsm_tpu_torch.io.wav import load_audio_batch
 
     n_sessions = len(files)
@@ -84,7 +93,7 @@ def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, ch
             served[sid] = True
             pool.admit(sid)
             active[sid] = 0
-            if args.per_chunk:
+            if args.per_chunk and pid0:
                 print(f"  hop {hop + 1:4d}: admit session {sid} -> slot {pool.slot_of(sid)}")
         sids = sorted(active)
         if not sids:
@@ -109,14 +118,15 @@ def _serve_pool(args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, ch
                 pool.finish(s)
                 del active[s]
                 del cache[s]
-                if args.per_chunk:
+                if args.per_chunk and pid0:
                     print(f"  hop {hop:4d}: finish session {s} -> {names[preds[s]]}")
         if args.save_state_every and hop % args.save_state_every == 0:
             checkpoint()
             ckpt_hop = hop
         if args.diagnostics_every and pool.n_active and hop % args.diagnostics_every == 0:
-            rep, _ = pool.diagnostics()
-            print(rep.render())
+            rep, _ = pool.diagnostics()         # a collective: every rank
+            if pid0:
+                print(rep.render())
             if metrics:
                 # The static path's record (chunk=): one schema for both modes.
                 metrics.emit("serving_participation_pct", round(rep.avg_participation, 2),
@@ -195,20 +205,20 @@ def main(argv=None) -> None:
         print("Error: --max-streams must be >= 1.", file=sys.stderr)
         sys.exit(1)
     setup_logging()
-    import torch.distributed as dist
-
-    if dist.is_initialized() and dist.get_world_size() > 1 and not args.single_device:
-        print("Error: serving over several processes (the engines' mesh path) is not "
-              "ported yet; launch one process, or pass --single-device to serve on each "
-              "process's own device.", file=sys.stderr)
-        sys.exit(2)
 
     from lsm_tpu_torch.device import resolve_device
     from lsm_tpu_torch.io.model import load_model
     from lsm_tpu_torch.io.serving_state import load_serving_state, save_serving_state
     from lsm_tpu_torch.io.wav import load_audio_batch
+    from lsm_tpu_torch.parallel import mesh as meshlib
 
     device = resolve_device(args.device)
+    mesh = None if args.single_device else meshlib.auto_mesh(device=device)
+    if mesh is not None:
+        device = mesh.device
+    # Rank 0 owns every informational print, the metric records and the
+    # files; errors fail loudly on every rank.
+    pid0 = meshlib.is_primary()
     try:
         bundle = load_model(Path(args.model), device)
     except (FileNotFoundError, ValueError) as e:
@@ -245,21 +255,28 @@ def main(argv=None) -> None:
         audio = None
         n_real = len(files)          # sessions
         n_streams = args.max_streams  # engine width = slot capacity
+        if mesh is not None:
+            n_data = mesh.shape[meshlib.DATA_AXIS]
+            n_streams = -(-n_streams // n_data) * n_data
     else:
         audio, kept, errors = load_audio_batch(files, fcfg.sample_rate, fcfg.duration)
         for path, err in errors:
             print(f"Error loading {path}: {err}", file=sys.stderr)
         files = [files[i] for i in kept]
-        n_streams = n_real = audio.shape[0]
+        n_real = audio.shape[0]
+        if mesh is not None:
+            audio, n_real = meshlib.pad_to_multiple(audio, mesh.shape[meshlib.DATA_AXIS])
+        n_streams = audio.shape[0]
 
     chunk_len = fcfg.sample_rate * args.chunk_ms // 1000
     if mode == "continuous":
         # The calibration's distribution-shaping knobs ride in the bundle
         # and override the CLI.
         cp = bundle.continuous_params or {}
-        if cp.get("chunk_len") and cp["chunk_len"] != chunk_len:
+        if cp.get("chunk_len") and cp["chunk_len"] != chunk_len and pid0:
             print(f"note: using the bundle's calibrated chunk length "
                   f"({cp['chunk_len']} samples) instead of --chunk-ms.")
+        if cp.get("chunk_len"):
             chunk_len = int(cp["chunk_len"])
     window = int(fcfg.sample_rate * fcfg.duration)
     n_chunks = window // chunk_len
@@ -268,7 +285,7 @@ def main(argv=None) -> None:
               f"{window}-sample analysis window.", file=sys.stderr)
         sys.exit(1)
     dropped = window - n_chunks * chunk_len
-    if dropped:
+    if dropped and pid0:
         print(f"note: chunk length {chunk_len} does not divide the "
               f"{window}-sample window — the last {dropped} samples "
               "of every file are not served (pick a dividing --chunk-ms to "
@@ -282,28 +299,34 @@ def main(argv=None) -> None:
             n_streams=n_streams, chunk_len=chunk_len,
             norm_decay_db_per_bin=float(
                 (bundle.continuous_params or {}).get("norm_decay_db_per_bin", 0.1)),
+            mesh=mesh,
         )
     else:
         from lsm_tpu_torch.models.streaming import StreamingKWS
 
         kws = StreamingKWS(bundle.reservoir, bundle.readout, bundle.scaler, fcfg,
-                           bundle.feature_set, n_streams=n_streams)
+                           bundle.feature_set, n_streams=n_streams, mesh=mesh)
 
     names = list(bundle.class_names)
     served_ms = 1000 * chunk_len // fcfg.sample_rate
-    if args.pool:
+    on_mesh = f", mesh x{mesh.shape[meshlib.DATA_AXIS]}" if mesh is not None else ""
+    if pid0 and args.pool:
         print(f"Serving {n_real} sessions over {n_streams} pool slots "
-              f"in {mode} mode ({served_ms} ms chunks, {n_chunks} chunks per session)")
-    else:
+              f"in {mode} mode ({served_ms} ms chunks, {n_chunks} chunks per session{on_mesh})")
+    elif pid0:
         print(f"Serving {n_real} streams in {mode} mode "
-              f"({served_ms} ms chunks, {n_chunks} chunks)")
+              f"({served_ms} ms chunks, {n_chunks} chunks{on_mesh})")
     if args.restore_state:
         try:
             load_serving_state(Path(args.restore_state), kws)
         except (FileNotFoundError, ValueError) as e:
             print(f"Error restoring state: {e}", file=sys.stderr)
             sys.exit(1)
-        print(f"Stream state restored from '{args.restore_state}'")
+        if pid0:
+            print(f"Stream state restored from '{args.restore_state}'")
+    # Every rank feeds the rows of its data coordinate (all of them on one
+    # device).
+    rows = kws.rows
     if mode == "continuous" and not args.restore_state and not args.pool:
         # Continuous mode is calibrated for always-on streams; a
         # file-per-stream run starts cold, so each stream is pre-rolled with
@@ -311,7 +334,7 @@ def main(argv=None) -> None:
         # trains on (a fixed-seed permutation: the file walk is
         # class-dir-major, and a roll would give most streams a same-class
         # predecessor).
-        preroll = audio[np.random.default_rng(12345).permutation(n_streams)]
+        preroll = audio[np.random.default_rng(12345).permutation(n_streams)][rows]
         for c in range(n_chunks):
             kws.step(_to_wire(preroll[:, c * chunk_len:(c + 1) * chunk_len], args.wire))
     pool = None
@@ -328,22 +351,23 @@ def main(argv=None) -> None:
         else:
             save_serving_state(Path(args.save_state), kws, compress=compress)
 
-    metrics = metrics_from_args(args)
+    metrics = metrics_from_args(args) if pid0 else None
     t_serve = time.perf_counter()
     preds = margins = None
     last_ckpt_chunk = -1
     if args.pool:
         preds, margins, ckpt_on_last, served = _serve_pool(
-            args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, _checkpoint)
+            args, pool, files, fcfg, chunk_len, n_chunks, names, metrics, _checkpoint, pid0)
         files = [f for f, ok in zip(files, served) if ok]
         preds = preds[served]
         margins = margins[served]
         n_real = len(files)
         last_ckpt_chunk = n_chunks - 1 if ckpt_on_last else -1
     for c in range(0 if args.pool else n_chunks):
-        wire_chunk = _to_wire(audio[:, c * chunk_len:(c + 1) * chunk_len], args.wire)
+        wire_chunk = _to_wire(audio[rows, c * chunk_len:(c + 1) * chunk_len], args.wire)
         if args.compact:
             preds, margins = kws.step_compact(wire_chunk)
+            preds, margins = preds[:n_real], margins[:n_real]
             if args.check_decisions and not (np.isfinite(margins).all() and (margins >= 0).all()):
                 raise SystemExit(
                     f"--check: non-finite or negative decision margin at "
@@ -351,7 +375,7 @@ def main(argv=None) -> None:
                     "NaN/Inf on this hop"
                 )
         else:
-            logits = kws.step(wire_chunk)
+            logits = kws.step(wire_chunk)[:n_real]
             if args.check_decisions and not np.isfinite(logits).all():
                 bad = int((~np.isfinite(logits)).any(axis=-1).sum())
                 raise SystemExit(
@@ -360,15 +384,18 @@ def main(argv=None) -> None:
                     "NaN/Inf on this hop"
                 )
             preds = np.argmax(logits, axis=-1)
-        if args.per_chunk:
+        if args.per_chunk and pid0:
             head = " ".join(names[q] for q in preds[:8])
             print(f"  chunk {c + 1:3d}/{n_chunks}: {head}{' ...' if n_real > 8 else ''}")
         if args.save_state_every and (c + 1) % args.save_state_every == 0:
             _checkpoint()
             last_ckpt_chunk = c
         if args.diagnostics_every and (c + 1) % args.diagnostics_every == 0:
+            # A collective on a mesh: every rank computes, rank 0 prints;
+            # the real streams only (padding rows are silence).
             rep = kws.diagnostics(stream_idx=np.arange(n_real))
-            print(rep.render())
+            if pid0:
+                print(rep.render())
             if metrics:
                 metrics.emit("serving_participation_pct", round(rep.avg_participation, 2),
                              regime=rep.regime, scope=rep.scope, chunk=c + 1)
@@ -377,16 +404,22 @@ def main(argv=None) -> None:
         metrics.emit("serving_stream_chunks_per_sec", round(n_chunks * n_real / wall, 2),
                      mode=mode, streams=n_real, chunks=n_chunks, chunk_ms=served_ms,
                      wire=args.wire, wall_s=round(wall, 3))
-    print(f"Served {n_real} {'sessions' if args.pool else 'streams'} x {n_chunks} chunks in "
-          f"{wall:.3f} s ({n_real * n_chunks / wall:.1f} stream-chunks/s, "
-          f"{n_real / wall:.1f} {'sessions' if args.pool else 'streams'}/s) on {device}")
+    if pid0:
+        print(f"Served {n_real} {'sessions' if args.pool else 'streams'} x {n_chunks} chunks "
+              f"in {wall:.3f} s ({n_real * n_chunks / wall:.1f} stream-chunks/s, "
+              f"{n_real / wall:.1f} {'sessions' if args.pool else 'streams'}/s) on {device}"
+              f"{on_mesh}")
 
     if args.save_state:
         # The state is unchanged since a periodic checkpoint on the last
         # chunk: skip the duplicate write.
         if last_ckpt_chunk != n_chunks - 1:
             _checkpoint()
-        print(f"Stream state snapshot -> '{args.save_state}'")
+        if pid0:
+            print(f"Stream state snapshot -> '{args.save_state}'")
+    if not pid0:
+        # Every rank holds the full predictions; rank 0 writes them.
+        return
 
     class_idx = {c: i for i, c in enumerate(names)}
     labels = np.asarray([class_idx.get(f.parent.name, -1) for f in files], np.int32)

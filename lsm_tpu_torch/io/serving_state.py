@@ -16,6 +16,12 @@ dispatch and a weights checksum — so a snapshot installs only into an
 engine that continues it bit-exactly; anything else raises ValueError.
 `migrate_streams` moves individual live streams between two such engines.
 
+A mesh engine (one process a device, models/streaming.py) saves and loads
+the same files: every rank takes the snapshot (a gather) and rank 0 alone
+writes; every rank reads the file and installs its own streams. A file
+written by several ranks loads into one process and the reverse, and
+migration runs between a mesh engine and a single-device one either way.
+
 The weights checksum (`_weights_crc`) is lsm_tpu's, bit for bit: CRC32
 over the text JAX gives the parameters' tree structure, then a digest of
 every weight leaf's values in lsm_tpu's leaf order. The port renders that
@@ -156,7 +162,20 @@ def write_snapshot(path: Path, kws, snap: dict, compress: bool = True,
     mid-checkpoint keeps the previous snapshot. `compress=False` writes the
     members stored, for periodic checkpoints of big engines, where zlib's
     time is the binding cost; the reader takes either. `extra_meta` rides
-    in the header untouched (StreamPool's session table)."""
+    in the header untouched (StreamPool's session table). For a mesh
+    engine every rank calls it with the same snapshot; rank 0 writes and
+    the others wait for it."""
+    if kws.mesh is not None:
+        from lsm_tpu_torch.parallel.mesh import barrier, is_primary
+
+        if is_primary():
+            _write(path, kws, snap, compress, extra_meta)
+        barrier(kws.mesh)
+        return
+    _write(path, kws, snap, compress, extra_meta)
+
+
+def _write(path: Path, kws, snap: dict, compress: bool, extra_meta: dict | None) -> None:
     arrays = {k.replace("seg:", "seg__"): v for k, v in snap.items()}
     meta = _engine_meta(kws)
     if extra_meta:
@@ -170,7 +189,8 @@ def write_snapshot(path: Path, kws, snap: dict, compress: bool = True,
 
 
 def save_serving_state(path: Path, kws, compress: bool = True) -> None:
-    """Snapshot `kws`'s cross-chunk stream state to `path` (.npz)."""
+    """Snapshot `kws`'s cross-chunk stream state to `path` (.npz). On a
+    mesh every rank calls it (the snapshot is a collective)."""
     write_snapshot(path, kws, kws.snapshot(), compress=compress)
 
 
@@ -204,7 +224,8 @@ def load_serving_state(path: Path, kws) -> dict:
     set, chunk geometry, normalization decay, gammatone dispatch,
     frontend or weights. After it returns, `kws` continues the saved
     streams bit-exactly. Returns the snapshot's meta dict (engine identity
-    plus extension rows such as StreamPool's session table)."""
+    plus extension rows such as StreamPool's session table). On a mesh
+    every rank calls it and installs its own streams."""
     meta = read_snapshot_meta(path)
     try:
         with np.load(Path(path), allow_pickle=False) as data:
@@ -255,7 +276,8 @@ def migrate_streams(src, dst, src_idx, dst_idx) -> None:
     load_serving_state validates. Source slots keep their state; call
     src.reset(src_idx) afterwards to recycle them. Only the moved rows
     travel (extract_streams gathers them on the source's device,
-    install_streams scatters them on the destination's)."""
+    install_streams scatters them on the destination's). Either engine may
+    be a mesh engine: then every rank calls it with the same indices."""
     a, b = _engine_meta(src), _engine_meta(dst)
     for key, label in (
         ("engine", "engine mode"),

@@ -1,6 +1,6 @@
 """Continuous-mode streaming KWS with state carried across hops
-(port of lsm_tpu/models/continuous.py, both frontends, one device, dense
-or block-sparse reservoir).
+(port of lsm_tpu/models/continuous.py, both frontends, dense or
+block-sparse reservoir, one device or the ranks of a mesh).
 
 Every piece of sequential state persists across chunk boundaries, so a hop
 of `chunk_len` samples costs only the new work:
@@ -28,14 +28,17 @@ The serving surface is lsm_tpu's: step, step_compact, step_active,
 stream, steps_fused, reset, snapshot / restore and extract_streams /
 install_streams (the unit io/serving_state.py saves and migrates).
 
-Not ported yet: the mesh paths (ROADMAP A14).
+With `mesh=`, every state leaf holds this rank's streams along its stream
+axis (`serving_state.stream_axis`) and the rank's kernels run on them;
+outputs, snapshots and extracted rows are gathered to all n_streams on
+every rank (models/streaming.py's module docstring has the contract).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -45,14 +48,15 @@ from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.diagnostics import ServingDiagnosticsReport, serving_report
 from lsm_tpu_torch.models.sparse import SparseReservoir
 from lsm_tpu_torch.models.streaming import (
-    compact_output_device, decode_pcm_device, expand_active_rows, np_dtype, place_chunk,
-    prepare_active_rows, stream_pipelined, swap_readout_on, unpack_compact_output,
-    validate_stream_idx,
+    bind_mesh, compact_output_device, decode_pcm_device, expand_active_rows, extract_rows,
+    gather_streams, install_rows, local_slice, np_dtype, place_chunk, prepare_active_rows,
+    stream_pipelined, swap_readout_on, unpack_compact_output, validate_stream_idx,
 )
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import mel, stft
 from lsm_tpu_torch.ops.hysteresis import hysteresis_encode_step
 from lsm_tpu_torch.ops.kernels.lif import SEG_KEYS
+from lsm_tpu_torch.parallel.mesh import Mesh
 from lsm_tpu_torch.readout import logistic, scaler
 
 _LOG10 = 2.302585092994046
@@ -97,7 +101,9 @@ class ContinuousKWS:
     is the causal normalization's peak/floor decay. The first ~1 s of a
     cold stream is warm-up: bins before its first loud event normalize
     against a noise-level peak, so readouts are calibrated in the
-    carried-state condition (`fit_continuous_readout`).
+    carried-state condition (`fit_continuous_readout`). With `mesh=`, the
+    state holds this rank's streams and chunks carry them (module
+    docstring).
     """
 
     def __init__(
@@ -110,6 +116,7 @@ class ContinuousKWS:
         n_streams: int = 1,
         chunk_len: int = 1600,
         norm_decay_db_per_bin: float = 0.1,
+        mesh: Optional[Mesh] = None,
     ):
         if fcfg.filterbank not in ("gammatone", "mel"):
             raise ValueError(f"unknown filterbank {fcfg.filterbank!r}")
@@ -196,6 +203,8 @@ class ContinuousKWS:
         self.fcfg = fcfg
         self.keys = tuple(FEATURE_SETS[feature_set])
         self.n_streams = int(n_streams)
+        bind_mesh(self, mesh, "n_streams={n_streams} must be divisible by the mesh data "
+                              "axis ({n_data})")
         self.chunk_len = int(chunk_len)
         self._decay = float(norm_decay_db_per_bin)
         self._g, self._nwin, self._n_cols = g, nwin, n_cols
@@ -217,7 +226,7 @@ class ContinuousKWS:
         self._n_new_win = t_c // win_len
         # (n_cols, 1): bin j of a chunk ages the carried peak/floor by j + 1.
         self._jj = torch.arange(n_cols, dtype=torch.float32, device=self.device)[:, None]
-        self.state = self._init_state(self.n_streams)
+        self.state = self._init_state(self.n_local)
 
     # ---- the step, in three stages -----------------------------------
 
@@ -343,15 +352,15 @@ class ContinuousKWS:
         """Ingest one (n_streams, chunk_len) chunk (float samples in
         [-1, 1], int16 PCM or uint8 mu-law, host array or device tensor)
         and return the (n_streams, n_classes) logits on the host."""
-        return self._step_device(self._place_chunk(chunk)).cpu().numpy()
+        return gather_streams(self, self._step_device(self._place_chunk(chunk))).cpu().numpy()
 
     def step_compact(self, chunk):
         """step() with the compact decision output
         (streaming.compact_output_device): (preds int32 (B,), margin f32
         (B,)), 4 bytes a stream off the device; the same state advance as
         step(), preds equal to step(chunk).argmax(-1)."""
-        return unpack_compact_output(
-            compact_output_device(self._step_device(self._place_chunk(chunk))))
+        return unpack_compact_output(gather_streams(
+            self, compact_output_device(self._step_device(self._place_chunk(chunk)))))
 
     def step_active(self, rows, active_idx, compact: bool = False):
         """step() with only the active streams' audio on the wire: `rows`
@@ -360,13 +369,13 @@ class ContinuousKWS:
         the device (streaming.wire_silence), so the logits and every
         stream's carried state are bit-equal to step() on the full chunk
         with silence in the inactive rows. compact=True returns (preds,
-        margin) as step_compact does."""
-        rows_d, idx_d = prepare_active_rows(rows, active_idx, self.n_streams, self.device,
-                                            chunk_len=self.chunk_len)
-        out = self._step_device(expand_active_rows(rows_d, idx_d, self.n_streams))
+        margin) as step_compact does. On a mesh every rank passes the same
+        global rows and slots."""
+        rows_d, idx_d = prepare_active_rows(self, rows, active_idx, chunk_len=self.chunk_len)
+        out = self._step_device(expand_active_rows(rows_d, idx_d, self.n_local))
         if compact:
-            return unpack_compact_output(compact_output_device(out))
-        return out.cpu().numpy()
+            return unpack_compact_output(gather_streams(self, compact_output_device(out)))
+        return gather_streams(self, out).cpu().numpy()
 
     def stream(self, chunks, depth: int = 2):
         """Pipelined serving loop: yields per-chunk logits, bit-equal to
@@ -380,7 +389,7 @@ class ContinuousKWS:
         dev = self._place_chunk(chunk)
         for _ in range(int(k)):
             out = self._step_device(dev)
-        return float(torch.sum(out, dtype=torch.float32))
+        return float(torch.sum(gather_streams(self, out), dtype=torch.float32))
 
     def predict(self, chunk) -> np.ndarray:
         return np.argmax(self.step(chunk), axis=-1)
@@ -388,17 +397,20 @@ class ContinuousKWS:
     def features(self) -> np.ndarray:
         """Raw (unscaled) window features of the current trailing window,
         the vector the last step() pushed through the readout:
-        (B, len(keys) * n_outputs)."""
-        return self._window_features(self.state.segs, self.state.win_ring).cpu().numpy()
+        (n_streams, len(keys) * n_outputs)."""
+        return gather_streams(
+            self, self._window_features(self.state.segs, self.state.win_ring)).cpu().numpy()
 
     def diagnostics(self, stream_idx=None) -> ServingDiagnosticsReport:
         """Reservoir health on live traffic from the output neurons' window
         spike counts the segment ring already carries; `stream_idx`
-        selects the streams the verdict averages over (None = all)."""
+        selects the streams the verdict averages over (None = all). On a
+        mesh a collective that gives every rank the same report."""
         counts = torch.sum(self.state.segs["counts"], dim=0)          # (B, no)
         active = torch.sum(counts > 0, dim=1).to(torch.int32)
         total = torch.sum(counts, dim=1)
-        return serving_report(active.cpu().numpy(), total.cpu().numpy(),
+        return serving_report(gather_streams(self, active).cpu().numpy(),
+                              gather_streams(self, total).cpu().numpy(),
                               self.reservoir.n_outputs, "output", stream_idx)
 
     def swap_readout(self, readout, scaler_state=None) -> None:
@@ -408,11 +420,12 @@ class ContinuousKWS:
 
     def reset(self, stream_idx=None) -> None:
         """Re-initialize stream state: all streams (None), or the slots
-        named by an int, a sequence of ints or a (n_streams,) bool mask;
-        every leaf of just those slots returns to its fresh value and the
-        other streams are untouched."""
+        named by an int, a sequence of ints or a (n_streams,) bool mask
+        (global; each rank resets the slots it holds); every leaf of just
+        those slots returns to its fresh value and the other streams are
+        untouched."""
         if stream_idx is None:
-            self.state = self._init_state(self.n_streams)
+            self.state = self._init_state(self.n_local)
             return
         idx = np.asarray(stream_idx)
         if idx.dtype == np.bool_:
@@ -424,7 +437,7 @@ class ContinuousKWS:
         else:
             mask = np.zeros((self.n_streams,), np.bool_)
             mask[idx] = True
-        m = torch.as_tensor(mask, device=self.device)
+        m = torch.as_tensor(mask[self.rows], device=self.device)
 
         def sel(cur, init_val, axis):
             shape = [1] * cur.dim()
@@ -455,16 +468,23 @@ class ContinuousKWS:
 
     def snapshot(self) -> Dict[str, np.ndarray]:
         """Host copy of every state leaf (lsm_tpu's leaves, shapes, dtypes
-        and axes). Restoring it into a fresh engine with the same weights
-        continues every stream bit-exactly, warm-up included
-        (io/serving_state.py is the file format and its validation)."""
-        return {k: v.to("cpu", copy=True).numpy() for k, v in self._state_leaves().items()}
+        and axes), all n_streams on every rank (a collective on a mesh).
+        Restoring it into a fresh engine with the same weights continues
+        every stream bit-exactly, warm-up included (io/serving_state.py is
+        the file format and its validation)."""
+        from lsm_tpu_torch.io.serving_state import stream_axis
+
+        return {k: gather_streams(self, v, stream_axis(k)).to("cpu", copy=True).numpy()
+                for k, v in self._state_leaves().items()}
 
     def restore(self, snap: dict) -> None:
-        """Inverse of snapshot(): install a saved state. Every leaf is
-        checked against this engine's geometry first, so a snapshot taken
-        with another stream count, frontend, reservoir or chunking fails
-        loudly and leaves the state as it was."""
+        """Inverse of snapshot(): install a saved state (full arrays, the
+        same on every rank; each takes its streams). Every leaf is checked
+        against this engine's geometry first, so a snapshot taken with
+        another stream count, frontend, reservoir or chunking fails loudly
+        and leaves the state as it was."""
+        from lsm_tpu_torch.io.serving_state import stream_axis
+
         extra = {k for k in snap if k.startswith("seg:") and k[4:] not in SEG_KEYS}
         if extra:
             raise ValueError(
@@ -479,7 +499,9 @@ class ContinuousKWS:
                     "ContinuousKWS snapshot, or one from an incompatible build"
                 )
             a = np.asarray(snap[key])
-            want = (tuple(ref.shape), np_dtype(ref))
+            ax = stream_axis(key)
+            shape = tuple(self.n_streams if d == ax else n for d, n in enumerate(ref.shape))
+            want = (shape, np_dtype(ref))
             if (a.shape, a.dtype) != want:
                 raise ValueError(
                     f"snapshot leaf {key!r} is {a.dtype}{a.shape}; this "
@@ -487,25 +509,25 @@ class ContinuousKWS:
                     "taken with a different stream count, frontend, "
                     "reservoir, or chunk geometry"
                 )
-            new[key] = torch.tensor(a, device=self.device)
+            new[key] = torch.tensor(local_slice(a, self.rows, ax), device=self.device)
         self.state = self._from_leaves(new)
 
     def extract_streams(self, stream_idx) -> Dict[str, np.ndarray]:
         """snapshot() restricted to the named stream slots: each leaf's
         rows are gathered on the device, so only they leave it. The unit
-        serving_state.migrate_streams moves."""
+        serving_state.migrate_streams moves; on a mesh a collective."""
         from lsm_tpu_torch.io.serving_state import stream_axis
 
         idx = validate_stream_idx(stream_idx, self.n_streams, "extract_streams")
-        idx_t = torch.as_tensor(idx.astype(np.int64)).to(self.device)
-        return {k: v.index_select(stream_axis(k), idx_t).cpu().numpy()
-                for k, v in self._state_leaves().items()}
+        return extract_rows(self, {k: (v, stream_axis(k)) for k, v in self._state_leaves().items()},
+                            idx.astype(np.int64))
 
     def install_streams(self, stream_idx, rows: dict) -> None:
         """Inverse of extract_streams: scatter donor stream state into the
         named slots (other slots untouched). `rows` carries one row per
         index along each leaf's stream axis, the leaves and dtypes of
-        extract_streams; all are checked before any state changes."""
+        extract_streams; all are checked before any state changes. Each
+        rank writes the slots it holds."""
         from lsm_tpu_torch.io.serving_state import stream_axis
 
         idx = validate_stream_idx(stream_idx, self.n_streams, "install_streams", unique=True)
@@ -524,10 +546,10 @@ class ContinuousKWS:
                     f"needs {np_dtype(leaf)}{want} — the donor engine "
                     "has a different geometry"
                 )
-            clean[k] = torch.tensor(r, device=self.device)
-        idx_t = torch.as_tensor(idx.astype(np.int64)).to(self.device)
-        self.state = self._from_leaves(
-            {k: leaf.index_copy(stream_axis(k), idx_t, clean[k]) for k, leaf in ref.items()})
+            clean[k] = r
+        self.state = self._from_leaves(install_rows(
+            self, {k: (leaf, stream_axis(k)) for k, leaf in ref.items()}, idx.astype(np.int64),
+            clean))
 
     def _init_state(self, B: int) -> ContinuousState:
         C = self.fcfg.n_filters
@@ -564,6 +586,7 @@ def fit_continuous_readout(
     feature_set: str = "original",
     chunk_len: int = 1600,
     norm_decay_db_per_bin: float = 0.1,
+    mesh: Optional[Mesh] = None,
     l2_c: float = 1.0,
     max_iter: int = 1000,
     tol: float = 1e-4,
@@ -572,8 +595,10 @@ def fit_continuous_readout(
     in the carried-state condition: every utterance streams after another
     one (a fixed-seed permutation, rng 12345, not a roll: corpora are often
     class-blocked), with no reset, and the window features are read at its
-    last chunk, on the reservoir's device. Returns (LogisticReadout,
-    Scaler) for ContinuousKWS."""
+    last chunk, on the reservoir's device. With `mesh=` the utterances
+    stream through the mesh engine (N must divide over the data axis),
+    each rank feeding its rows, and every rank fits on the gathered
+    features. Returns (LogisticReadout, Scaler) for ContinuousKWS."""
     n = audio.shape[0]
     n_chunks = fcfg.num_samples // chunk_len
     d = len(FEATURE_SETS[feature_set]) * reservoir.n_outputs
@@ -582,13 +607,13 @@ def fit_continuous_readout(
         logistic.LogisticReadout(torch.zeros(d, num_classes), torch.zeros(num_classes)),
         scaler.Scaler(torch.zeros(d), torch.ones(d)),
         fcfg, feature_set, n_streams=n, chunk_len=chunk_len,
-        norm_decay_db_per_bin=norm_decay_db_per_bin,
+        norm_decay_db_per_bin=norm_decay_db_per_bin, mesh=mesh,
     )
     prev = audio[np.random.default_rng(12345).permutation(n)]
-    for src in (prev, audio):
+    for src in (prev[kws.rows], audio[kws.rows]):
         for c in range(n_chunks):
             kws._step_device(kws._place_chunk(src[:, c * chunk_len:(c + 1) * chunk_len]))
-    feats = kws._window_features(kws.state.segs, kws.state.win_ring)
+    feats = gather_streams(kws, kws._window_features(kws.state.segs, kws.state.win_ring))
     st = scaler.fit_scaler(feats)
     readout, _ = logistic.fit_logistic(
         scaler.transform(st, feats),

@@ -1,5 +1,5 @@
 """Stream-slot pool: the session layer for always-on serving (port of
-lsm_tpu/models/pool.py, one device).
+lsm_tpu/models/pool.py).
 
 The engines (StreamingKWS, ContinuousKWS) are fixed-width programs over
 `n_streams` slots; a deployment's sessions come and go. The pool composes
@@ -8,6 +8,13 @@ what the engines already offer — per-slot reset, partial-activity stepping
 the compact decision egress) and row-level migration
 (`serving_state.migrate_streams`) — into the admit/step/finish lifecycle a
 server runs. Every path is bit-equal to driving the engine directly.
+
+Over a mesh engine every rank makes the same calls with the same
+arguments: the slot table is host state and stays identical on every
+rank, since the admit/step/finish sequence is the same everywhere; the
+engine calls underneath (step_active on global rows, reset, diagnostics,
+snapshot, migration) are the engine's collectives, and save() writes on
+rank 0.
 """
 
 from __future__ import annotations
@@ -133,7 +140,7 @@ class StreamPool:
         """Reservoir health over the connected sessions only (free slots
         are fed silence): (the engine's ServingDiagnosticsReport over the
         connected slots, {session_id: (participation %, spikes/neuron)}).
-        Raises ValueError on an empty pool."""
+        Raises ValueError on an empty pool. A collective on a mesh."""
         sessions = sorted(self._slot_of, key=lambda s: self._slot_of[s])
         rep = self.kws.diagnostics(stream_idx=[self._slot_of[s] for s in sessions])
         per_session = {s: (float(rep.participation[i]), float(rep.spikes_per_neuron[i]))
@@ -144,7 +151,8 @@ class StreamPool:
         """Checkpoint the whole serving unit: the engine's stream state (a
         serving-state file, validated as such on restore) plus this pool's
         session table — slot map, free-slot order, hop length and wire
-        dtype. Session ids must be JSON scalars (str, int, bool, None)."""
+        dtype. Session ids must be JSON scalars (str, int, bool, None). On a
+        mesh every rank calls it; rank 0 writes."""
         from lsm_tpu_torch.io.serving_state import write_snapshot
 
         for s in self._slot_of:

@@ -9,7 +9,15 @@ block-sparse one; the scaler; the readout), so a hop's prediction is the
 batch path's on the same window. `ContinuousKWS` (models/continuous.py)
 carries state across hops instead.
 
-Not ported: the mesh paths (ROADMAP A14).
+Over several ranks (`mesh=`, parallel/mesh.py: one process a device),
+both engines hold the stream rows of their data coordinate
+(`mesh.local_rows`): every state tensor is this rank's rows, each rank's
+chunks carry its own rows, and the kernels run on them. Every rank calls
+each method with the same arguments (SPMD, lsm_tpu's multi-host
+contract); outputs come back whole, `(n_streams, ...)` on every rank,
+through one gather a hop (`gather_streams`). Row-addressed calls
+(step_active, reset, extract_streams / install_streams) take global
+stream indices; each rank acts on the ones it owns.
 """
 
 from __future__ import annotations
@@ -26,6 +34,10 @@ from lsm_tpu_torch.models.diagnostics import ServingDiagnosticsReport, serving_r
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.models.sparse import SparseReservoir
 from lsm_tpu_torch.ops.ulaw import decode_ulaw
+from lsm_tpu_torch.parallel.mesh import (
+    DATA_AXIS, Mesh, deliver_rows, gather_rows, local_rows, local_stream_rows,
+    place_stream_chunk, replicate_to_mesh,
+)
 from lsm_tpu_torch.readout import logistic, scaler
 
 _WIRE_DTYPES = (torch.float32, torch.int16, torch.uint8)
@@ -73,20 +85,95 @@ def normalize_ingest_chunk(
     return chunk.astype(np.float32)
 
 
+def bind_mesh(kws, mesh: Optional[Mesh], indivisible: str) -> None:
+    """Set up an engine's stream rows: `kws.mesh`, `kws.rows` (the global
+    slice of streams this rank holds: all of them without a mesh) and
+    `kws.n_local`. On a mesh the stream count must divide over the data
+    axis (`indivisible` is the error, lsm_tpu's wording), the reservoir
+    must live on the mesh's device, and the weights are broadcast from
+    rank 0 so that every rank serves the same bits."""
+    kws.mesh = mesh
+    if mesh is None:
+        kws.rows = slice(0, kws.n_streams)
+    else:
+        n_data = mesh.shape[DATA_AXIS]
+        if kws.n_streams % n_data:
+            raise ValueError(indivisible.format(n_streams=kws.n_streams, n_data=n_data))
+        if mesh.device != kws.device:
+            raise ValueError(f"the reservoir lives on {kws.device}, the mesh computes on "
+                             f"{mesh.device}")
+        replicate_to_mesh((kws.reservoir, kws.readout, kws.scaler_state), mesh)
+        kws.rows = local_rows(kws.n_streams, mesh)
+    kws.n_local = local_stream_rows(kws.n_streams, mesh)
+
+
+def gather_streams(kws, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's stream rows of a result (stream axis `dim`) -> all
+    n_streams rows, on every rank; x itself without a mesh."""
+    if kws.mesh is None:
+        return x
+    return gather_rows(x, kws.mesh, DATA_AXIS, dim)
+
+
+def local_slice(a: np.ndarray, rows: slice, axis: int) -> np.ndarray:
+    """The `rows` of a full host array along its stream axis."""
+    return a[(slice(None),) * axis + (rows,)]
+
+
+def owned(kws, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(positions in idx, local slots) of the global stream indices this
+    rank holds, in idx's order."""
+    pos = np.nonzero((idx >= kws.rows.start) & (idx < kws.rows.stop))[0]
+    return pos, (idx[pos] - kws.rows.start).astype(np.int64)
+
+
+def extract_rows(kws, leaves: dict, idx: np.ndarray) -> dict:
+    """The rows `idx` (global, validated) of each state leaf, as host
+    arrays: leaves maps name -> (tensor of this rank's rows, stream axis).
+    Only the selected rows leave the device; on a mesh the owning rank
+    fills them into a zeroed buffer and one all_reduce delivers them."""
+    pos, slots = owned(kws, idx)
+    pos_t, slots_t = (torch.as_tensor(a).to(kws.device) for a in (pos, slots))
+    parts = []
+    for leaf, ax in leaves.values():
+        picked = leaf.index_select(ax, slots_t)
+        if kws.mesh is not None:
+            shape = list(leaf.shape)
+            shape[ax] = idx.shape[0]
+            picked = torch.zeros(shape, dtype=leaf.dtype, device=leaf.device).index_copy_(
+                ax, pos_t, picked)
+        parts.append(picked)
+    if kws.mesh is not None:
+        parts = deliver_rows(parts, kws.mesh)
+    return {k: p.cpu().numpy() for k, p in zip(leaves, parts)}
+
+
+def install_rows(kws, leaves: dict, idx: np.ndarray, rows: dict) -> dict:
+    """Inverse of extract_rows: each leaf with the donor `rows` (host
+    arrays, one row per index along the stream axis, already validated)
+    written into the slots this rank holds; returns the new tensors."""
+    pos, slots = owned(kws, idx)
+    slots_t = torch.as_tensor(slots).to(kws.device)
+    return {k: leaf.index_copy(ax, slots_t,
+                               torch.tensor(np.take(rows[k], pos, axis=ax), device=kws.device))
+            for k, (leaf, ax) in leaves.items()}
+
+
 def place_chunk(kws, chunk, fixed_len: bool) -> torch.Tensor:
     """A host chunk through the ingest policy onto the engine's device; a
-    tensor must already be a (n_streams, L) f32, int16 or uint8 tensor on
-    that device with L within the engine's chunk contract."""
+    tensor must already be a (n_local, L) f32, int16 or uint8 tensor on
+    that device with L within the engine's chunk contract. On a mesh a
+    chunk holds this rank's rows (`kws.rows`)."""
     max_len = kws.chunk_len if fixed_len else kws.fcfg.num_samples
     if not torch.is_tensor(chunk):
-        chunk = normalize_ingest_chunk(chunk, kws.n_streams, max_len, fixed_len)
-        return torch.as_tensor(chunk).to(kws.device)
+        chunk = normalize_ingest_chunk(chunk, kws.n_local, max_len, fixed_len)
+        return place_stream_chunk(chunk, kws.device)
     n = chunk.shape[-1] if chunk.dim() == 2 else -1
-    if chunk.dim() != 2 or chunk.shape[0] != kws.n_streams or chunk.dtype not in _WIRE_DTYPES \
+    if chunk.dim() != 2 or chunk.shape[0] != kws.n_local or chunk.dtype not in _WIRE_DTYPES \
             or chunk.device != kws.device or not (n == max_len if fixed_len else 0 < n <= max_len):
         want = f"{max_len}" if fixed_len else f"1..{max_len}"
         raise ValueError(
-            f"a tensor chunk must be ({kws.n_streams}, {want}) float32/int16/uint8 on "
+            f"a tensor chunk must be ({kws.n_local}, {want}) float32/int16/uint8 on "
             f"{kws.device}, got {chunk.dtype}{tuple(chunk.shape)} on {chunk.device}"
         )
     return chunk
@@ -177,6 +264,8 @@ def swap_readout_on(kws, readout, scaler_state=None) -> None:
     kws.readout = readout.to(kws.device)
     if scaler_state is not None:
         kws.scaler_state = scaler_state.to(kws.device)
+    if kws.mesh is not None:
+        replicate_to_mesh((kws.readout, kws.scaler_state), kws.mesh)
     kws.__dict__.pop("_serving_weights_crc", None)
 
 
@@ -231,22 +320,23 @@ def _validate_active(rows: np.ndarray, idx: np.ndarray, n_streams: int,
         raise ValueError("active idx has duplicate slots")
 
 
-def prepare_active_rows(rows, idx, n_streams: int, device: torch.device,
-                        chunk_len: Optional[int] = None,
+def prepare_active_rows(kws, rows, idx, chunk_len: Optional[int] = None,
                         max_len: Optional[int] = None):
     """Host-side front half of step_active, shared by both engines:
-    validate (rows, indices and the wire dtype), then place the rows
-    and their int64 slot indices on `device`. lsm_tpu also pads k to a
-    power of two there, to bound XLA's compile cache; eager PyTorch
-    compiles nothing per shape, so the port passes k rows as they are."""
+    validate (rows, global slot indices and the wire dtype), keep the rows
+    whose slots this rank holds, re-based to its local slots, and place
+    them and their int64 slots on the engine's device. lsm_tpu also pads
+    k to a power of two there, to bound XLA's compile cache; eager
+    PyTorch compiles nothing per shape, so the port passes k rows as
+    they are."""
     rows = np.asarray(rows)
     idx = np.asarray(idx)            # dtype validated before any cast
-    _validate_active(rows, idx, n_streams, chunk_len, max_len)
+    _validate_active(rows, idx, kws.n_streams, chunk_len, max_len)
     if rows.dtype == np.float64:     # lsm_tpu's jnp.asarray casts it so
         rows = rows.astype(np.float32)
     wire_silence(rows.dtype)         # any other dtype is no wire format
-    return (torch.as_tensor(rows).to(device),
-            torch.as_tensor(idx.astype(np.int64)).to(device))
+    pos, slots = owned(kws, idx.astype(np.int64))
+    return (torch.as_tensor(rows[pos]).to(kws.device), torch.as_tensor(slots).to(kws.device))
 
 
 def _to_host_async(out: torch.Tensor):
@@ -284,7 +374,8 @@ def stream_pipelined(kws, chunks, depth: int = 2):
         return host.numpy()
 
     for chunk in chunks:
-        pending.append(_to_host_async(kws._step_device(kws._place_chunk(chunk))))
+        out = gather_streams(kws, kws._step_device(kws._place_chunk(chunk)))
+        pending.append(_to_host_async(out))
         if len(pending) >= depth:
             yield pop()
     while pending:
@@ -300,7 +391,8 @@ class StreamingKWS:
     readout and scaler there. Its one piece of stream state is `buffer`,
     the (n_streams, num_samples) float32 trailing window. Chunks of 1 to
     num_samples samples arrive as float32 samples in [-1, 1], int16 PCM or
-    uint8 mu-law, host arrays or device tensors."""
+    uint8 mu-law, host arrays or device tensors. With `mesh=`, `buffer`
+    holds this rank's rows and chunks carry them (module docstring)."""
 
     def __init__(
         self,
@@ -310,6 +402,7 @@ class StreamingKWS:
         fcfg: FrontendConfig,
         feature_set: str = "original",
         n_streams: int = 1,
+        mesh: Optional[Mesh] = None,
     ):
         if not isinstance(reservoir, (res.Reservoir, SparseReservoir)):
             raise TypeError(
@@ -324,10 +417,12 @@ class StreamingKWS:
         self.fcfg = fcfg
         self.keys = tuple(FEATURE_SETS[feature_set])
         self.n_streams = int(n_streams)
+        bind_mesh(self, mesh, "n_streams={n_streams} must be divisible by the mesh data "
+                              "axis ({n_data}) so stream shards are equal")
         self.buffer = self._zeros()
 
     def _zeros(self) -> torch.Tensor:
-        return torch.zeros((self.n_streams, self.fcfg.num_samples), dtype=torch.float32,
+        return torch.zeros((self.n_local, self.fcfg.num_samples), dtype=torch.float32,
                            device=self.device)
 
     def _evaluate(self, buffer: torch.Tensor) -> torch.Tensor:
@@ -356,7 +451,7 @@ class StreamingKWS:
 
     def logits(self) -> np.ndarray:
         """Evaluate the current trailing window: (n_streams, n_classes)."""
-        return self._evaluate(self.buffer).cpu().numpy()
+        return gather_streams(self, self._evaluate(self.buffer)).cpu().numpy()
 
     def predict(self) -> np.ndarray:
         return np.argmax(self.logits(), axis=-1)
@@ -365,14 +460,14 @@ class StreamingKWS:
         """push + logits in one call: (n_streams, n_classes) on the host.
         int16 PCM and float32 samples of the same values (pcm / 32768) give
         the same bits."""
-        return self._step_device(self._place_chunk(chunk)).cpu().numpy()
+        return gather_streams(self, self._step_device(self._place_chunk(chunk))).cpu().numpy()
 
     def step_compact(self, chunk) -> Tuple[np.ndarray, np.ndarray]:
         """step() with the compact decision output (compact_output_device):
         (preds int32 (B,), margin f32 (B,)), 4 bytes a stream off the
         device; preds equal step(chunk).argmax(-1)."""
-        return unpack_compact_output(
-            compact_output_device(self._step_device(self._place_chunk(chunk))))
+        return unpack_compact_output(gather_streams(
+            self, compact_output_device(self._step_device(self._place_chunk(chunk)))))
 
     def step_active(self, rows, active_idx, compact: bool = False):
         """step() with only the active streams' audio on the wire: `rows`
@@ -380,13 +475,14 @@ class StreamingKWS:
         `active_idx`. The other streams advance on wire silence synthesized
         on the device, so the logits are bit-equal to step() on the full
         chunk with silence in the inactive rows. compact=True returns
-        (preds, margin) as step_compact does."""
-        rows_d, idx_d = prepare_active_rows(rows, active_idx, self.n_streams, self.device,
+        (preds, margin) as step_compact does. On a mesh every rank passes
+        the same global rows and slots."""
+        rows_d, idx_d = prepare_active_rows(self, rows, active_idx,
                                             max_len=self.fcfg.num_samples)
-        out = self._step_device(expand_active_rows(rows_d, idx_d, self.n_streams))
+        out = self._step_device(expand_active_rows(rows_d, idx_d, self.n_local))
         if compact:
-            return unpack_compact_output(compact_output_device(out))
-        return out.cpu().numpy()
+            return unpack_compact_output(gather_streams(self, compact_output_device(out)))
+        return gather_streams(self, out).cpu().numpy()
 
     def stream(self, chunks, depth: int = 2):
         """Pipelined serving loop: yields per-chunk logits, bit-equal to
@@ -400,19 +496,21 @@ class StreamingKWS:
         dev = self._place_chunk(chunk)
         for _ in range(int(k)):
             out = self._step_device(dev)
-        return float(torch.sum(out, dtype=torch.float32))
+        return float(torch.sum(gather_streams(self, out), dtype=torch.float32))
 
     def diagnostics(self, stream_idx=None) -> ServingDiagnosticsReport:
         """Reservoir health on live traffic: re-simulates each stream's
         trailing window and reports full-reservoir participation, dead
         neurons and mean rate with the batch diagnostics' thresholds.
         `stream_idx` selects the streams the verdict averages over (None =
-        all). One whole-window simulation a call."""
+        all). One whole-window simulation a call; on a mesh a collective
+        that gives every rank the same report."""
         spikes = featurize_batch(self.buffer, self.fcfg)
         counts = res.simulate_batch(self.reservoir, spikes)["all_counts"]
         active = torch.sum(counts > 0, dim=1).to(torch.int32)
         total = torch.sum(counts, dim=1)
-        return serving_report(active.cpu().numpy(), total.cpu().numpy(),
+        return serving_report(gather_streams(self, active).cpu().numpy(),
+                              gather_streams(self, total).cpu().numpy(),
                               self.reservoir.n_neurons, "full", stream_idx)
 
     def swap_readout(self, readout, scaler_state=None) -> None:
@@ -420,22 +518,25 @@ class StreamingKWS:
         swap_readout_on(self, readout, scaler_state)
 
     def reset(self, stream_idx=None) -> None:
-        """Zero the window of all streams (None) or of the named slots."""
+        """Zero the window of all streams (None) or of the named slots
+        (global indices; each rank clears the ones it holds)."""
         if stream_idx is None:
             self.buffer = self._zeros()
             return
         idx = validate_stream_idx(stream_idx, self.n_streams, "reset")
-        self.buffer = self.buffer.index_fill(
-            0, torch.as_tensor(idx.astype(np.int64)).to(self.device), 0.0)
+        _, slots = owned(self, idx)
+        self.buffer = self.buffer.index_fill(0, torch.as_tensor(slots).to(self.device), 0.0)
 
     def snapshot(self) -> dict:
-        """Host copy of all cross-chunk stream state (the ring buffer).
-        Restoring it into a fresh engine with the same weights continues
-        every stream bit-exactly (io/serving_state.py is the file format)."""
-        return {"buffer": self.buffer.to("cpu", copy=True).numpy()}
+        """Host copy of all cross-chunk stream state (the ring buffer),
+        every stream on every rank (a collective on a mesh). Restoring it
+        into a fresh engine with the same weights continues every stream
+        bit-exactly (io/serving_state.py is the file format)."""
+        return {"buffer": gather_streams(self, self.buffer).to("cpu", copy=True).numpy()}
 
     def restore(self, snap: dict) -> None:
-        """Inverse of snapshot(): install a saved state."""
+        """Inverse of snapshot(): install a saved state (the full array,
+        the same on every rank; each takes its rows)."""
         if "buffer" not in snap:
             raise ValueError(
                 "snapshot is missing state leaf 'buffer' — not a "
@@ -449,18 +550,19 @@ class StreamingKWS:
                 f"needs float32{want} — the snapshot was taken with a "
                 "different n_streams or frontend"
             )
-        self.buffer = torch.tensor(buf, device=self.device)
+        self.buffer = torch.tensor(buf[self.rows], device=self.device)
 
     def extract_streams(self, stream_idx) -> dict:
         """snapshot() restricted to the named stream slots (gathered on the
-        device, so only those rows leave it): what migrate_streams moves."""
+        device, so only those rows leave it): what migrate_streams moves.
+        On a mesh a collective: every rank gets all the rows."""
         idx = validate_stream_idx(stream_idx, self.n_streams, "extract_streams")
-        rows = self.buffer.index_select(0, torch.as_tensor(idx.astype(np.int64)).to(self.device))
-        return {"buffer": rows.cpu().numpy()}
+        return extract_rows(self, {"buffer": (self.buffer, 0)}, idx.astype(np.int64))
 
     def install_streams(self, stream_idx, rows: dict) -> None:
         """Inverse of extract_streams: scatter donor rows into the named
-        slots, other slots untouched."""
+        slots, other slots untouched (each rank writes the slots it
+        holds)."""
         idx = validate_stream_idx(stream_idx, self.n_streams, "install_streams", unique=True)
         if "buffer" not in rows:
             raise ValueError("donor rows are missing state leaf 'buffer'")
@@ -472,6 +574,5 @@ class StreamingKWS:
                 f"needs float32{want} — the donor engine has a different "
                 "geometry"
             )
-        self.buffer = self.buffer.index_copy(
-            0, torch.as_tensor(idx.astype(np.int64)).to(self.device),
-            torch.tensor(r, device=self.device))
+        self.buffer = install_rows(self, {"buffer": (self.buffer, 0)}, idx.astype(np.int64),
+                                   {"buffer": r})["buffer"]

@@ -140,15 +140,19 @@ def shard_batch(x, mesh: Mesh) -> torch.Tensor:
     return shard_host_array(x, mesh)
 
 
-def gather_rows(x: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS) -> torch.Tensor:
-    """All-gather the ranks' equal (n, ...) slices along `axis`, in
-    coordinate order, into (size * n, ...) on every rank of the group, as
-    one all_reduce of bytes (see the module docstring). Exact for any
-    dtype."""
+def gather_rows(x: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS, dim: int = 0) -> torch.Tensor:
+    """All-gather the ranks' equal slices along tensor dimension `dim`
+    over mesh axis `axis`, in coordinate order ((n, ...) -> (size * n, ...)
+    for dim 0), on every rank of the group, as one all_reduce of bytes
+    (see the module docstring). Exact for any dtype."""
     size = mesh.shape[axis]
     if size == 1:
         return x
+    if dim:
+        return gather_rows(x.movedim(dim, 0), mesh, axis).movedim(0, dim).contiguous()
     x = x.contiguous()
+    if x.numel() == 0:
+        return x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
     raw = x.view(torch.uint8).reshape(x.shape[0], -1) if x.dim() else x.view(1).view(torch.uint8)
     buf = torch.zeros((size,) + tuple(raw.shape), dtype=torch.uint8, device=x.device)
     buf[mesh.index(axis)] = raw
@@ -156,14 +160,52 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS) -> torch.Ten
     return buf.view(x.dtype).reshape((size * x.shape[0],) + tuple(x.shape[1:]))
 
 
+def local_stream_rows(n_streams: int, mesh: Optional[Mesh]) -> int:
+    """Stream rows this rank feeds a serving chunk: all of them without a
+    mesh, else its share of the data axis (the engines refuse a stream
+    count that does not divide). Rank r feeds the rows of its data
+    coordinate, `local_rows(n_streams, mesh)`. On a mesh with a model axis
+    above 1, every rank of one data coordinate serves the same rows (the
+    serving engines replicate the reservoir over the model axis, as
+    lsm_tpu's shard_map does). lsm_tpu divides by its process count
+    instead; the two agree on the (n, 1) meshes that auto_mesh and
+    multihost_mesh give."""
+    if mesh is None:
+        return n_streams
+    return n_streams // mesh.shape[DATA_AXIS]
+
+
+def place_stream_chunk(chunk: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host serving chunk, already normalized and holding this rank's
+    stream rows (`local_stream_rows`), on the rank's device. The one
+    placement both serving engines share."""
+    return torch.as_tensor(np.asarray(chunk)).to(device)
+
+
+def deliver_rows(parts, mesh: Mesh, axis: str = DATA_AXIS) -> list:
+    """Sum equal-shaped tensors over `axis` as bytes, in one all_reduce:
+    each rank passes buffers that are zero except where it alone writes,
+    and every rank gets the union (exact for any dtype, as gather_rows).
+    The serving engines deliver extracted stream rows so."""
+    parts = [p.contiguous() for p in parts]
+    if mesh.shape[axis] == 1 or not parts:
+        return parts
+    raws = [p.reshape(-1).view(torch.uint8) for p in parts]
+    flat = torch.cat(raws)
+    if flat.numel():
+        dist.all_reduce(flat, group=mesh.group(axis))
+    out, off = [], 0
+    for p, r in zip(parts, raws):
+        # A copy: a byte slice at an odd offset cannot be viewed as wider words.
+        out.append(flat[off:off + r.numel()].clone().view(p.dtype).reshape(p.shape))
+        off += r.numel()
+    return out
+
+
 def gather_columns(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
     """All-gather (B, n) column slices along `axis` into (B, size * n), in
     coordinate order (the tensor-parallel spike gather)."""
-    size = mesh.shape[axis]
-    if size == 1:
-        return x
-    rows = gather_rows(x.T.contiguous(), mesh, axis)            # (size * n, B)
-    return rows.T.contiguous()
+    return gather_rows(x, mesh, axis, dim=1)
 
 
 def host_local(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:

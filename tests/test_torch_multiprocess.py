@@ -234,3 +234,46 @@ def test_pipeline_cli_on_two_processes(tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name}:{k}")
     records = (tmp_path / "m.jsonl").read_text().splitlines()
     assert len(records) == len((one / "m.jsonl").read_text().splitlines()) > 0
+
+
+def test_stream_kws_cli_on_two_processes(tmp_path):
+    """`python -m lsm_tpu_torch.cli.stream_kws` as two processes (the port of
+    tests/test_multihost.py:539): static mode on 9 WAVs (padded to 10
+    streams, 5 a rank) and --pool over 3 slots (rounded up to 4). Both
+    serve on `mesh x2`, rank 0 alone prints the predictions and writes
+    the output, and the predictions and labels equal the --single-device
+    run's (exact-mode pool decisions equal the static run's)."""
+    from lsm_tpu_torch.io.dataset import write_synthetic_corpus
+    from lsm_tpu_torch.io.model import save_model
+    from lsm_tpu_torch.readout.scaler import Scaler
+
+    words = ["yes", "no", "up"]
+    corpus = tmp_path / "corpus"
+    write_synthetic_corpus(corpus, words, n_per_class=3)
+    reservoir = tres.init_reservoir(_reservoir_cfg(tcfg), n_channels=16)
+    d = len(KEYS) * reservoir.n_outputs
+    rng = np.random.default_rng(0)
+    save_model(tmp_path / "m.npz", reservoir,
+               tlog.LogisticReadout(rng.normal(0, 0.1, (d, 3)).astype(np.float32),
+                                    rng.normal(0, 0.1, 3).astype(np.float32)),
+               Scaler(np.zeros(d, np.float32), np.ones(d, np.float32)),
+               tcfg.FrontendConfig(n_filters=16), "original", words)
+    serve = [sys.executable, "-m", "lsm_tpu_torch.cli.stream_kws", "--model", "m.npz",
+             "--data-dir", str(corpus), "--device", "cpu"]
+    single = subprocess.run(serve + ["--single-device", "--output", "single.npz"], cwd=tmp_path,
+                            capture_output=True, text=True, timeout=300,
+                            env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
+    assert single.returncode == 0, single.stdout[-3000:] + single.stderr[-3000:]
+    want = np.load(tmp_path / "single.npz")
+    assert len(want["predictions"]) == 9
+    for extra, out in ((["--compact"], "multi.npz"),
+                       (["--pool", "--max-streams", "3"], "pool.npz")):
+        logs = _launch(serve + extra + ["--output", out], tmp_path)
+        assert "mesh x2" in logs[0], logs[0][-2000:]
+        assert "Final predictions for 9 streams" in logs[0]
+        assert "Serving" not in logs[1] and "Final predictions" not in logs[1], logs[1][-2000:]
+        got = np.load(tmp_path / out)
+        np.testing.assert_array_equal(got["predictions"], want["predictions"], err_msg=out)
+        np.testing.assert_array_equal(got["labels"], want["labels"], err_msg=out)
+        np.testing.assert_array_equal(got["files"], want["files"], err_msg=out)
+    assert "4 pool slots" in logs[0]

@@ -113,6 +113,9 @@ def test_port_imports_nothing_of_the_reference():
         "import lsm_tpu_torch.tools.sparse_parity, lsm_tpu_torch.tools.gtgram_conversion\n"
         "import lsm_tpu_torch.parallel.mesh, lsm_tpu_torch.parallel.sharded\n"
         "import lsm_tpu_torch.parallel.train_step, lsm_tpu_torch.io.native\n"
+        "import lsm_tpu_torch.tools.bench_streaming, lsm_tpu_torch.tools.bench_continuous\n"
+        "import lsm_tpu_torch.tools.bench_state, lsm_tpu_torch.tools.bench_tp\n"
+        "import lsm_tpu_torch.tools.profile_stages, lsm_tpu_torch.tools.common\n"
         "ref = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsm_tpu')]\n"
         "assert not ref, ref\n"
         "print('ALONE')\n"
