@@ -1,0 +1,8 @@
+"""Milliseconds a batch step spends in extract_features (reservoir: models/reservoir.py + B2): CUDA events recorded
+around the call in every traced step, averaged over the traced window."""
+
+
+def read(run: dict):
+    if run["cell_kind"] != "batch":
+        return None
+    return float(run["stage_ms"]["reservoir"])
