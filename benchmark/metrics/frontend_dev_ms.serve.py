@@ -1,0 +1,12 @@
+"""Device milliseconds a serving hop of the operations launched inside the
+program's `lsm.kws.frontend` span (decode, B3, the window sums, dB, the
+running normalization and the hysteresis encoder): lib/spans.py, per
+hop."""
+
+from benchmark.lib import spans
+
+
+def read(run: dict):
+    if run["cell_kind"] != "serve":
+        return None
+    return spans.per_unit(run, "lsm.kws.frontend", "dev_s")

@@ -7,8 +7,15 @@ entry point `python -m lsm_tpu_torch.cli.stream_kws`; with the dense
 reservoir (drawn on the device from 4096 neurons on) or the block-sparse
 one of the scaled configuration (models/sparse.py). The entry points take
 lsm_tpu's --check (utils/checks.py), --metrics-out (utils/logging.py) and
---single-device; utils/profiling.py, models/sweep.py and the operator
-tools (`python -m lsm_tpu_torch.tools.<name>`) come with them. The batch
+--single-device; models/sweep.py and the operator tools
+(`python -m lsm_tpu_torch.tools.<name>`) come with them.
+utils/profiling.py holds `span`, a `record_function` range at each layer
+boundary while a torch profiler records (`lsm.kws.step` and its ingest,
+frontend, reservoir, readout and egress around each serving hop;
+`lsm.frontend` and its spectrogram, normalize and encode stages;
+`lsm.reservoir`; `lsm.readout`) and nothing otherwise, and
+`perfetto_trace(path)`: wrapping any call in it shows the spans beside
+the card's kernels and copies in a Perfetto trace. The batch
 and training path also runs over several ranks of a process group
 (parallel/: data-parallel stages, the tensor-parallel reservoir, the fused
 training step), and WAVs decode on a native C++ decoder (csrc/wavio.cpp,

@@ -58,6 +58,7 @@ from lsm_tpu_torch.ops.hysteresis import hysteresis_encode_step
 from lsm_tpu_torch.ops.kernels.lif import SEG_KEYS
 from lsm_tpu_torch.parallel.mesh import Mesh
 from lsm_tpu_torch.readout import logistic, scaler
+from lsm_tpu_torch.utils.profiling import span
 
 _LOG10 = 2.302585092994046
 
@@ -270,10 +271,10 @@ class ContinuousKWS:
                                      conv_sub=self.chunk_len // self._g)
         all_e = torch.cat([st.tail, sub_e], dim=0)            # (tail + n_sub, B, C)
         h = self._h_per
-        span = (self._n_cols - 1) * h + 1
-        win_e = all_e[0:span:h]
+        reach = (self._n_cols - 1) * h + 1
+        win_e = all_e[0:reach:h]
         for j in range(1, self._w_per):
-            win_e = win_e + all_e[j:j + span:h]               # (n_cols, B, C)
+            win_e = win_e + all_e[j:j + reach:h]              # (n_cols, B, C)
         amp = torch.sqrt(win_e / self._nwin)
         db = 20.0 * torch.log(amp + 1e-9) / _LOG10
         spikes, hyst, hi, lo = self._normalize_encode(db, st)
@@ -325,9 +326,12 @@ class ContinuousKWS:
         """One hop on a device-resident wire chunk; advances the state and
         returns the (B, K) logits on the device (nothing synchronizes)."""
         st = self.state
-        spikes, iir, tail, hyst, hi, lo = self._featurize(decode_pcm_device(chunk), st)
-        v, refrac, s_prev, new_seg, win_new = self._reservoir_chunk(spikes, st)
-        segs, win_ring, logits = self._evaluate(st, new_seg, win_new)
+        with span("lsm.kws.frontend"):
+            spikes, iir, tail, hyst, hi, lo = self._featurize(decode_pcm_device(chunk), st)
+        with span("lsm.kws.reservoir"):
+            v, refrac, s_prev, new_seg, win_new = self._reservoir_chunk(spikes, st)
+        with span("lsm.kws.readout"):
+            segs, win_ring, logits = self._evaluate(st, new_seg, win_new)
         self.state = ContinuousState(
             iir=iir, tail=tail, hyst=hyst, norm_hi=hi, norm_lo=lo,
             v=v, refrac=refrac, s_prev=s_prev, segs=segs, win_ring=win_ring,
@@ -338,7 +342,8 @@ class ContinuousKWS:
         """A host chunk through the ingest policy onto the engine's device;
         a tensor must already be a (n_streams, chunk_len) f32, int16 or
         uint8 tensor on that device."""
-        return place_chunk(self, chunk, fixed_len=True)
+        with span("lsm.kws.ingest"):
+            return place_chunk(self, chunk, fixed_len=True)
 
     # ---- public surface ------------------------------------------------
 
@@ -352,15 +357,20 @@ class ContinuousKWS:
         """Ingest one (n_streams, chunk_len) chunk (float samples in
         [-1, 1], int16 PCM or uint8 mu-law, host array or device tensor)
         and return the (n_streams, n_classes) logits on the host."""
-        return gather_streams(self, self._step_device(self._place_chunk(chunk))).cpu().numpy()
+        with span("lsm.kws.step"):
+            logits = self._step_device(self._place_chunk(chunk))
+            with span("lsm.kws.egress"):
+                return gather_streams(self, logits).cpu().numpy()
 
     def step_compact(self, chunk):
         """step() with the compact decision output
         (streaming.compact_output_device): (preds int32 (B,), margin f32
         (B,)), 4 bytes a stream off the device; the same state advance as
         step(), preds equal to step(chunk).argmax(-1)."""
-        return unpack_compact_output(gather_streams(
-            self, compact_output_device(self._step_device(self._place_chunk(chunk)))))
+        with span("lsm.kws.step"):
+            logits = self._step_device(self._place_chunk(chunk))
+            with span("lsm.kws.egress"):
+                return unpack_compact_output(gather_streams(self, compact_output_device(logits)))
 
     def step_active(self, rows, active_idx, compact: bool = False):
         """step() with only the active streams' audio on the wire: `rows`
@@ -371,11 +381,16 @@ class ContinuousKWS:
         with silence in the inactive rows. compact=True returns (preds,
         margin) as step_compact does. On a mesh every rank passes the same
         global rows and slots."""
-        rows_d, idx_d = prepare_active_rows(self, rows, active_idx, chunk_len=self.chunk_len)
-        out = self._step_device(expand_active_rows(rows_d, idx_d, self.n_local))
-        if compact:
-            return unpack_compact_output(gather_streams(self, compact_output_device(out)))
-        return gather_streams(self, out).cpu().numpy()
+        with span("lsm.kws.step"):
+            with span("lsm.kws.ingest"):
+                rows_d, idx_d = prepare_active_rows(self, rows, active_idx,
+                                                    chunk_len=self.chunk_len)
+                chunk = expand_active_rows(rows_d, idx_d, self.n_local)
+            out = self._step_device(chunk)
+            with span("lsm.kws.egress"):
+                if compact:
+                    return unpack_compact_output(gather_streams(self, compact_output_device(out)))
+                return gather_streams(self, out).cpu().numpy()
 
     def stream(self, chunks, depth: int = 2):
         """Pipelined serving loop: yields per-chunk logits, bit-equal to

@@ -29,6 +29,7 @@ from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import hysteresis, mel, resample, stft
 from lsm_tpu_torch.ops.ulaw import decode_ulaw
 from lsm_tpu_torch.utils import checks
+from lsm_tpu_torch.utils.profiling import span
 
 
 def spectrogram_db(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
@@ -71,25 +72,29 @@ def featurize_batch(audio: torch.Tensor, cfg: FrontendConfig,
     int16 PCM (divided by 32768 on the device) or uint8 G.711 mu-law.
     With `check` (the --check context) non-finite audio and a non-finite
     spectrogram raise (utils/checks.py)."""
-    if audio.dtype == torch.uint8:
-        audio = decode_ulaw(audio)
-    elif audio.dtype == torch.int16:
-        audio = audio.to(torch.float32) / 32768.0
-    elif not audio.dtype.is_floating_point:
-        raise TypeError(
-            f"featurize_batch audio dtype {audio.dtype} is not part of the "
-            "wire contract (float samples, int16 PCM, or uint8 mu-law)"
-        )
-    if check:
-        checks.check_finite(audio, check, "audio samples")
-    spec_db = spectrogram_db(audio.to(torch.float32), cfg)
-    if check:
-        checks.check_finite(spec_db, check, "spectrogram values")
-    spec_norm = db_ops.minmax_normalize(spec_db)
-    spec_norm = resample.zoom_time_axis(spec_norm, cfg.time_bins)
-    spikes = hysteresis.hysteresis_encode(
-        spec_norm, cfg.spike_thresholds, cfg.hysteresis_gap
-    )
-    if cfg.redundancy_factor > 1:
-        spikes = torch.repeat_interleave(spikes, cfg.redundancy_factor, dim=-2)
+    with span("lsm.frontend"):
+        with span("lsm.frontend.spectrogram"):
+            if audio.dtype == torch.uint8:
+                audio = decode_ulaw(audio)
+            elif audio.dtype == torch.int16:
+                audio = audio.to(torch.float32) / 32768.0
+            elif not audio.dtype.is_floating_point:
+                raise TypeError(
+                    f"featurize_batch audio dtype {audio.dtype} is not part of the "
+                    "wire contract (float samples, int16 PCM, or uint8 mu-law)"
+                )
+            if check:
+                checks.check_finite(audio, check, "audio samples")
+            spec_db = spectrogram_db(audio.to(torch.float32), cfg)
+            if check:
+                checks.check_finite(spec_db, check, "spectrogram values")
+        with span("lsm.frontend.normalize"):
+            spec_norm = db_ops.minmax_normalize(spec_db)
+            spec_norm = resample.zoom_time_axis(spec_norm, cfg.time_bins)
+        with span("lsm.frontend.encode"):
+            spikes = hysteresis.hysteresis_encode(
+                spec_norm, cfg.spike_thresholds, cfg.hysteresis_gap
+            )
+            if cfg.redundancy_factor > 1:
+                spikes = torch.repeat_interleave(spikes, cfg.redundancy_factor, dim=-2)
     return spikes

@@ -30,6 +30,7 @@ from torch import nn
 
 from lsm_tpu_torch.config import ReservoirConfig
 from lsm_tpu_torch.ops.kernels import lif
+from lsm_tpu_torch.utils.profiling import span
 
 _ROUND = 128
 # From this many neurons on, the weights are drawn on the device (lsm_tpu's
@@ -423,4 +424,5 @@ def extract_features(
 ) -> torch.Tensor:
     """spikes (B, C, T) -> features (B, len(keys) * n_outputs), for a dense
     `Reservoir` or a `SparseReservoir`."""
-    return features_from_stats(simulate_batch(res, spikes_in), feature_keys)
+    with span("lsm.reservoir"):
+        return features_from_stats(simulate_batch(res, spikes_in), feature_keys)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from lsm_tpu_torch.utils.profiling import span
+
 
 class LogisticReadout(nn.Module):
     """Weights (D, K) and intercept (K,) as buffers; forward gives logits."""
@@ -162,7 +164,8 @@ def fit_ridge(x: torch.Tensor, y: torch.Tensor, num_classes: int,
 
 
 def predict(readout: LogisticReadout, x: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(readout(x), dim=-1)
+    with span("lsm.readout"):
+        return torch.argmax(readout(x), dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from lsm_tpu_torch.utils.profiling import span
+
 
 class Scaler(nn.Module):
     """Per-feature mean and scale as buffers; forward standardizes."""
@@ -53,4 +55,5 @@ def fit_scaler_from_moments(sum_x: torch.Tensor, sum_x2: torch.Tensor, count: to
 
 
 def transform(state: Scaler, x: torch.Tensor) -> torch.Tensor:
-    return (x - state.mean) / state.scale
+    with span("lsm.readout"):
+        return (x - state.mean) / state.scale

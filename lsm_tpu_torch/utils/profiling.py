@@ -1,74 +1,52 @@
-"""Stage timers and traces (port of lsm_tpu/utils/profiling.py).
+"""The port's spans, and a trace writer.
 
-`Profiler.stage` wraps a block in a `torch.profiler.record_function` span
-(it shows in a trace) and times it on the host clock; `device_timer`
-synchronizes the card on both sides of the block, so the time covers the
-device work it enqueued; `perfetto_trace` records the block with
-`torch.profiler` and writes a Chrome/Perfetto trace file.
+`span(name)` marks a layer boundary. While no torch profiler records, it
+returns one shared null context and costs only the profiler's enabled
+probe. Inside a profiler window (`perfetto_trace`, or any
+`torch.profiler.profile`) it is a `torch.profiler.record_function` range:
+it lands in the same trace as the card's kernels and copies, on the same
+clock, and each device operation is tied to the span that launched it
+through its runtime call's correlation id. A span's parent is the span
+that encloses it on the thread.
+
+The spans, one at each layer boundary of the two paths:
+
+  lsm.kws.step       ContinuousKWS.step, step_compact, step_active: one hop
+  lsm.kws.ingest     host normalization and the host-to-device copy of
+                     the wire chunk (also under stream and steps_fused)
+  lsm.kws.frontend   decode, B3, window sums, dB, normalization, encoder
+  lsm.kws.reservoir  B4 or B6 and their wrappers' ops
+  lsm.kws.readout    ring pushes, the fold, features, scaler, readout
+  lsm.kws.egress     the gather, the compact output and the host copy
+  lsm.frontend       featurize_batch, with its children
+  lsm.frontend.spectrogram   wire decode, B1 (or mel), dB
+  lsm.frontend.normalize     min-max and the zoom to time_bins
+  lsm.frontend.encode        the hysteresis encoder and the redundancy repeat
+  lsm.reservoir      extract_features (B2 or B5, and the features)
+  lsm.readout        scaler.transform and logistic.predict
+
+`perfetto_trace(path)` records the enclosed block, host ops and the card's
+activity where CUDA is available, and writes it to `path` as a
+Chrome/Perfetto JSON trace: an operator sees the spans of any call into
+the library by wrapping the call in it.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
-import time
-from typing import Dict, Iterator, Optional
+from typing import Iterator
 
 import torch
 
-
-@dataclasses.dataclass
-class StageTiming:
-    name: str
-    seconds: float
-    items: Optional[int] = None
-
-    @property
-    def rate(self) -> Optional[float]:
-        if self.items is None or self.seconds <= 0:
-            return None
-        return self.items / self.seconds
+_OFF = contextlib.nullcontext()
 
 
-class Profiler:
-    """Collects named stage timings, each a record_function span."""
-
-    def __init__(self) -> None:
-        self.timings: Dict[str, StageTiming] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, items: Optional[int] = None) -> Iterator[None]:
-        with torch.profiler.record_function(name):
-            t0 = time.perf_counter()
-            yield
-            dt = time.perf_counter() - t0
-        self.timings[name] = StageTiming(name, dt, items)
-
-    def report(self) -> str:
-        lines = []
-        for t in self.timings.values():
-            rate = f" ({t.rate:.1f}/s)" if t.rate else ""
-            lines.append(f"{t.name}: {t.seconds:.3f}s{rate}")
-        return "\n".join(lines)
-
-
-def _sync(device: Optional[torch.device]) -> None:
-    if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def device_timer(device: torch.device | str = "cuda") -> Iterator[Dict[str, float]]:
-    """Times a block on the host clock, synchronizing `device` before and
-    after (a CPU device needs no sync). Yields a dict that holds "seconds"
-    after the block."""
-    dev = torch.device(device)
-    out: Dict[str, float] = {}
-    _sync(dev)
-    t0 = time.perf_counter()
-    yield out
-    _sync(dev)
-    out["seconds"] = time.perf_counter() - t0
+def span(name: str):
+    """A `record_function` range named `name` while a torch profiler
+    records; the shared null context otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

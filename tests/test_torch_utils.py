@@ -1,7 +1,6 @@
 """The port's --check sanitizer (utils/checks.py and its pipeline wiring),
-metric logger (utils/logging.py), profiling helpers (utils/profiling.py),
-regime sweep (models/sweep.py) and operator tools (lsm_tpu_torch.tools)
-against lsm_tpu on the CPU.
+metric logger (utils/logging.py), regime sweep (models/sweep.py) and
+operator tools (lsm_tpu_torch.tools) against lsm_tpu on the CPU.
 
 Check mode: tests/test_check_mode.py's single-device cases through the
 port, with lsm_tpu's messages. The sweep: on the same spikes and grid the
@@ -27,7 +26,7 @@ from lsm_tpu_torch import config as tcfg
 from lsm_tpu_torch import pipeline as tpipe
 from lsm_tpu_torch.io import artifacts
 from lsm_tpu_torch.models.sweep import sweep_regime
-from lsm_tpu_torch.utils import checks, profiling
+from lsm_tpu_torch.utils import checks
 from lsm_tpu_torch.utils.logging import MetricLogger, default_metrics
 
 torch.set_num_threads(1)
@@ -148,7 +147,7 @@ def test_validate_features_verdicts_equal_reference(features):
         validate_features_host(features.astype(np.float32))
 
 
-# ---- metrics and profiling -------------------------------------------------------
+# ---- metrics -------------------------------------------------------------------
 
 def test_metric_logger_records_equal_reference(tmp_path):
     """Record for record, except the timestamp."""
@@ -168,22 +167,6 @@ def test_metric_logger_records_equal_reference(tmp_path):
         assert a.pop("ts") > 0 and b.pop("ts") > 0
         assert a == b
     assert default_metrics() is default_metrics()
-
-
-def test_profiler_timers_and_trace(tmp_path):
-    prof = profiling.Profiler()
-    with prof.stage("demo", items=10):
-        _ = sum(range(1000))
-    assert prof.report().startswith("demo: ") and prof.timings["demo"].rate > 0
-    with profiling.device_timer("cpu") as t:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert t["seconds"] > 0
-    trace = tmp_path / "trace.json"
-    with profiling.perfetto_trace(str(trace)):
-        with prof.stage("traced"):
-            torch.ones(8) + 1
-    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
-    assert "traced" in names
 
 
 # ---- the regime sweep ----------------------------------------------------------
