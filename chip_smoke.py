@@ -533,22 +533,24 @@ def device_profile(run, calls: int, trace: str | None = None) -> dict:
 
 def reset_launches() -> None:
     from lsm_tpu_torch.ops.kernels import gtgram as kgt
+    from lsm_tpu_torch.ops.kernels import hysteresis as khyst
     from lsm_tpu_torch.ops.kernels import lif as klif
     from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
     kgt.launches = kgt.chunk_launches = klif.launches = klif.chunk_launches = 0
-    ksp.launches = ksp.chunk_launches = 0
+    ksp.launches = ksp.chunk_launches = khyst.launches = 0
     klif.body_launches.update(dict.fromkeys(klif.body_launches, 0))
 
 
 def read_launches() -> dict:
     from lsm_tpu_torch.ops.kernels import gtgram as kgt
+    from lsm_tpu_torch.ops.kernels import hysteresis as khyst
     from lsm_tpu_torch.ops.kernels import lif as klif
     from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
     return {"B1": kgt.launches, "B2": klif.launches,
             "B3": kgt.chunk_launches, "B4": klif.chunk_launches,
-            "B5": ksp.launches, "B6": ksp.chunk_launches,
+            "B5": ksp.launches, "B6": ksp.chunk_launches, "encoder": khyst.launches,
             "dense_bodies": dict(klif.body_launches)}
 
 
@@ -721,6 +723,7 @@ def main() -> None:
           "0-3 kernel " + " ".join(f"{v:.2e}" for v in f64["kernel_by_channel"][:4])
           + " twin " + " ".join(f"{v:.2e}" for v in f64["twin_by_channel"][:4]))
     del e_64
+    record["encoder"] = enc = encoder_kernel(dev, card)
 
     spikes = featurize_batch(audio, fcfg)                          # (256, 128, 400)
     _, mw = calibrate_weight(rcfg, spikes, pcfg.multiplier)
@@ -799,7 +802,7 @@ def main() -> None:
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
     every = read_launches()
-    launches = {k: v for k, v in every.items() if k in ("B1", "B2")}
+    launches = {k: v for k, v in every.items() if k in ("B1", "B2", "encoder")}
     record["slice"] = {
         "seconds": slice_s, "accuracy": result.accuracy,
         "regime": ext.diagnostics.regime,
@@ -940,8 +943,8 @@ def main() -> None:
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None}
 
-    # No single PyTorch call computes the IIR block scan or the spike-driven
-    # LIF recurrence, so library_ms is null for all six.
+    # No single PyTorch call computes the IIR block scan, the spike-driven
+    # LIF recurrence or the hysteresis encoder, so library_ms is null for all.
     kernels = {"kernels": [
         row("gtgram_sub_energy", "B1", "lsm_tpu_torch/csrc/gtgram.cu",
             "lsm_tpu/ops/pallas/gtgram_kernel.py:70", b1, launches),
@@ -956,6 +959,8 @@ def main() -> None:
             record["sparse_slice"]["launches"]),
         row("sparse_lif_chunk", "B6", "lsm_tpu_torch/csrc/sparse_lif.cu",
             "lsm_tpu/ops/pallas/sparse_lif_chunk_kernel.py:36", b6_line, sserve["launches"]),
+        row("hysteresis_encode", "encoder", "lsm_tpu_torch/csrc/hysteresis.cu", None,
+            enc["batch"], launches),
     ]}
     record["phase_seconds"] = laps.seconds
     check_no_reference()
@@ -963,6 +968,53 @@ def main() -> None:
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def encoder_kernel(dev, card) -> dict:
+    """The hysteresis encoder's kernel against its plain twin, bit for bit,
+    and both timed: at the batch shape (2400 utterances, 128 filters, 100
+    bins, contiguous) from the all-off start, and at the serving shape
+    (4096 streams, 10 bins, the engine's view of a (T, B, F) tensor) from a
+    carried state. Bound: the spectrogram read once, the spikes and the
+    state written once."""
+    from lsm_tpu_torch.config import FrontendConfig
+    from lsm_tpu_torch.ops import hysteresis as hyst
+    from lsm_tpu_torch.ops.kernels import hysteresis as khyst
+
+    fcfg = FrontendConfig()
+    thr, gap = fcfg.spike_thresholds, fcfg.hysteresis_gap
+    on, off = hyst.levels(thr, gap)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rec = {}
+    for name, (b, t) in {"batch": (2400, fcfg.time_bins), "serve": (4096, 10)}.items():
+        if name == "batch":
+            spec = torch.rand(b, fcfg.n_filters, t, device=dev, generator=gen)
+            state = None
+            state0 = torch.zeros(b, len(on), fcfg.n_filters, dtype=torch.bool, device=dev)
+            run = lambda: hyst.hysteresis_encode(spec, thr, gap)     # noqa: E731
+        else:
+            spec = torch.rand(t, b, fcfg.n_filters, device=dev, generator=gen).permute(1, 2, 0)
+            state = state0 = torch.rand(b, len(on), fcfg.n_filters, device=dev,
+                                        generator=gen) < 0.3
+            run = lambda: hyst.hysteresis_encode_step(spec, state, thr, gap)  # noqa: E731
+        out = run()
+        plain = khyst.encode_plain(spec, state0, on, off)
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        equal = all(torch.equal(a, p) for a, p in zip(outs, plain))
+        rec[name] = {"shape": [b, fcfg.n_filters, t], "bit_equal": bool(equal),
+                     "max_abs_err": 0.0 if equal else 1.0,
+                     "ms": cuda_ms(run, reps=50, warmup=3),
+                     "plain_ms": cuda_ms(lambda: khyst.encode_plain(spec, state0, on, off),
+                                         reps=5),
+                     **bound(0.0, nbytes(spec, *outs) + (0 if state is None else nbytes(state)))}
+        r = rec[name]
+        print(f"[encoder] {name} B={b} F={fcfg.n_filters} T={t}: bit_equal {equal} kernel "
+              f"{r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) ({card})")
+        if not equal:
+            fail(f"the encoder kernel differs from its plain twin at the {name} shape")
+    return rec
 
 
 def _dummy_readout(reservoir, keys, n_classes: int = 12):

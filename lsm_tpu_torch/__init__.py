@@ -30,8 +30,9 @@ the tests hold equal to lsm_tpu's.
 
 The six TPU kernels on these paths are hand-written CUDA C++ for sm_90a
 (csrc/gtgram.cu: B1 and its carried-state sibling B3; csrc/lif.cu: B2
-and B4; csrc/sparse_lif.cu: B5 and B6), built with nvcc at first use and
-bound with ctypes
+and B4; csrc/sparse_lif.cu: B5 and B6), and so is the hysteresis spike
+encoder (csrc/hysteresis.cu), built with nvcc at first use and bound with
+ctypes
 (ops/_build.py). Each wrapper runs its plain PyTorch
 twin for CPU tensors and the kernel for CUDA tensors.
 """

@@ -126,7 +126,11 @@ def test_gtgram_chunk_wrapper_cpu_and_validation(chunks):
         kgt.chunk(w, fb, st.transpose(0, 2).contiguous().transpose(0, 2))
 
 
-def test_hysteresis_step_chained_bit_equal():
+@pytest.mark.parametrize("layout", ["contiguous", "engine"])
+def test_hysteresis_step_chained_bit_equal(layout):
+    """Chained 10-bin chunks against lsm_tpu and one whole-signal call; the
+    "engine" layout hands each chunk over as the continuous engine does, the
+    (B, F, T) view of a contiguous (T, B, F) tensor."""
     rng = np.random.default_rng(8)
     spec = rng.random((3, 16, 100)).astype(np.float32)
     levels = np.asarray(THR, np.float32)
@@ -136,9 +140,12 @@ def test_hysteresis_step_chained_bit_equal():
     st_t = torch.zeros(3, 4, 16, dtype=torch.bool)
     outs = []
     for s in range(0, 100, 10):
+        chunk = torch.as_tensor(spec[..., s:s + 10])
+        if layout == "engine":
+            chunk = chunk.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+            assert not chunk.is_contiguous()
         sp_j, st_j = jhyst.hysteresis_encode_step(jnp.asarray(spec[..., s:s + 10]), st_j, THR, GAP)
-        sp_t, st_t = thyst.hysteresis_encode_step(torch.as_tensor(spec[..., s:s + 10]),
-                                                  st_t, THR, GAP)
+        sp_t, st_t = thyst.hysteresis_encode_step(chunk, st_t, THR, GAP)
         np.testing.assert_array_equal(sp_t.numpy(), np.asarray(sp_j))
         np.testing.assert_array_equal(st_t.numpy(), np.asarray(st_j))
         outs.append(sp_t.numpy())

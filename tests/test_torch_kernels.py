@@ -11,15 +11,19 @@ import numpy as np
 import pytest
 import torch
 
-from lsm_tpu_torch.config import FrontendConfig, ReservoirConfig
+from lsm_tpu_torch.config import FEATURE_SETS, FrontendConfig, ReservoirConfig
 from lsm_tpu_torch.io import dataset
 from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models import sparse
+from lsm_tpu_torch.models.continuous import ContinuousKWS
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.ops import gammatone as gt
+from lsm_tpu_torch.ops import hysteresis as hyst
 from lsm_tpu_torch.ops.kernels import gtgram as kgt
+from lsm_tpu_torch.ops.kernels import hysteresis as khyst
 from lsm_tpu_torch.ops.kernels import lif as klif
 from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
+from lsm_tpu_torch.readout import logistic, scaler
 
 pytestmark = pytest.mark.gpu
 
@@ -633,3 +637,127 @@ def test_sparse_kernels_refuse_what_they_cannot_run(cuda):
         ksp.sparse_lif_chunk(x, *ops, v[:, :128].contiguous(), refrac, s, **kw)
     with pytest.raises(ValueError, match="windows"):
         ksp.sparse_lif_chunk(x, *ops, v, refrac, s, **{**kw, "win_len": 30})
+
+
+HYST_THRESHOLDS = {1: (0.5,), 4: FrontendConfig().spike_thresholds,
+                   7: (0.3, 0.95, 0.2, 0.6, 0.8, 0.45, 0.7)}
+
+
+def _hyst_spec(shape, thresholds, gap, seed):
+    """Spectrogram values in [0, 1] with a run exactly on the ON thresholds
+    and the OFF levels, and NaNs, in the first (row, filter) of each layout."""
+    spec = np.random.default_rng(seed).random(shape).astype(np.float32)
+    on, off = hyst.levels(thresholds, gap)
+    edges = np.concatenate([on, off, [np.nan]]).astype(np.float32)
+    flat = spec.reshape(-1, spec.shape[-1])
+    flat[0, ::2] = np.resize(edges, flat[0, ::2].shape)
+    flat[1, 3::7] = np.nan
+    return spec
+
+
+@pytest.mark.parametrize("n_thr", [1, 4, 7])
+def test_hysteresis_kernel_bit_equal_at_batch_shape(cuda, n_thr):
+    """The kernel against its plain twin on the batch path's contiguous
+    (B, F, T) spectrogram: the batch entry (all-off start, no state out)
+    and the carried-state entry from a random state, which it must not
+    write."""
+    thr, gap = HYST_THRESHOLDS[n_thr], 0.1
+    on, off = hyst.levels(thr, gap)
+    spec = torch.as_tensor(_hyst_spec((37, 128, 100), thr, gap, n_thr)).to(cuda)
+    state = torch.as_tensor(np.random.default_rng(n_thr).random((37, n_thr, 128)) < 0.5).to(cuda)
+    keep = state.clone()
+    before = khyst.launches
+    spikes = hyst.hysteresis_encode(spec, thr, gap)
+    step_spikes, step_state = hyst.hysteresis_encode_step(spec, state, thr, gap)
+    assert khyst.launches == before + 2
+    zeros = torch.zeros_like(state)
+    ref_spikes = khyst.encode_plain(spec, zeros, on, off)[0]
+    ref_step, ref_state = khyst.encode_plain(spec, state, on, off)
+    torch.cuda.synchronize()
+    assert spikes.shape == (37, 128, 100 * n_thr) and spikes.dtype == torch.uint8
+    assert torch.equal(spikes, ref_spikes) and spikes.any()
+    assert torch.equal(step_spikes, ref_step) and torch.equal(step_state, ref_state)
+    assert torch.equal(state, keep)
+    assert not torch.equal(step_spikes, spikes)     # the carried state mattered
+
+
+@pytest.mark.parametrize("n_thr", [1, 4, 7])
+def test_hysteresis_kernel_chained_on_the_serving_layout(cuda, n_thr):
+    """The serving engine's layout: each hop's 10 bins as the (B, F, T)
+    view of a contiguous (T, B, F) tensor, the state threaded hop to hop;
+    every hop bit-equal to the twin, and the hops together to one
+    whole-signal call on the contiguous layout."""
+    thr, gap = HYST_THRESHOLDS[n_thr], 0.1
+    on, off = hyst.levels(thr, gap)
+    spec = torch.as_tensor(_hyst_spec((37, 128, 100), thr, gap, 10 + n_thr)).to(cuda)
+    whole = spec.permute(2, 0, 1).contiguous()                          # (T, B, F)
+    state = torch.zeros(37, n_thr, 128, dtype=torch.bool, device=cuda)
+    twin_state = state
+    hops = []
+    for s in range(0, 100, 10):
+        view = whole[s:s + 10].clone().permute(1, 2, 0)              # (B, F, 10)
+        assert view.stride() == (128, 1, 37 * 128)
+        spikes, state = hyst.hysteresis_encode_step(view, state, thr, gap)
+        twin, twin_state = khyst.encode_plain(view, twin_state, on, off)
+        torch.cuda.synchronize()
+        assert torch.equal(spikes, twin) and torch.equal(state, twin_state)
+        hops.append(spikes)
+    one = hyst.hysteresis_encode(spec, thr, gap)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(hops, dim=-1), one) and one.any()
+
+
+@pytest.mark.parametrize("n_thr,layout", [(4, "batch"), (7, "engine")])
+def test_hysteresis_kernel_bit_equal_over_several_tiles(cuda, n_thr, layout):
+    """Past 128 bins the kernel walks a row in several tiles, the triggers
+    carried between them."""
+    thr, gap = HYST_THRESHOLDS[n_thr], 0.1
+    on, off = hyst.levels(thr, gap)
+    spec = torch.as_tensor(_hyst_spec((3, 50, 300), thr, gap, 20 + n_thr)).to(cuda)
+    if layout == "engine":
+        spec = spec.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    state = torch.as_tensor(np.random.default_rng(n_thr).random((3, n_thr, 50)) < 0.5).to(cuda)
+    spikes, new = hyst.hysteresis_encode_step(spec, state, thr, gap)
+    ref, ref_state = khyst.encode_plain(spec, state, on, off)
+    torch.cuda.synchronize()
+    assert torch.equal(spikes, ref) and torch.equal(new, ref_state) and spikes.any()
+
+
+def test_hysteresis_kernel_refuses_what_it_cannot_run(cuda):
+    spec = torch.rand(2, 8, 10, device=cuda)
+    with pytest.raises(ValueError, match="thresholds"):
+        hyst.hysteresis_encode(spec, np.linspace(0.1, 0.9, 33), 0.05)
+    with pytest.raises(TypeError, match="float32"):
+        hyst.hysteresis_encode(spec.double(), (0.5,), 0.1)
+    with pytest.raises(TypeError, match="bool"):
+        hyst.hysteresis_encode_step(spec, torch.zeros(2, 1, 8, device=cuda), (0.5,), 0.1)
+    with pytest.raises(ValueError, match="gap"):
+        hyst.hysteresis_encode(spec, (0.5,), -0.1)
+    # 32 thresholds is the kernel's limit, and runs.
+    thr = np.linspace(0.02, 0.98, 32)
+    on, off = hyst.levels(thr, 0.01)
+    out = hyst.hysteresis_encode(spec, thr, 0.01)
+    torch.cuda.synchronize()
+    off_state = torch.zeros(2, 32, 8, dtype=torch.bool, device=cuda)
+    assert torch.equal(out, khyst.encode_plain(spec, off_state, on, off)[0])
+
+
+def test_hysteresis_kernel_launches_once_a_call(cuda):
+    """featurize_batch and each ContinuousKWS.step launch the kernel once."""
+    fcfg = FrontendConfig()
+    audio, _ = dataset.synthetic_audio_batch_hard(1, 12, seed=5)
+    before = khyst.launches
+    featurize_batch(torch.as_tensor(audio[:4]).to(cuda), fcfg)
+    assert khyst.launches == before + 1
+    r = res.init_reservoir(ReservoirConfig(num_neurons=128, num_output_neurons=64), fcfg.n_filters,
+                           mean_weight=0.01, device=cuda)
+    d = len(FEATURE_SETS["original"]) * r.n_outputs
+    kws = ContinuousKWS(r, logistic.LogisticReadout(torch.zeros(d, 12, device=cuda),
+                                                    torch.zeros(12, device=cuda)),
+                        scaler.Scaler(torch.zeros(d, device=cuda), torch.ones(d, device=cuda)),
+                        fcfg, "original", n_streams=3)
+    wire = (np.clip(audio[:3, :3200], -1, 1) * 32767).astype(np.int16)
+    for c in range(2):
+        before = khyst.launches
+        kws.step(np.ascontiguousarray(wire[:, c * 1600:(c + 1) * 1600]))
+        assert khyst.launches == before + 1

@@ -33,6 +33,7 @@ from lsm_tpu_torch.ops import hysteresis as thyst
 from lsm_tpu_torch.ops import resample as tres
 from lsm_tpu_torch.ops import ulaw as tulaw
 from lsm_tpu_torch.ops.kernels import gtgram as kgt
+from lsm_tpu_torch.ops.kernels import hysteresis as khyst
 
 # Under pytest-xdist several workers share a few cores; torch's intra-op
 # thread pools would contend (the tiny ops here run ~10x slower so).
@@ -101,13 +102,47 @@ def test_hysteresis_bit_equal():
     spec[0, 0, ::2] = np.resize(edges, 50)
     ref = np.asarray(jhyst.hysteresis_encode(
         jnp.asarray(spec), cfg.spike_thresholds, cfg.hysteresis_gap))
+    before = khyst.launches
     out = thyst.hysteresis_encode(
         torch.as_tensor(spec), cfg.spike_thresholds, cfg.hysteresis_gap).numpy()
+    assert khyst.launches == before                  # CPU tensors take the plain twin
     assert out.dtype == np.uint8 and out.shape == (3, 16, 400)
     np.testing.assert_array_equal(out, ref)
+    # The batch entry's all-off start is an explicit all-False state.
+    off = torch.zeros(3, len(cfg.spike_thresholds), 16, dtype=torch.bool)
+    step, _ = thyst.hysteresis_encode_step(torch.as_tensor(spec), off, cfg.spike_thresholds,
+                                           cfg.hysteresis_gap)
+    np.testing.assert_array_equal(step.numpy(), out)
     np.testing.assert_array_equal(
         out[1], jhyst.hysteresis_encode_reference(spec[1], cfg.spike_thresholds,
                                                   cfg.hysteresis_gap))
+
+
+@pytest.mark.parametrize("case", ["33 thresholds", "float64", "int state", "state shape",
+                                  "state device", "2-d"])
+def test_hysteresis_encoder_refuses(case):
+    """What the kernel cannot take is refused before any launch, on every
+    device, so the refusals show on CPU tensors too."""
+    spec, state = torch.rand(2, 8, 10), torch.zeros(2, 4, 8, dtype=torch.bool)
+    on, off = thyst.levels((0.7, 0.8, 0.9, 0.95), 0.1)
+    error, match = ValueError, None
+    if case == "33 thresholds":
+        on, off = thyst.levels(np.linspace(0.1, 0.9, 33), 0.05)
+        state, match = None, "1 to 32 thresholds"
+    elif case == "float64":
+        spec, error, match = spec.double(), TypeError, "float32"
+    elif case == "int state":
+        state, error, match = state.to(torch.uint8), TypeError, "bool"
+    elif case == "state shape":
+        state, match = state[:, :3], "trigger state"
+    elif case == "state device":
+        state, match = state.to("meta"), "trigger state on meta"
+    else:
+        spec, state, match = spec[0], None, "not \\(B, F, T\\)"
+    before = khyst.launches
+    with pytest.raises(error, match=match):
+        khyst.encode(spec, state, on, off)
+    assert khyst.launches == before
 
 
 def test_gammatone_constants_equal():
