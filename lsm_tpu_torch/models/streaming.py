@@ -39,6 +39,7 @@ from lsm_tpu_torch.parallel.mesh import (
     place_stream_chunk, replicate_to_mesh,
 )
 from lsm_tpu_torch.readout import logistic, scaler
+from lsm_tpu_torch.utils.profiling import span
 
 _WIRE_DTYPES = (torch.float32, torch.int16, torch.uint8)
 _NP_OF = {torch.float32: np.float32, torch.int16: np.int16, torch.uint8: np.uint8,
@@ -109,10 +110,12 @@ def bind_mesh(kws, mesh: Optional[Mesh], indivisible: str) -> None:
 
 def gather_streams(kws, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """This rank's stream rows of a result (stream axis `dim`) -> all
-    n_streams rows, on every rank; x itself without a mesh."""
+    n_streams rows, on every rank, under the span `lsm.kws.gather`; x
+    itself without a mesh (and no span)."""
     if kws.mesh is None:
         return x
-    return gather_rows(x, kws.mesh, DATA_AXIS, dim)
+    with span("lsm.kws.gather"):
+        return gather_rows(x, kws.mesh, DATA_AXIS, dim)
 
 
 def local_slice(a: np.ndarray, rows: slice, axis: int) -> np.ndarray:

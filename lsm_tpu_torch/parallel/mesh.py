@@ -15,11 +15,17 @@ two ranks on one card). gloo takes CUDA tensors only for all_reduce and
 broadcast, so those are the only two collectives used: a gather is an
 all_reduce of a zeroed buffer in which each rank fills its own slot,
 summed as bytes (exact: every byte has one nonzero contributor).
+
+`collectives` and `collective_bytes` count the collectives that
+`gather_rows`, `deliver_rows` and `all_reduce_sum` issue and the bytes of
+the buffers they hand to them (a gather's whole zeroed buffer, every
+rank's slot); a call that needs no collective counts nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import functools
 import os
 import socket
@@ -31,6 +37,15 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+collectives = 0          # collectives issued by gather_rows, deliver_rows, all_reduce_sum
+collective_bytes = 0     # bytes of the buffers handed to them
+
+
+def _count(buf: torch.Tensor) -> None:
+    global collectives, collective_bytes
+    collectives += 1
+    collective_bytes += buf.numel() * buf.element_size()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -156,6 +171,7 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS, dim: int = 0
     raw = x.view(torch.uint8).reshape(x.shape[0], -1) if x.dim() else x.view(1).view(torch.uint8)
     buf = torch.zeros((size,) + tuple(raw.shape), dtype=torch.uint8, device=x.device)
     buf[mesh.index(axis)] = raw
+    _count(buf)
     dist.all_reduce(buf, group=mesh.group(axis))
     return buf.view(x.dtype).reshape((size * x.shape[0],) + tuple(x.shape[1:]))
 
@@ -193,6 +209,7 @@ def deliver_rows(parts, mesh: Mesh, axis: str = DATA_AXIS) -> list:
     raws = [p.reshape(-1).view(torch.uint8) for p in parts]
     flat = torch.cat(raws)
     if flat.numel():
+        _count(flat)
         dist.all_reduce(flat, group=mesh.group(axis))
     out, off = [], 0
     for p, r in zip(parts, raws):
@@ -220,6 +237,7 @@ def host_local(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """x summed over the ranks of the data axis, in place, and returned."""
     if mesh.shape[DATA_AXIS] > 1:
+        _count(x)
         dist.all_reduce(x, group=mesh.group(DATA_AXIS))
     return x
 
@@ -261,12 +279,16 @@ def default_backend(local_world: int) -> str:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     backend: Optional[str] = None) -> None:
+                     backend: Optional[str] = None,
+                     timeout: Optional[datetime.timedelta] = None) -> None:
     """Join the process group (one call per process, before any mesh).
     With a coordinator "host:port", the process grid is given; without one,
     torch's launcher environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
     RANK, as torchrun sets them) describes it. The backend defaults to NCCL
-    where every rank of this host has its own GPU, else gloo."""
+    where every rank of this host has its own GPU, else gloo. `timeout`
+    bounds the rendezvous and every collective of the group (a rank that
+    died leaves the others raising, or NCCL's watchdog ending them, once it
+    passes); None keeps torch's default."""
     if coordinator_address:
         init_method = f"tcp://{coordinator_address}"
         world, rank = int(num_processes), int(process_id)
@@ -275,8 +297,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
         init_method = "env://"
         world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    kw = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group(backend or default_backend(local_world), init_method=init_method,
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, **kw)
 
 
 def maybe_init_distributed_from_env() -> bool:

@@ -18,6 +18,7 @@ The spans, one at each layer boundary of the two paths:
   lsm.kws.reservoir  B4 or B6 and their wrappers' ops
   lsm.kws.readout    ring pushes, the fold, features, scaler, readout
   lsm.kws.egress     the gather, the compact output and the host copy
+  lsm.kws.gather     gather_streams on a mesh: the collective and its buffer
   lsm.frontend       featurize_batch, with its children
   lsm.frontend.spectrogram   wire decode, B1 (or mel), dB
   lsm.frontend.normalize     min-max and the zoom to time_bins
