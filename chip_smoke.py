@@ -91,6 +91,12 @@ Phases (any failure exits non-zero):
                In phases 7 and 10 the chunk kernel's totals of carried
                spikes and output spike counts must stay within 1e-3 of
                the twin's on every hop of the cycle.
+               Then the serving fold kernel (csrc/fold.cu) against its
+               plain twin on the same CUDA tensors, bit for bit: phase 6's
+               dense modules at 4096 streams (flagship.serve's shape) and
+               phase 9's at 1024, on a live engine's rings after one 1 s
+               window of int16 hops, the push and the fold-only mode, each
+               timed beside the twin and the bytes it must move.
  11. offline - WAVs on disk at the flagship config (2400 synthetic files
                in Speech Commands layout and one corrupt one):
                create_spike_dataset on the int16 wire bit-equal to the
@@ -532,17 +538,19 @@ def device_profile(run, calls: int, trace: str | None = None) -> dict:
 
 
 def reset_launches() -> None:
+    from lsm_tpu_torch.ops.kernels import fold as kfold
     from lsm_tpu_torch.ops.kernels import gtgram as kgt
     from lsm_tpu_torch.ops.kernels import hysteresis as khyst
     from lsm_tpu_torch.ops.kernels import lif as klif
     from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
     kgt.launches = kgt.chunk_launches = klif.launches = klif.chunk_launches = 0
-    ksp.launches = ksp.chunk_launches = khyst.launches = 0
+    ksp.launches = ksp.chunk_launches = khyst.launches = kfold.launches = 0
     klif.body_launches.update(dict.fromkeys(klif.body_launches, 0))
 
 
 def read_launches() -> dict:
+    from lsm_tpu_torch.ops.kernels import fold as kfold
     from lsm_tpu_torch.ops.kernels import gtgram as kgt
     from lsm_tpu_torch.ops.kernels import hysteresis as khyst
     from lsm_tpu_torch.ops.kernels import lif as klif
@@ -551,7 +559,7 @@ def read_launches() -> dict:
     return {"B1": kgt.launches, "B2": klif.launches,
             "B3": kgt.chunk_launches, "B4": klif.chunk_launches,
             "B5": ksp.launches, "B6": ksp.chunk_launches, "encoder": khyst.launches,
-            "dense_bodies": dict(klif.body_launches)}
+            "fold": kfold.launches, "dense_bodies": dict(klif.body_launches)}
 
 
 def on_cluster_body(launches: dict) -> bool:
@@ -913,6 +921,8 @@ def main() -> None:
     if min(sserve["launches"]["B3"], sserve["launches"]["B6"]) <= 0:
         fail(f"a kernel of the sparse serving path was not launched: {sserve['launches']}")
     b6_line = {**sk["B6"], **{k: sserve["B6"][k] for k in timed}}
+    record["fold"] = fk = fold_kernel(dev, card, cont["engine_args"], engine_10k)
+    laps("10 fold kernel")
 
     # ---- 11-12. offline inference and serving entry points -------------
     with tempfile.TemporaryDirectory(prefix="lsm_offline_") as tmp_name:
@@ -944,7 +954,8 @@ def main() -> None:
                 "bound_by": rec["bound_by"], "library_ms": None}
 
     # No single PyTorch call computes the IIR block scan, the spike-driven
-    # LIF recurrence or the hysteresis encoder, so library_ms is null for all.
+    # LIF recurrence, the hysteresis encoder or the ring fold, so library_ms
+    # is null for all.
     kernels = {"kernels": [
         row("gtgram_sub_energy", "B1", "lsm_tpu_torch/csrc/gtgram.cu",
             "lsm_tpu/ops/pallas/gtgram_kernel.py:70", b1, launches),
@@ -961,6 +972,8 @@ def main() -> None:
             "lsm_tpu/ops/pallas/sparse_lif_chunk_kernel.py:36", b6_line, sserve["launches"]),
         row("hysteresis_encode", "encoder", "lsm_tpu_torch/csrc/hysteresis.cu", None,
             enc["batch"], launches),
+        row("serving_fold", "fold", "lsm_tpu_torch/csrc/fold.cu", None, fk["dense"],
+            record["serving"]["launches"]),
     ]}
     record["phase_seconds"] = laps.seconds
     check_no_reference()
@@ -1014,6 +1027,80 @@ def encoder_kernel(dev, card) -> dict:
               f"({r['bound_by']}) ({card})")
         if not equal:
             fail(f"the encoder kernel differs from its plain twin at the {name} shape")
+    return rec
+
+
+def fold_kernel(dev, card, dense, sparse) -> dict:
+    """The serving fold kernel against its plain twin on the same CUDA
+    tensors, bit for bit: `dense` (reservoir, readout, scaler) at 4096
+    streams and `sparse` at N_SERVE, each on the rings of a live engine
+    after one 1 s window of int16 hops, with the next hop's reservoir
+    output; the push and the fold-only mode. Times from CUDA events. Bound:
+    the bytes the kernel must move (the pushed rings' slots read once and
+    written once, the window ring likewise, the features written)."""
+    from lsm_tpu_torch.config import PipelineConfig
+    from lsm_tpu_torch.io import dataset
+    from lsm_tpu_torch.models.continuous import ContinuousKWS
+    from lsm_tpu_torch.models.streaming import decode_pcm_device
+    from lsm_tpu_torch.ops.kernels import fold as kfold
+
+    cfg = PipelineConfig()
+    audio, _ = dataset.synthetic_audio_batch_hard(86, 12, seed=9)
+    n_hops = cfg.frontend.num_samples // CHUNK + 1
+    rec = {}
+    for name, (modules, n) in {"dense": (dense, 4096), "sparse": (sparse, N_SERVE)}.items():
+        # Stream s plays utterance s % 1032 from an offset of its own,
+        # wrapping at the end of the second.
+        s = np.arange(n)
+        t = ((s // audio.shape[0]) * 311)[:, None] + np.arange(n_hops * CHUNK)
+        wave = np.take_along_axis(audio[s % audio.shape[0]], t % audio.shape[1], axis=1)
+        wire = np.clip(wave * 32768.0, -32768.0, 32767.0).astype(np.int16)
+        hops = [np.ascontiguousarray(wire[:, c * CHUNK:(c + 1) * CHUNK]) for c in range(n_hops)]
+        kws = ContinuousKWS(*modules, cfg.frontend, cfg.feature_set, n_streams=n,
+                            chunk_len=CHUNK)
+        for h in hops[:-1]:
+            kws.step(h)
+        st = kws.state
+        spikes = kws._featurize(decode_pcm_device(torch.as_tensor(hops[-1]).to(dev)), st)[0]
+        new_seg, win_new = kws._reservoir_chunk(spikes, st)[3:]
+        args = (st.segs, st.win_ring, kws._t_c, kws.reservoir.burst_isi_max, kws.keys)
+        before = kfold.launches
+        out, only = kfold.fold(*args, new_seg, win_new), kfold.fold(*args)
+        ref, ref_only = kfold.fold_plain(*args, new_seg, win_new), kfold.fold_plain(*args)
+        torch.cuda.synchronize()
+        launched = kfold.launches - before
+        rings = (all(torch.equal(out[0][k], ref[0][k]) for k in ref[0])
+                 and torch.equal(out[1], ref[1]))
+        equal = rings and torch.equal(out[2], ref[2]) and torch.equal(only[2], ref_only[2])
+        err = max(float((out[2] - ref[2]).abs().max()), float((only[2] - ref_only[2]).abs().max()))
+        fired = float((ref_only[2][:, :st.segs["counts"].shape[2]] > 0).float().mean())
+        ring_bytes = nbytes(*out[0].values())
+        r = {"streams": n, "outputs": int(st.segs["counts"].shape[2]),
+             "n_ring": int(st.segs["counts"].shape[0]), "n_win": int(st.win_ring.shape[2]),
+             "keys": list(kws.keys), "bit_equal": bool(equal), "rings_bit_equal": bool(rings),
+             "max_abs_err": err, "fired_share": fired, "launches_a_call": launched / 2,
+             "ms": cuda_ms(lambda: kfold.fold(*args, new_seg, win_new), reps=50, warmup=3),
+             "fold_only_ms": cuda_ms(lambda: kfold.fold(*args), reps=50, warmup=3),
+             "plain_ms": cuda_ms(lambda: kfold.fold_plain(*args, new_seg, win_new), reps=5),
+             **bound(0.0, 2 * ring_bytes + 2 * nbytes(out[1]) + nbytes(out[2]))}
+        r["fold_only_bound_ms"] = bound(0.0, ring_bytes + nbytes(out[1], out[2]))["bound_ms"]
+        rec[name] = r
+        print(f"[fold] {name} {n} streams x {r['outputs']} outputs, {r['n_ring']} slots, "
+              f"{r['n_win']} rate windows, {len(kws.keys)} features ({fired:.1%} of the outputs "
+              f"fired): bit_equal {equal} kernel {r['ms']:.4f} ms (fold only "
+              f"{r['fold_only_ms']:.4f} ms) plain {r['plain_ms']:.3f} ms bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB; fold only "
+              f"{r['fold_only_bound_ms']:.4f} ms) ({card})")
+        if not equal:
+            fail(f"the fold kernel differs from its plain twin at {n} {name} streams "
+                 f"(rings equal {rings}, features max abs err {err:.3e})")
+        if launched != 2:
+            fail(f"two fold calls launched the kernel {launched} times")
+        if not 0.0 < fired < 1.0:
+            fail(f"{fired:.1%} of the {name} outputs fired: the rings test no silent neuron "
+                 "or no busy one")
+        del kws, st, args, new_seg, win_new, out, only, ref, ref_only
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -1227,7 +1314,7 @@ def continuous_slice(dev, card) -> dict:
     if acc < CONT_MIN_ACC or result.accuracy - acc > CONT_MAX_DELTA:
         fail(f"matched continuous accuracy {acc:.4f} outside the band (>= {CONT_MIN_ACC}, "
              f"within {CONT_MAX_DELTA} of exact {result.accuracy:.4f})")
-    if min(launches["B3"], launches["B4"]) <= 0:
+    if min(launches["B3"], launches["B4"], launches["fold"]) <= 0:
         fail(f"a kernel of the continuous path was not launched: {launches}")
     if not on_cluster_body(launches):
         fail(f"B2/B4 did not run on the cluster body: {launches['dense_bodies']}")
@@ -1265,6 +1352,9 @@ def serving(dev, reservoir, ro, sc, card) -> dict:
     launches = read_launches()
     if logits.shape != (N_SERVE, 12) or not np.isfinite(logits).all():
         fail(f"serving logits {logits.shape} or non-finite")
+    if launches["fold"] != len(hops) + len(walls):
+        fail(f"the fold kernel launched {launches['fold']} times over "
+             f"{len(hops) + len(walls)} hops, not once a hop")
     diag = kws.diagnostics()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 

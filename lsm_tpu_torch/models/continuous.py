@@ -21,8 +21,11 @@ of `chunk_len` samples costs only the new work:
   - LIF reservoir: membrane, refractory and last-spike state carried
     (kernel B4 for a dense reservoir, B6 for a block-sparse one); the
     chunk's output spikes reduce to a segment summary;
-  - window statistics: a ring of window/hop segment summaries folded per
-    hop (`reservoir.fold_segment_stats`) and a ring of rate-window counts.
+  - window statistics: a ring of window/hop segment summaries and a ring
+    of rate-window counts, pushed and folded into the window features per
+    hop in one launch of the fold kernel on the card (`csrc/fold.cu`,
+    `ops/kernels/fold.py`; on the CPU its plain twin,
+    `reservoir.fold_segment_stats` and `features_from_stats`).
 
 The serving surface is lsm_tpu's: step, step_compact, step_active,
 stream, steps_fused, reset, snapshot / restore and extract_streams /
@@ -55,6 +58,7 @@ from lsm_tpu_torch.models.streaming import (
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import mel, stft
 from lsm_tpu_torch.ops.hysteresis import hysteresis_encode_step
+from lsm_tpu_torch.ops.kernels import fold as kfold
 from lsm_tpu_torch.ops.kernels.lif import SEG_KEYS
 from lsm_tpu_torch.parallel.mesh import Mesh
 from lsm_tpu_torch.readout import logistic, scaler
@@ -306,18 +310,16 @@ class ContinuousKWS:
                                   st.s_prev, self._win_len, self._n_new_win)
 
     def _window_features(self, segs, win_ring) -> torch.Tensor:
-        stats = res.fold_segment_stats(segs, self._t_c, self.reservoir.burst_isi_max)
-        stats["win_counts"] = win_ring
-        return res.features_from_stats(stats, self.keys)
+        """The raw window features of the rings as they are."""
+        return kfold.fold(segs, win_ring, self._t_c, self.reservoir.burst_isi_max, self.keys)[2]
 
     def _evaluate(self, st: ContinuousState, new_seg, win_new):
-        """Push the chunk's summary into the rings, fold them and apply the
-        readout: (segs, win_ring, logits)."""
-        segs = {k: torch.cat([st.segs[k][1:], new_seg[k][None]], dim=0) for k in SEG_KEYS}
-        win_ring = torch.cat(
-            [st.win_ring[..., self._n_new_win:], win_new.transpose(1, 2)], dim=-1
-        )
-        feats = self._window_features(segs, win_ring)
+        """Push the chunk's summary into the rings, fold them (one launch of
+        the fold kernel on the card) and apply the readout: (segs,
+        win_ring, logits)."""
+        segs, win_ring, feats = kfold.fold(st.segs, st.win_ring, self._t_c,
+                                           self.reservoir.burst_isi_max, self.keys,
+                                           new_seg, win_new)
         sc, ro = self.scaler_state, self.readout
         logits = (feats - sc.mean) / sc.scale @ ro.w + ro.b
         return segs, win_ring, logits

@@ -59,6 +59,7 @@ def main(argv=None) -> dict:
     from lsm_tpu_torch.models import reservoir as res
     from lsm_tpu_torch.models.frontend import featurize_batch
     from lsm_tpu_torch.ops import gammatone as gt
+    from lsm_tpu_torch.ops.kernels import fold as kfold
     from lsm_tpu_torch.ops.kernels.lif import SEG_KEYS
     from lsm_tpu_torch.readout import logistic, scaler
 
@@ -119,10 +120,8 @@ def main(argv=None) -> dict:
         win = torch.as_tensor(rng.random((B, no, 10)).astype(np.float32)).to(device)
 
         def fold():
-            stats = res.fold_segment_stats(segs, 40, rcfg.burst_isi_max)
-            stats["win_counts"] = win
-            return logistic.predict(readout, scaler.transform(st, res.features_from_stats(
-                stats, keys)))
+            f = kfold.fold(segs, win, 40, rcfg.burst_isi_max, keys)[2]
+            return logistic.predict(readout, scaler.transform(st, f))
 
         stage(cont, "fold+features+predict", fold)
         rec["continuous_stages"] = cont

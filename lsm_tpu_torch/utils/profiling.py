@@ -16,7 +16,8 @@ The spans, one at each layer boundary of the two paths:
                      the wire chunk (also under stream and steps_fused)
   lsm.kws.frontend   decode, B3, window sums, dB, normalization, encoder
   lsm.kws.reservoir  B4 or B6 and their wrappers' ops
-  lsm.kws.readout    ring pushes, the fold, features, scaler, readout
+  lsm.kws.readout    the fold kernel (ring pushes, fold, features; csrc/fold.cu),
+                     scaler, readout
   lsm.kws.egress     the gather, the compact output and the host copy
   lsm.kws.gather     gather_streams on a mesh: the collective and its buffer
   lsm.frontend       featurize_batch, with its children

@@ -17,8 +17,10 @@ from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models import sparse
 from lsm_tpu_torch.models.continuous import ContinuousKWS
 from lsm_tpu_torch.models.frontend import featurize_batch
+from lsm_tpu_torch.models.streaming import decode_pcm_device
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import hysteresis as hyst
+from lsm_tpu_torch.ops.kernels import fold as kfold
 from lsm_tpu_torch.ops.kernels import gtgram as kgt
 from lsm_tpu_torch.ops.kernels import hysteresis as khyst
 from lsm_tpu_torch.ops.kernels import lif as klif
@@ -761,3 +763,127 @@ def test_hysteresis_kernel_launches_once_a_call(cuda):
         before = khyst.launches
         kws.step(np.ascontiguousarray(wire[:, c * 1600:(c + 1) * 1600]))
         assert khyst.launches == before + 1
+
+
+# The benchmark's calibrated mean weights (benchmark/configs/): the flagship
+# dense reservoir at the edge of chaos, the 10240-neuron sparse one
+# sub-critical, so the rings hold busy and silent outputs alike.
+FLAGSHIP_WEIGHT, SCALED10K_WEIGHT = 0.010725368437499999, 0.002963560740152995
+
+
+def _serving_engine(cuda, kind, n_streams, feature_set):
+    fcfg = FrontendConfig()
+    if kind == "dense":
+        r = res.init_reservoir(ReservoirConfig(), fcfg.n_filters, mean_weight=FLAGSHIP_WEIGHT,
+                               device=cuda)
+    else:
+        cfg = ReservoirConfig(num_neurons=10240, small_world_k=2048, sparse_partner_blocks=4,
+                              input_fanout=8)
+        r = sparse.init_reservoir_sparse(cfg, fcfg.n_filters, mean_weight=SCALED10K_WEIGHT,
+                                         device=cuda)
+    d = len(FEATURE_SETS[feature_set]) * r.n_outputs
+    rng = np.random.default_rng(n_streams)
+    ro = logistic.LogisticReadout(
+        torch.as_tensor(rng.normal(0, 0.01, (d, 12)).astype(np.float32)).to(cuda),
+        torch.zeros(12, device=cuda))
+    sc = scaler.Scaler(torch.as_tensor(rng.random(d).astype(np.float32)).to(cuda),
+                       torch.as_tensor((rng.random(d) + 0.5).astype(np.float32)).to(cuda))
+    return ContinuousKWS(r, ro, sc, fcfg, feature_set, n_streams=n_streams)
+
+
+def _serving_wire(n_streams, hops):
+    """(n_streams, hops * 1600) int16: each stream a window of two hard-corpus
+    utterances from its own offset."""
+    audio, _ = dataset.synthetic_audio_batch_hard(2, 12, seed=19)
+    wave = np.concatenate([audio, audio[::-1]], axis=1)               # (24, 32000)
+    n = hops * 1600
+    s = np.arange(n_streams)
+    off = (s * 311) % (wave.shape[1] - n)
+    rows = wave[(s % wave.shape[0])[:, None], off[:, None] + np.arange(n)]
+    return (np.clip(rows, -1, 1) * 32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("kind,n_streams", [("dense", 4096), ("sparse", 1024)])
+@pytest.mark.parametrize("feature_set", ["original", "all"])
+def test_fold_kernel_bit_equal_to_its_twin_on_serving_rings(cuda, kind, n_streams, feature_set):
+    """Eleven chained hops of the engine at the serving cells' shapes: each
+    hop launches the fold kernel once, and its rings, window ring and logits
+    equal the plain twin's on the same state and reservoir output;
+    features() (one fold-only launch) equals the twin's features of that
+    hop, all bit for bit."""
+    kws = _serving_engine(cuda, kind, n_streams, feature_set)
+    wire = _serving_wire(n_streams, 11)
+    sc, ro = kws.scaler_state, kws.readout
+    for c in range(11):
+        chunk = np.ascontiguousarray(wire[:, c * 1600:(c + 1) * 1600])
+        st = kws.state
+        spikes = kws._featurize(decode_pcm_device(torch.as_tensor(chunk).to(cuda)), st)[0]
+        new_seg, win_new = kws._reservoir_chunk(spikes, st)[3:]
+        segs, win, feats = kfold.fold_plain(st.segs, st.win_ring, kws._t_c,
+                                            kws.reservoir.burst_isi_max, kws.keys,
+                                            new_seg, win_new)
+        logits = ((feats - sc.mean) / sc.scale @ ro.w + ro.b).cpu().numpy()
+        before = kfold.launches
+        out = kws.step(chunk)
+        assert kfold.launches == before + 1
+        torch.cuda.synchronize()
+        assert all(torch.equal(kws.state.segs[k], segs[k]) for k in klif.SEG_KEYS), c
+        assert torch.equal(kws.state.win_ring, win), c
+        assert np.array_equal(out, logits), c
+        assert np.array_equal(kws.features(), feats.cpu().numpy()), c
+        assert kfold.launches == before + 2
+    stats = res.fold_segment_stats(kws.state.segs, kws._t_c, kws.reservoir.burst_isi_max)
+    fired = stats["counts"] > 0
+    assert fired.any() and not fired.all() and (stats["n_isi"] > 0).any()
+
+
+@pytest.mark.parametrize("n_win,n_new,n_ring,no", [
+    (10, 1, 10, 400),     # the serving cells' rings
+    (10, 2, 5, 24),       # rows no multiple of a CTA
+    (10, 10, 1, 7),       # a one-slot ring, the whole window ring replaced
+    (400, 40, 10, 33),    # one-step rate windows: 200 KB of shared memory a CTA
+])
+def test_fold_kernel_bit_equal_at_any_ring_shape(cuda, n_win, n_new, n_ring, no):
+    """Random rasters cut into segments as the reservoir kernels write them:
+    the push and the fold-only mode against the twin, every feature set."""
+    seg_len, burst, b = 40, 5, 37
+    raster = torch.as_tensor(np.random.default_rng(no).random((b, (n_ring + 1) * seg_len, no))
+                             < 0.15).to(cuda)
+    raster[:, :, 0] = False                                           # a silent neuron
+    sums = [res.segment_summary(raster[:, s * seg_len:(s + 1) * seg_len], burst)
+            for s in range(n_ring + 1)]
+    segs = {k: torch.stack([sm[k] for sm in sums[:n_ring]]) for k in klif.SEG_KEYS}
+    win = torch.as_tensor(np.random.default_rng(n_win).integers(0, 9, (b, no, n_win))
+                          .astype(np.float32)).to(cuda)
+    win_new = torch.as_tensor(np.random.default_rng(n_new).integers(0, 9, (b, n_new, no))
+                              .astype(np.float32)).to(cuda)
+    for name, keys in FEATURE_SETS.items():
+        args = (segs, win, seg_len, burst, keys)
+        before = kfold.launches
+        out = kfold.fold(*args, sums[n_ring], win_new)
+        only = kfold.fold(*args)
+        assert kfold.launches == before + 2
+        ref = kfold.fold_plain(*args, sums[n_ring], win_new)
+        ref_only = kfold.fold_plain(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(out[0][k], ref[0][k]) for k in klif.SEG_KEYS), name
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2]), name
+        assert only[0] is segs and only[1] is win and torch.equal(only[2], ref_only[2]), name
+        assert out[2].abs().sum() > 0
+
+
+def test_fold_kernel_refuses_what_it_cannot_run(cuda):
+    segs = {k: torch.zeros(2, 3, 8, device=cuda) for k in klif.SEG_KEYS}
+    keys = FEATURE_SETS["original"]
+    with pytest.raises(ValueError, match="rate windows"):
+        kfold.fold(segs, torch.zeros(3, 8, kfold.MAX_WINDOWS + 1, device=cuda), 40, 5, keys)
+    with pytest.raises(ValueError):
+        kfold.fold(segs, torch.zeros(3, 8, 10), 40, 5, keys)         # the window ring on the CPU
+    with pytest.raises(TypeError):
+        kfold.fold({**segs, "counts": segs["counts"].half()}, torch.zeros(3, 8, 10, device=cuda),
+                   40, 5, keys)
+    # No streams: nothing to launch.
+    empty = {k: torch.zeros(2, 0, 8, device=cuda) for k in klif.SEG_KEYS}
+    before = kfold.launches
+    out = kfold.fold(empty, torch.zeros(0, 8, 10, device=cuda), 40, 5, keys)
+    assert out[2].shape == (0, 5 * 8) and kfold.launches == before

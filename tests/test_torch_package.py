@@ -128,8 +128,8 @@ def test_port_imports_nothing_of_the_reference():
 
 def test_kernels_build_into_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "lsm_tpu_torch"
-    assert [p.name for p in _build.sources()] == ["gtgram.cu", "hysteresis.cu", "lif.cu",
-                                                  "sparse_lif.cu"]
+    assert [p.name for p in _build.sources()] == ["fold.cu", "gtgram.cu", "hysteresis.cu",
+                                                  "lif.cu", "sparse_lif.cu"]
 
 
 def test_the_decoder_builds_into_the_checkout_and_nowhere_else(tmp_path):
