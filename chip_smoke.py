@@ -537,29 +537,26 @@ def device_profile(run, calls: int, trace: str | None = None) -> dict:
     }
 
 
-def reset_launches() -> None:
-    from lsm_tpu_torch.ops.kernels import fold as kfold
-    from lsm_tpu_torch.ops.kernels import gtgram as kgt
-    from lsm_tpu_torch.ops.kernels import hysteresis as khyst
-    from lsm_tpu_torch.ops.kernels import lif as klif
-    from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
+# The kernels line's names for the registry's C entry points (ops/_build.py).
+KERNEL_ENTRY = {"B1": "lsm_gtgram_sub_energy", "B2": "lsm_lif_stats", "B3": "lsm_gtgram_chunk",
+                "B4": "lsm_lif_chunk", "B5": "lsm_sparse_lif_stats", "B6": "lsm_sparse_lif_chunk",
+                "encoder": "lsm_hysteresis_encode", "fold": "lsm_fold_window"}
 
-    kgt.launches = kgt.chunk_launches = klif.launches = klif.chunk_launches = 0
-    ksp.launches = ksp.chunk_launches = khyst.launches = kfold.launches = 0
-    klif.body_launches.update(dict.fromkeys(klif.body_launches, 0))
+
+def reset_launches() -> None:
+    from lsm_tpu_torch.ops import _build
+
+    _build.launches.clear()
 
 
 def read_launches() -> dict:
-    from lsm_tpu_torch.ops.kernels import fold as kfold
-    from lsm_tpu_torch.ops.kernels import gtgram as kgt
-    from lsm_tpu_torch.ops.kernels import hysteresis as khyst
-    from lsm_tpu_torch.ops.kernels import lif as klif
-    from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
+    from lsm_tpu_torch.ops._build import launches
 
-    return {"B1": kgt.launches, "B2": klif.launches,
-            "B3": kgt.chunk_launches, "B4": klif.chunk_launches,
-            "B5": ksp.launches, "B6": ksp.chunk_launches, "encoder": khyst.launches,
-            "fold": kfold.launches, "dense_bodies": dict(klif.body_launches)}
+    out = {k: launches[name] for k, name in KERNEL_ENTRY.items()}
+    out["dense_bodies"] = {body: launches[f"lsm_lif_stats:{body}"]
+                           + launches[f"lsm_lif_chunk:{body}"]
+                           for body in ("one_thread", "cluster", "block")}
+    return out
 
 
 def on_cluster_body(launches: dict) -> bool:
@@ -1064,11 +1061,11 @@ def fold_kernel(dev, card, dense, sparse) -> dict:
         spikes = kws._featurize(decode_pcm_device(torch.as_tensor(hops[-1]).to(dev)), st)[0]
         new_seg, win_new = kws._reservoir_chunk(spikes, st)[3:]
         args = (st.segs, st.win_ring, kws._t_c, kws.reservoir.burst_isi_max, kws.keys)
-        before = kfold.launches
+        before = read_launches()["fold"]
         out, only = kfold.fold(*args, new_seg, win_new), kfold.fold(*args)
         ref, ref_only = kfold.fold_plain(*args, new_seg, win_new), kfold.fold_plain(*args)
         torch.cuda.synchronize()
-        launched = kfold.launches - before
+        launched = read_launches()["fold"] - before
         rings = (all(torch.equal(out[0][k], ref[0][k]) for k in ref[0])
                  and torch.equal(out[1], ref[1]))
         equal = rings and torch.equal(out[2], ref[2]) and torch.equal(only[2], ref_only[2])
@@ -1233,9 +1230,9 @@ def gtgram_other_g(dev, audio) -> dict:
                                          n / (fcfg.sample_rate * fcfg.time_bins), n)
         g = int(np.gcd(nwin, hop))
         fb = gt.filterbank(fcfg.sample_rate, fcfg.n_filters, fcfg.gt_f_min, g, dev)
-        before = kgt.launches
+        before = read_launches()["B1"]
         on_card = featurize_batch(wave, fcfg).cpu()
-        launched = kgt.launches - before
+        launched = read_launches()["B1"] - before
         on_cpu = featurize_batch(wave.cpu(), fcfg)
         e1 = kgt.sub_energy(wave, fb)
         b1_close = bool(torch.allclose(e1, kgt.sub_energy_plain(wave, fb), rtol=5e-3, atol=1e-6))
@@ -3501,13 +3498,13 @@ def serve_sequence(kws, hops, path: Path, barrier) -> tuple:
     h = hops[0]
     before = kws.state                       # every step makes new tensors
     arrays["active"] = kws.step_active(h[idx], idx)
-    after = kws._state_leaves()
+    after = kws._leaves()
     kws.state = before
     silent = np.zeros_like(h)
     silent[idx] = h[idx]
     rec["active_equals_silence"] = bool(
         np.array_equal(arrays["active"], kws.step(local(silent)))
-        and all(torch.equal(after[k], v) for k, v in kws._state_leaves().items()))
+        and all(torch.equal(after[k], v) for k, v in kws._leaves().items()))
     mask = np.zeros(kws.n_streams, bool)
     mask[::2] = True
     kws.reset(mask)

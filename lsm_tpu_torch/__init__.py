@@ -30,9 +30,11 @@ the tests hold equal to lsm_tpu's.
 
 The six TPU kernels on these paths are hand-written CUDA C++ for sm_90a
 (csrc/gtgram.cu: B1 and its carried-state sibling B3; csrc/lif.cu: B2
-and B4; csrc/sparse_lif.cu: B5 and B6), and so is the hysteresis spike
-encoder (csrc/hysteresis.cu), built with nvcc at first use and bound with
-ctypes
-(ops/_build.py). Each wrapper runs its plain PyTorch
-twin for CPU tensors and the kernel for CUDA tensors.
+and B4; csrc/sparse_lif.cu: B5 and B6), and so are the hysteresis spike
+encoder (csrc/hysteresis.cu) and the serving readout's window fold
+(csrc/fold.cu), built with nvcc at first use and bound with ctypes
+(ops/_build.py, whose `Entry.launch` makes every kernel call and counts
+it in `_build.launches` by C entry point). Each wrapper (ops/kernels/)
+runs its plain PyTorch twin for CPU tensors and the kernel for CUDA
+tensors.
 """

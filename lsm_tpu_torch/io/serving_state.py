@@ -261,13 +261,6 @@ def load_serving_state(path: Path, kws) -> dict:
     return meta
 
 
-def stream_axis(key: str) -> int:
-    """Axis of a snapshot leaf that indexes streams: 1 for the continuous
-    engine's ring-major `tail` and segment rings, 0 for every other leaf
-    (the exact engine's `buffer` included)."""
-    return 1 if key == "tail" or key.startswith("seg:") else 0
-
-
 def migrate_streams(src, dst, src_idx, dst_idx) -> None:
     """Move live stream state between engines: dst slot `dst_idx[i]`
     continues src stream `src_idx[i]` bit-exactly, other dst slots

@@ -29,10 +29,15 @@ of `chunk_len` samples costs only the new work:
 
 The serving surface is lsm_tpu's: step, step_compact, step_active,
 stream, steps_fused, reset, snapshot / restore and extract_streams /
-install_streams (the unit io/serving_state.py saves and migrates).
+install_streams (the unit the serving-state files save and migrate). The
+carried state's layout lives in one leaf table, `ContinuousKWS.LEAVES`
+(name, stream axis, fresh value, dtype), with each leaf's shape per
+stream in `_row_shapes`; reset, snapshot / restore and extract_streams /
+install_streams are written once over it (models/streaming.py's
+`CarriedState`, which the exact engine shares).
 
 With `mesh=`, every state leaf holds this rank's streams along its stream
-axis (`serving_state.stream_axis`) and the rank's kernels run on them;
+axis and the rank's kernels run on them;
 outputs, snapshots and extracted rows are gathered to all n_streams on
 every rank (models/streaming.py's module docstring has the contract).
 """
@@ -51,9 +56,9 @@ from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.diagnostics import ServingDiagnosticsReport, serving_report
 from lsm_tpu_torch.models.sparse import SparseReservoir
 from lsm_tpu_torch.models.streaming import (
-    bind_mesh, compact_output_device, decode_pcm_device, expand_active_rows, extract_rows,
-    gather_streams, install_rows, local_slice, np_dtype, place_chunk, prepare_active_rows,
-    stream_pipelined, swap_readout_on, unpack_compact_output, validate_stream_idx,
+    CarriedState, Leaf, bind_mesh, compact_output_device, decode_pcm_device,
+    expand_active_rows, gather_streams, place_chunk, prepare_active_rows, stream_pipelined,
+    swap_readout_on, unpack_compact_output,
 )
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import mel, stft
@@ -69,8 +74,8 @@ _LOG10 = 2.302585092994046
 
 @dataclasses.dataclass
 class ContinuousState:
-    """All cross-chunk stream state. Batch axis first except `tail` and
-    `segs` (ring-major like what they cache)."""
+    """All cross-chunk stream state; `ContinuousKWS.LEAVES` gives each
+    leaf's stream axis, fresh value and dtype."""
 
     iir: torch.Tensor        # (B, 8, C) f32 gammatone cascade state
                              #   (mel: (B, 0, C), no IIR state)
@@ -86,13 +91,10 @@ class ContinuousState:
     win_ring: torch.Tensor   # (B, no, n_win) f32 rate-window counts ring
 
 
-# The value of each leaf in a fresh stream: "no observation yet".
-_INIT = dict(iir=0.0, tail=0.0, hyst=False, norm_hi=-1e30, norm_lo=1e30,
-             v=0.0, refrac=0, s_prev=0.0, win_ring=0.0)
-_SEG_INIT = dict(first=float("inf"), last=-1.0)
+_FIELDS = tuple(f.name for f in dataclasses.fields(ContinuousState) if f.name != "segs")
 
 
-class ContinuousKWS:
+class ContinuousKWS(CarriedState):
     """Stateful continuous keyword spotter over B parallel streams.
 
     `reservoir` is the port's dense `Reservoir` or block-sparse
@@ -231,7 +233,39 @@ class ContinuousKWS:
         self._n_new_win = t_c // win_len
         # (n_cols, 1): bin j of a chunk ages the carried peak/floor by j + 1.
         self._jj = torch.arange(n_cols, dtype=torch.float32, device=self.device)[:, None]
-        self.state = self._init_state(self.n_local)
+        self._reset()
+
+    # ---- the carried state: one leaf table ------------------------------
+
+    # Snapshot order. Fresh values mean "no observation yet": norm_hi and
+    # norm_lo start at -1e30/+1e30, so they lose every max/min against
+    # real data and the first chunk normalizes on observed bins alone (a
+    # -180 dB silence init saturates the encoder). `tail` and the segment
+    # rings are ring-major, like what they cache.
+    LEAVES = (
+        Leaf("iir"), Leaf("tail", axis=1), Leaf("hyst", fresh=False, dtype=torch.bool),
+        Leaf("norm_hi", fresh=-1e30), Leaf("norm_lo", fresh=1e30), Leaf("v"),
+        Leaf("refrac", fresh=0, dtype=torch.int32), Leaf("s_prev"), Leaf("win_ring"),
+        *(Leaf(f"seg:{k}", axis=1, fresh={"first": float("inf"), "last": -1.0}.get(k, 0.0))
+          for k in SEG_KEYS),
+    )
+
+    def _row_shapes(self) -> dict:
+        C, no, n = self.fcfg.n_filters, self.reservoir.n_outputs, self._n_state
+        shapes = dict(iir=(self._iir_n, C), tail=(self._tail, self._tail_ch),
+                      hyst=(self.fcfg.n_thresholds, C), norm_hi=(), norm_lo=(), v=(n,),
+                      refrac=(n,), s_prev=(n,), win_ring=(no, self.reservoir.n_rate_windows))
+        shapes.update({f"seg:{k}": (self._n_ring, no) for k in SEG_KEYS})
+        return shapes
+
+    def _leaves(self) -> Dict[str, torch.Tensor]:
+        st = self.state
+        return {**{k: getattr(st, k) for k in _FIELDS},
+                **{f"seg:{k}": v for k, v in st.segs.items()}}
+
+    def _set_leaves(self, leaves: dict) -> None:
+        self.state = ContinuousState(segs={k: leaves[f"seg:{k}"] for k in SEG_KEYS},
+                                     **{k: leaves[k] for k in _FIELDS})
 
     # ---- the step, in three stages -----------------------------------
 
@@ -441,157 +475,19 @@ class ContinuousKWS:
         (global; each rank resets the slots it holds); every leaf of just
         those slots returns to its fresh value and the other streams are
         untouched."""
-        if stream_idx is None:
-            self.state = self._init_state(self.n_local)
-            return
-        idx = np.asarray(stream_idx)
-        if idx.dtype == np.bool_:
-            if idx.shape != (self.n_streams,):
-                raise ValueError(
-                    f"bool mask must have shape ({self.n_streams},), got {idx.shape}"
-                )
-            mask = idx
-        else:
-            mask = np.zeros((self.n_streams,), np.bool_)
-            mask[idx] = True
-        m = torch.as_tensor(mask[self.rows], device=self.device)
-
-        def sel(cur, init_val, axis):
-            shape = [1] * cur.dim()
-            shape[axis] = m.shape[0]
-            fresh = torch.full((), init_val, dtype=cur.dtype, device=self.device)
-            return torch.where(m.view(shape), fresh, cur)
-
-        st = self.state
-        leaves = {k: sel(getattr(st, k), v, 1 if k == "tail" else 0)
-                  for k, v in _INIT.items()}
-        segs = {k: sel(st.segs[k], _SEG_INIT.get(k, 0.0), 1) for k in SEG_KEYS}
-        self.state = ContinuousState(segs=segs, **leaves)
-
-    # ---- state as leaves: snapshots and migration ------------------------
-
-    def _state_leaves(self) -> Dict[str, torch.Tensor]:
-        """Flat name -> tensor view of the state, segment rings keyed
-        'seg:<stat>': the leaves of a snapshot. Stream axis of each:
-        serving_state.stream_axis."""
-        st = self.state
-        leaves = {k: getattr(st, k) for k in _INIT}
-        leaves.update({f"seg:{k}": v for k, v in st.segs.items()})
-        return leaves
-
-    def _from_leaves(self, leaves: Dict[str, torch.Tensor]) -> ContinuousState:
-        return ContinuousState(segs={k: leaves[f"seg:{k}"] for k in SEG_KEYS},
-                               **{k: leaves[k] for k in _INIT})
-
-    def snapshot(self) -> Dict[str, np.ndarray]:
-        """Host copy of every state leaf (lsm_tpu's leaves, shapes, dtypes
-        and axes), all n_streams on every rank (a collective on a mesh).
-        Restoring it into a fresh engine with the same weights continues
-        every stream bit-exactly, warm-up included (io/serving_state.py is
-        the file format and its validation)."""
-        from lsm_tpu_torch.io.serving_state import stream_axis
-
-        return {k: gather_streams(self, v, stream_axis(k)).to("cpu", copy=True).numpy()
-                for k, v in self._state_leaves().items()}
-
-    def restore(self, snap: dict) -> None:
-        """Inverse of snapshot(): install a saved state (full arrays, the
-        same on every rank; each takes its streams). Every leaf is checked
-        against this engine's geometry first, so a snapshot taken with
-        another stream count, frontend, reservoir or chunking fails loudly
-        and leaves the state as it was."""
-        from lsm_tpu_torch.io.serving_state import stream_axis
-
-        extra = {k for k in snap if k.startswith("seg:") and k[4:] not in SEG_KEYS}
-        if extra:
-            raise ValueError(
-                f"snapshot has segment stats {sorted(extra)} this engine "
-                "does not track (different feature set)"
-            )
-        new = {}
-        for key, ref in self._state_leaves().items():
-            if key not in snap:
-                raise ValueError(
-                    f"snapshot is missing state leaf {key!r} — not a "
-                    "ContinuousKWS snapshot, or one from an incompatible build"
-                )
-            a = np.asarray(snap[key])
-            ax = stream_axis(key)
-            shape = tuple(self.n_streams if d == ax else n for d, n in enumerate(ref.shape))
-            want = (shape, np_dtype(ref))
-            if (a.shape, a.dtype) != want:
-                raise ValueError(
-                    f"snapshot leaf {key!r} is {a.dtype}{a.shape}; this "
-                    f"engine needs {want[1]}{want[0]} — the snapshot was "
-                    "taken with a different stream count, frontend, "
-                    "reservoir, or chunk geometry"
-                )
-            new[key] = torch.tensor(local_slice(a, self.rows, ax), device=self.device)
-        self.state = self._from_leaves(new)
-
-    def extract_streams(self, stream_idx) -> Dict[str, np.ndarray]:
-        """snapshot() restricted to the named stream slots: each leaf's
-        rows are gathered on the device, so only they leave it. The unit
-        serving_state.migrate_streams moves; on a mesh a collective."""
-        from lsm_tpu_torch.io.serving_state import stream_axis
-
-        idx = validate_stream_idx(stream_idx, self.n_streams, "extract_streams")
-        return extract_rows(self, {k: (v, stream_axis(k)) for k, v in self._state_leaves().items()},
-                            idx.astype(np.int64))
-
-    def install_streams(self, stream_idx, rows: dict) -> None:
-        """Inverse of extract_streams: scatter donor stream state into the
-        named slots (other slots untouched). `rows` carries one row per
-        index along each leaf's stream axis, the leaves and dtypes of
-        extract_streams; all are checked before any state changes. Each
-        rank writes the slots it holds."""
-        from lsm_tpu_torch.io.serving_state import stream_axis
-
-        idx = validate_stream_idx(stream_idx, self.n_streams, "install_streams", unique=True)
-        ref = self._state_leaves()
-        missing = set(ref) - set(rows)
-        if missing:
-            raise ValueError(f"donor rows are missing state leaves {sorted(missing)}")
-        clean = {}
-        for k, leaf in ref.items():
-            ax = stream_axis(k)
-            want = tuple(idx.shape[0] if d == ax else s for d, s in enumerate(leaf.shape))
-            r = np.asarray(rows[k])
-            if r.shape != want or r.dtype != np_dtype(leaf):
-                raise ValueError(
-                    f"donor leaf {k!r} is {r.dtype}{r.shape}; this engine "
-                    f"needs {np_dtype(leaf)}{want} — the donor engine "
-                    "has a different geometry"
-                )
-            clean[k] = r
-        self.state = self._from_leaves(install_rows(
-            self, {k: (leaf, stream_axis(k)) for k, leaf in ref.items()}, idx.astype(np.int64),
-            clean))
-
-    def _init_state(self, B: int) -> ContinuousState:
-        C = self.fcfg.n_filters
-        n_state = self._n_state
-        no = self.reservoir.n_outputs
-        shapes = dict(
-            iir=(B, self._iir_n, C), tail=(self._tail, B, self._tail_ch),
-            hyst=(B, self.fcfg.n_thresholds, C), norm_hi=(B,), norm_lo=(B,), v=(B, n_state),
-            refrac=(B, n_state), s_prev=(B, n_state), win_ring=(B, no, self.reservoir.n_rate_windows),
-        )
-        dtypes = dict(hyst=torch.bool, refrac=torch.int32)
-        leaves = {
-            # norm_hi/norm_lo start at -1e30/+1e30: they lose every max/min
-            # against real data, so the first chunk normalizes on observed
-            # bins alone (a -180 dB silence init saturates the encoder).
-            k: torch.full(shapes[k], _INIT[k], dtype=dtypes.get(k, torch.float32),
-                          device=self.device)
-            for k in _INIT
-        }
-        segs = {
-            k: torch.full((self._n_ring, B, no), _SEG_INIT.get(k, 0.0),
-                          dtype=torch.float32, device=self.device)
-            for k in SEG_KEYS
-        }
-        return ContinuousState(segs=segs, **leaves)
+        mask = None
+        if stream_idx is not None:
+            idx = np.asarray(stream_idx)
+            if idx.dtype == np.bool_:
+                if idx.shape != (self.n_streams,):
+                    raise ValueError(
+                        f"bool mask must have shape ({self.n_streams},), got {idx.shape}"
+                    )
+                mask = idx
+            else:
+                mask = np.zeros((self.n_streams,), np.bool_)
+                mask[idx] = True
+        self._reset(mask)
 
 
 def fit_continuous_readout(

@@ -1,5 +1,6 @@
 """Streaming keyword spotting: the exact engine `StreamingKWS` and the
-ingest, egress and stream-index helpers both serving engines share (port
+ingest, egress and stream-index helpers both serving engines share, with
+their carried state written once over a leaf table (`CarriedState`) (port
 of lsm_tpu/models/streaming.py, one device).
 
 The exact engine keeps a ring buffer of the trailing 1 s of audio per
@@ -22,8 +23,9 @@ stream indices; each rank acts on the ones it owns.
 
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,11 +46,6 @@ from lsm_tpu_torch.utils.profiling import span
 _WIRE_DTYPES = (torch.float32, torch.int16, torch.uint8)
 _NP_OF = {torch.float32: np.float32, torch.int16: np.int16, torch.uint8: np.uint8,
           torch.int32: np.int32, torch.bool: np.bool_}
-
-
-def np_dtype(t: torch.Tensor) -> np.dtype:
-    """The NumPy dtype a tensor's host copy has."""
-    return np.dtype(_NP_OF[t.dtype])
 
 
 def normalize_ingest_chunk(
@@ -118,11 +115,6 @@ def gather_streams(kws, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         return gather_rows(x, kws.mesh, DATA_AXIS, dim)
 
 
-def local_slice(a: np.ndarray, rows: slice, axis: int) -> np.ndarray:
-    """The `rows` of a full host array along its stream axis."""
-    return a[(slice(None),) * axis + (rows,)]
-
-
 def owned(kws, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(positions in idx, local slots) of the global stream indices this
     rank holds, in idx's order."""
@@ -130,36 +122,141 @@ def owned(kws, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return pos, (idx[pos] - kws.rows.start).astype(np.int64)
 
 
-def extract_rows(kws, leaves: dict, idx: np.ndarray) -> dict:
-    """The rows `idx` (global, validated) of each state leaf, as host
-    arrays: leaves maps name -> (tensor of this rank's rows, stream axis).
-    Only the selected rows leave the device; on a mesh the owning rank
-    fills them into a zeroed buffer and one all_reduce delivers them."""
-    pos, slots = owned(kws, idx)
-    pos_t, slots_t = (torch.as_tensor(a).to(kws.device) for a in (pos, slots))
-    parts = []
-    for leaf, ax in leaves.values():
-        picked = leaf.index_select(ax, slots_t)
-        if kws.mesh is not None:
-            shape = list(leaf.shape)
-            shape[ax] = idx.shape[0]
-            picked = torch.zeros(shape, dtype=leaf.dtype, device=leaf.device).index_copy_(
-                ax, pos_t, picked)
-        parts.append(picked)
-    if kws.mesh is not None:
-        parts = deliver_rows(parts, kws.mesh)
-    return {k: p.cpu().numpy() for k, p in zip(leaves, parts)}
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One tensor of an engine's carried stream state: its snapshot name,
+    the axis that indexes streams, its value in a fresh stream, its
+    dtype."""
+
+    name: str
+    axis: int = 0
+    fresh: Union[float, int, bool] = 0.0
+    dtype: torch.dtype = torch.float32
+
+    def shape(self, row_shape: tuple, n: int) -> tuple:
+        """The leaf's shape at n streams."""
+        return (*row_shape[:self.axis], n, *row_shape[self.axis:])
 
 
-def install_rows(kws, leaves: dict, idx: np.ndarray, rows: dict) -> dict:
-    """Inverse of extract_rows: each leaf with the donor `rows` (host
-    arrays, one row per index along the stream axis, already validated)
-    written into the slots this rank holds; returns the new tensors."""
-    pos, slots = owned(kws, idx)
-    slots_t = torch.as_tensor(slots).to(kws.device)
-    return {k: leaf.index_copy(ax, slots_t,
-                               torch.tensor(np.take(rows[k], pos, axis=ax), device=kws.device))
-            for k, (leaf, ax) in leaves.items()}
+class CarriedState:
+    """The serving engines' carried stream state, written once over one
+    leaf table. An engine lists its leaves in `LEAVES` (snapshot order),
+    gives each one's shape per stream without the stream axis
+    (`_row_shapes`), and reads and replaces them as a name -> tensor dict
+    (`_leaves`, `_set_leaves`). On a mesh each leaf holds this rank's rows
+    (`rows`) along its stream axis."""
+
+    LEAVES: Tuple[Leaf, ...] = ()
+
+    def _pairs(self) -> list:
+        cur = self._leaves()
+        return [(lf, cur[lf.name]) for lf in self.LEAVES]
+
+    def _reset(self, mask: Optional[np.ndarray] = None) -> None:
+        """Every leaf back at its fresh value: for all this rank's rows, or
+        only for the streams a (n_streams,) bool mask names (global), the
+        others untouched."""
+        if mask is None:
+            rows = self._row_shapes()
+            self._set_leaves({lf.name: torch.full(lf.shape(rows[lf.name], self.n_local),
+                                                  lf.fresh, dtype=lf.dtype, device=self.device)
+                              for lf in self.LEAVES})
+            return
+        m = torch.as_tensor(mask[self.rows], device=self.device)
+        new = {}
+        for lf, cur in self._pairs():
+            shape = [1] * cur.dim()
+            shape[lf.axis] = m.shape[0]
+            fresh = torch.full((), lf.fresh, dtype=lf.dtype, device=self.device)
+            new[lf.name] = torch.where(m.view(shape), fresh, cur)
+        self._set_leaves(new)
+
+    def _checked(self, arrays: dict, n: int, what: str, needs: str) -> dict:
+        """arrays[name] of every leaf, each checked for its shape at n
+        streams and its dtype."""
+        rows, out = self._row_shapes(), {}
+        for lf in self.LEAVES:
+            a = np.asarray(arrays[lf.name])
+            want = (lf.shape(rows[lf.name], n), np.dtype(_NP_OF[lf.dtype]))
+            if (a.shape, a.dtype) != want:
+                raise ValueError(f"{what} {lf.name!r} is {a.dtype}{a.shape}; this engine "
+                                 f"needs {want[1]}{want[0]} — {needs}")
+            out[lf.name] = a
+        return out
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """Host copy of every state leaf (lsm_tpu's leaves, shapes, dtypes
+        and axes), all n_streams on every rank (a collective on a mesh).
+        Restoring it into a fresh engine with the same weights continues
+        every stream bit-exactly, warm-up included (the serving-state files
+        hold it)."""
+        return {lf.name: gather_streams(self, cur, lf.axis).to("cpu", copy=True).numpy()
+                for lf, cur in self._pairs()}
+
+    def restore(self, snap: dict) -> None:
+        """Inverse of snapshot(): install a saved state (full arrays, the
+        same on every rank; each takes its streams). Unknown segment stats,
+        missing leaves and leaves of another shape or dtype (another
+        stream count, frontend, reservoir or chunking) raise and leave the
+        state as it was."""
+        names = [lf.name for lf in self.LEAVES]
+        families = {n.split(":")[0] for n in names if ":" in n}           # 'seg:<stat>'
+        extra = sorted(k for k in snap
+                       if ":" in k and k.split(":")[0] in families and k not in names)
+        if extra:
+            raise ValueError(f"snapshot has segment stats {extra} this engine does not track "
+                             "(different feature set)")
+        for n in names:
+            if n not in snap:
+                raise ValueError(f"snapshot is missing state leaf {n!r} — not a "
+                                 f"{type(self).__name__} snapshot, or one from an "
+                                 "incompatible build")
+        full = self._checked(snap, self.n_streams, "snapshot leaf",
+                             "the snapshot was taken with a different stream count, "
+                             "frontend, reservoir, or chunk geometry")
+        self._set_leaves({lf.name: torch.tensor(full[lf.name][(slice(None),) * lf.axis
+                                                              + (self.rows,)], device=self.device)
+                          for lf in self.LEAVES})
+
+    def extract_streams(self, stream_idx) -> Dict[str, np.ndarray]:
+        """snapshot() restricted to the named stream slots: each leaf's
+        rows are gathered on the device, so only they leave it (on a mesh
+        the owning rank fills them into a zeroed buffer and one all_reduce
+        delivers them to every rank). The unit migrate_streams moves."""
+        idx = validate_stream_idx(stream_idx, self.n_streams, "extract_streams").astype(np.int64)
+        pos, slots = owned(self, idx)
+        pos_t, slots_t = (torch.as_tensor(a).to(self.device) for a in (pos, slots))
+        parts = []
+        for lf, cur in self._pairs():
+            picked = cur.index_select(lf.axis, slots_t)
+            if self.mesh is not None:
+                shape = list(cur.shape)
+                shape[lf.axis] = idx.shape[0]
+                picked = torch.zeros(shape, dtype=cur.dtype, device=cur.device).index_copy_(
+                    lf.axis, pos_t, picked)
+            parts.append(picked)
+        if self.mesh is not None:
+            parts = deliver_rows(parts, self.mesh)
+        return {lf.name: p.cpu().numpy() for lf, p in zip(self.LEAVES, parts)}
+
+    def install_streams(self, stream_idx, rows: dict) -> None:
+        """Inverse of extract_streams: scatter donor stream state into the
+        named slots (other slots untouched). `rows` carries one row per
+        index along each leaf's stream axis, the leaves and dtypes of
+        extract_streams; all are checked before any state changes. Each
+        rank writes the slots it holds."""
+        idx = validate_stream_idx(stream_idx, self.n_streams, "install_streams",
+                                  unique=True).astype(np.int64)
+        missing = sorted(lf.name for lf in self.LEAVES if lf.name not in rows)
+        if missing:
+            raise ValueError(f"donor rows are missing state leaves {missing}")
+        clean = self._checked(rows, idx.shape[0], "donor leaf",
+                              "the donor engine has a different geometry")
+        pos, slots = owned(self, idx)
+        slots_t = torch.as_tensor(slots).to(self.device)
+        self._set_leaves({lf.name: cur.index_copy(lf.axis, slots_t, torch.tensor(
+            np.take(clean[lf.name], pos, axis=lf.axis), device=self.device))
+            for lf, cur in self._pairs()})
 
 
 def place_chunk(kws, chunk, fixed_len: bool) -> torch.Tensor:
@@ -385,7 +482,7 @@ def stream_pipelined(kws, chunks, depth: int = 2):
         yield pop()
 
 
-class StreamingKWS:
+class StreamingKWS(CarriedState):
     """Stateful sliding-window keyword spotter over B parallel streams.
 
     `reservoir` is the port's dense `Reservoir` or block-sparse
@@ -422,11 +519,18 @@ class StreamingKWS:
         self.n_streams = int(n_streams)
         bind_mesh(self, mesh, "n_streams={n_streams} must be divisible by the mesh data "
                               "axis ({n_data}) so stream shards are equal")
-        self.buffer = self._zeros()
+        self._reset()
 
-    def _zeros(self) -> torch.Tensor:
-        return torch.zeros((self.n_local, self.fcfg.num_samples), dtype=torch.float32,
-                           device=self.device)
+    LEAVES = (Leaf("buffer"),)
+
+    def _row_shapes(self) -> dict:
+        return {"buffer": (self.fcfg.num_samples,)}
+
+    def _leaves(self) -> Dict[str, torch.Tensor]:
+        return {"buffer": self.buffer}
+
+    def _set_leaves(self, leaves: dict) -> None:
+        self.buffer = leaves["buffer"]
 
     def _evaluate(self, buffer: torch.Tensor) -> torch.Tensor:
         """The batch path over the (B, num_samples) windows: logits (B, K)."""
@@ -523,59 +627,8 @@ class StreamingKWS:
     def reset(self, stream_idx=None) -> None:
         """Zero the window of all streams (None) or of the named slots
         (global indices; each rank clears the ones it holds)."""
-        if stream_idx is None:
-            self.buffer = self._zeros()
-            return
-        idx = validate_stream_idx(stream_idx, self.n_streams, "reset")
-        _, slots = owned(self, idx)
-        self.buffer = self.buffer.index_fill(0, torch.as_tensor(slots).to(self.device), 0.0)
-
-    def snapshot(self) -> dict:
-        """Host copy of all cross-chunk stream state (the ring buffer),
-        every stream on every rank (a collective on a mesh). Restoring it
-        into a fresh engine with the same weights continues every stream
-        bit-exactly (io/serving_state.py is the file format)."""
-        return {"buffer": gather_streams(self, self.buffer).to("cpu", copy=True).numpy()}
-
-    def restore(self, snap: dict) -> None:
-        """Inverse of snapshot(): install a saved state (the full array,
-        the same on every rank; each takes its rows)."""
-        if "buffer" not in snap:
-            raise ValueError(
-                "snapshot is missing state leaf 'buffer' — not a "
-                "StreamingKWS snapshot"
-            )
-        buf = np.asarray(snap["buffer"])
-        want = (self.n_streams, self.fcfg.num_samples)
-        if buf.shape != want or buf.dtype != np.float32:
-            raise ValueError(
-                f"snapshot buffer is {buf.dtype}{buf.shape}; this engine "
-                f"needs float32{want} — the snapshot was taken with a "
-                "different n_streams or frontend"
-            )
-        self.buffer = torch.tensor(buf[self.rows], device=self.device)
-
-    def extract_streams(self, stream_idx) -> dict:
-        """snapshot() restricted to the named stream slots (gathered on the
-        device, so only those rows leave it): what migrate_streams moves.
-        On a mesh a collective: every rank gets all the rows."""
-        idx = validate_stream_idx(stream_idx, self.n_streams, "extract_streams")
-        return extract_rows(self, {"buffer": (self.buffer, 0)}, idx.astype(np.int64))
-
-    def install_streams(self, stream_idx, rows: dict) -> None:
-        """Inverse of extract_streams: scatter donor rows into the named
-        slots, other slots untouched (each rank writes the slots it
-        holds)."""
-        idx = validate_stream_idx(stream_idx, self.n_streams, "install_streams", unique=True)
-        if "buffer" not in rows:
-            raise ValueError("donor rows are missing state leaf 'buffer'")
-        r = np.asarray(rows["buffer"])
-        want = (idx.shape[0], self.fcfg.num_samples)
-        if r.shape != want or r.dtype != np.float32:
-            raise ValueError(
-                f"donor leaf 'buffer' is {r.dtype}{r.shape}; this engine "
-                f"needs float32{want} — the donor engine has a different "
-                "geometry"
-            )
-        self.buffer = install_rows(self, {"buffer": (self.buffer, 0)}, idx.astype(np.int64),
-                                   {"buffer": r})["buffer"]
+        mask = None
+        if stream_idx is not None:
+            mask = np.zeros(self.n_streams, np.bool_)
+            mask[validate_stream_idx(stream_idx, self.n_streams, "reset")] = True
+        self._reset(mask)

@@ -16,10 +16,15 @@ native/Makefile flags into the same directory, keyed by a hash of the
 source, the flags, the compiler's version and the host CPU's target
 flags (-march=native resolves per machine, and a checkout may be copied to
 another host).
+
+Every call of a C entry point goes through `Entry`: bound once at its first
+call, and a kernel launched by `Entry.launch`, which counts it in
+`launches`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -31,6 +36,8 @@ from concurrent.futures import ThreadPoolExecutor
 import time
 from pathlib import Path
 from typing import Optional, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -126,14 +133,45 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """A C entry point with its argtypes set (pointers and the stream as
-    c_void_p, so ctypes never truncates them to 32 bits). Every entry point
-    returns cudaGetLastError() as an int."""
-    fn = getattr(library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+# Kernel launches in this process by C entry point; lif.py's launches also
+# count under '<entry point>:<body>'. Plain twins count nothing.
+launches: collections.Counter = collections.Counter()
+
+
+class Entry:
+    """One C entry point of the kernel library, bound at its first call
+    with its argtypes and restype set once (pointers and the stream as
+    c_void_p, so ctypes never truncates them to 32 bits). Every kernel
+    entry point takes the stream last and returns cudaGetLastError() as an
+    int."""
+
+    def __init__(self, name: str, argtypes: Sequence, restype=ctypes.c_int):
+        self.name = name
+        self._types = (list(argtypes), restype)
+        self._fn = None
+
+    def __call__(self, *args):
+        if self._fn is None:
+            fn = getattr(library(), self.name)
+            fn.argtypes, fn.restype = self._types
+            self._fn = fn
+        return self._fn(*args)
+
+    def launch(self, device: torch.device, *args, body: Optional[str] = None) -> None:
+        """Launch on `device`'s current stream, raise if the launch was
+        refused, and count it (also as '<name>:<body>' when `body` names
+        the kernel body it ran on)."""
+        if device.type != "cuda":
+            raise ValueError(f"unsupported device {device}")
+        with torch.cuda.device(device):
+            err = self(*args, torch.cuda.current_stream(device).cuda_stream)
+        check(err, self.name)
+        launches[self.name] += 1
+        if body is not None:
+            launches[f"{self.name}:{body}"] += 1
+
+
+_error_string = Entry("lsm_cuda_error_string", [ctypes.c_int], ctypes.c_char_p)
 
 
 def build_info() -> dict:
@@ -146,10 +184,7 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error (a refused launch never runs,
     and a later synchronize would not report it)."""
     if err != 0:
-        fn = library().lsm_cuda_error_string
-        fn.argtypes = [ctypes.c_int]
-        fn.restype = ctypes.c_char_p
-        raise RuntimeError(f"{what}: CUDA error {err} at launch: {fn(err).decode()}")
+        raise RuntimeError(f"{what}: CUDA error {err} at launch: {_error_string(err).decode()}")
 
 
 WAVIO_SOURCE = CSRC_DIR / "wavio.cpp"

@@ -35,8 +35,10 @@ FEATURE_CODES = {k: i for i, k in enumerate(FEATURE_SETS["all"])}   # the kernel
 MAX_KEYS = 16
 MAX_WINDOWS = 454        # a CTA's 128 window rows of n_win floats in 227 KB of shared memory
 
-launches = 0             # kernel launches (the plain twin does not count)
-_fn = None               # the C entry point, bound at first use
+_FOLD = _build.Entry("lsm_fold_window", [ctypes.c_void_p] * 3 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+    ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
 def fold_plain(segs: Dict[str, torch.Tensor], win_ring: torch.Tensor, seg_len: int,
@@ -106,7 +108,6 @@ def fold(segs: Dict[str, torch.Tensor], win_ring: torch.Tensor, seg_len: int,
     win_new (B, n_new, no) the rings are pushed first and the new rings
     returned; without, the rings come back as they are. The kernel on CUDA,
     the plain twin on CPU; the inputs are never written."""
-    global launches, _fn
     _check(segs, win_ring, keys, new_seg, win_new)
     dev = win_ring.device
     if dev.type == "cpu":
@@ -136,18 +137,9 @@ def fold(segs: Dict[str, torch.Tensor], win_ring: torch.Tensor, seg_len: int,
     codes = (ctypes.c_int * len(keys))(*[FEATURE_CODES[k] for k in keys])
     # PyTorch's CUDA mean is sum * float(outputs) / numel, in float32.
     factor = float(np.float32(B * no) / np.float32(B * no * n_win))
-    if _fn is None:
-        _fn = _build.function("lsm_fold_window", [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
-            ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                                    ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = _fn(ptrs(seg_in), ptrs(fresh) if push else None, ptrs(outs) if push else None,
-                  n_ring, B * no, no, int(seg_len), float(burst_isi_max), win_in.data_ptr(),
-                  win_fresh.data_ptr() if push else None, win_ring.data_ptr() if push else None,
-                  n_win, win_new.shape[1] if push else 0, factor, codes, len(keys),
-                  feats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "lsm_fold_window")
-    launches += 1
+    _FOLD.launch(dev, ptrs(seg_in), ptrs(fresh) if push else None, ptrs(outs) if push else None,
+                 n_ring, B * no, no, int(seg_len), float(burst_isi_max), win_in.data_ptr(),
+                 win_fresh.data_ptr() if push else None, win_ring.data_ptr() if push else None,
+                 n_win, win_new.shape[1] if push else 0, factor, codes, len(keys),
+                 feats.data_ptr())
     return segs, win_ring, feats

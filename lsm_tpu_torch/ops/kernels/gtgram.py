@@ -38,8 +38,10 @@ from lsm_tpu_torch.ops import _build
 
 N_COEF = 11              # per channel: n0, alpha1, alpha2, beta1[4], beta2[4]
 
-launches = 0             # B1 kernel launches (the plain twin does not count)
-chunk_launches = 0       # B3 kernel launches
+_SUB_ENERGY = _build.Entry("lsm_gtgram_sub_energy", [ctypes.c_void_p] * 3 + [
+    ctypes.c_int] * 5 + [ctypes.c_void_p])                                      # B1
+_CHUNK = _build.Entry("lsm_gtgram_chunk", [ctypes.c_void_p] * 5 + [
+    ctypes.c_int] * 5 + [ctypes.c_void_p])                                      # B3
 
 
 class Filterbank(NamedTuple):
@@ -123,31 +125,19 @@ def _check(wave: torch.Tensor, fb: Filterbank, conv_sub: int | None) -> int:
     return int(conv_sub)
 
 
-def _stream(dev: torch.device) -> int:
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def sub_energy(wave: torch.Tensor, fb: Filterbank, conv_sub: int | None = None) -> torch.Tensor:
     """Sub-block energies (n_sub, B, C) from a zero state: kernel B1 on
     CUDA, the plain twin on CPU. The kernel converts its state every
     `conv_sub` sub-blocks (default `fb.conv_sub`); the twin has no
     conversion."""
-    global launches
     conv_sub = _check(wave, fb, conv_sub)
     if wave.device.type == "cpu":
         return sub_energy_plain(wave, fb)
     B, S = wave.shape
     C, g = fb.coeffs.shape[0], fb.g
     out = torch.empty(S // g, B, C, dtype=torch.float32, device=wave.device)
-    fn = _build.function("lsm_gtgram_sub_energy", [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(wave.device):
-        err = fn(wave.data_ptr(), fb.coeffs.data_ptr(), out.data_ptr(), B, C, S // g, g,
-                 conv_sub, _stream(wave.device))
-    _build.check(err, "lsm_gtgram_sub_energy")
-    launches += 1
+    _SUB_ENERGY.launch(wave.device, wave.data_ptr(), fb.coeffs.data_ptr(), out.data_ptr(),
+                       B, C, S // g, g, conv_sub)
     return out
 
 
@@ -157,7 +147,6 @@ def chunk(wave: torch.Tensor, fb: Filterbank, state: torch.Tensor,
     carried state: kernel B3 on CUDA, the plain twin on CPU. The kernel
     converts its state every `conv_sub` sub-blocks from the call's start
     (default `fb.conv_sub`) and at the call's end."""
-    global chunk_launches
     conv_sub = _check(wave, fb, conv_sub)
     B, S = wave.shape
     C, g = fb.coeffs.shape[0], fb.g
@@ -171,11 +160,6 @@ def chunk(wave: torch.Tensor, fb: Filterbank, state: torch.Tensor,
         return chunk_plain(wave, fb, state)
     state_out = torch.empty_like(state)
     out = torch.empty(S // g, B, C, dtype=torch.float32, device=wave.device)
-    fn = _build.function("lsm_gtgram_chunk", [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(wave.device):
-        err = fn(wave.data_ptr(), fb.coeffs.data_ptr(), state.data_ptr(), state_out.data_ptr(),
-                 out.data_ptr(), B, C, S // g, g, conv_sub, _stream(wave.device))
-    _build.check(err, "lsm_gtgram_chunk")
-    chunk_launches += 1
+    _CHUNK.launch(wave.device, wave.data_ptr(), fb.coeffs.data_ptr(), state.data_ptr(),
+                  state_out.data_ptr(), out.data_ptr(), B, C, S // g, g, conv_sub)
     return state_out, out

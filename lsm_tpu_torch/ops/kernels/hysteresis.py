@@ -23,8 +23,8 @@ from lsm_tpu_torch.ops import _build
 
 MAX_THRESHOLDS = 32      # the kernel keeps a (row, filter)'s triggers in one 32-bit mask
 
-launches = 0             # kernel launches (the plain twin does not count)
-_fn = None               # the C entry point, bound at first use
+_ENCODE = _build.Entry("lsm_hysteresis_encode", [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
 
 
 def encode_plain(spec: torch.Tensor, state: torch.Tensor, on: np.ndarray, off: np.ndarray):
@@ -72,7 +72,6 @@ def encode(spec: torch.Tensor, state, on: np.ndarray, off: np.ndarray,
     None) of spec (B, F, T) float32, from `state` (None: all off): the
     kernel on CUDA, the plain twin on CPU. on/off: the float32 thresholds,
     descending, and their OFF levels. The input state is never written."""
-    global launches, _fn
     n_thr = len(on)
     _check(spec, state, n_thr)
     dev = spec.device
@@ -93,15 +92,7 @@ def encode(spec: torch.Tensor, state, on: np.ndarray, off: np.ndarray,
         state = state.contiguous()
     on_c = (ctypes.c_float * n_thr)(*np.asarray(on, np.float32).tolist())
     off_c = (ctypes.c_float * n_thr)(*np.asarray(off, np.float32).tolist())
-    if _fn is None:
-        _fn = _build.function("lsm_hysteresis_encode", [ctypes.c_void_p] + [
-            ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [
-            ctypes.c_int] + [ctypes.c_void_p] * 4)
-    with torch.cuda.device(dev):
-        err = _fn(spec.data_ptr(), *spec.stride(), B, F, T, on_c, off_c, n_thr,
-                 None if state is None else state.data_ptr(),
-                 None if state_out is None else state_out.data_ptr(), out.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "lsm_hysteresis_encode")
-    launches += 1
+    _ENCODE.launch(dev, spec.data_ptr(), *spec.stride(), B, F, T, on_c, off_c, n_thr,
+                   None if state is None else state.data_ptr(),
+                   None if state_out is None else state_out.data_ptr(), out.data_ptr())
     return out, state_out

@@ -76,9 +76,17 @@ SMEM_LIMIT = 232_448
 ONE_THREAD, CLUSTER, BLOCK = "one_thread", "cluster", "block"
 _BODY_CODE = {ONE_THREAD: 0, CLUSTER: 1, BLOCK: 2}     # as csrc/lif.cu numbers them
 
-launches = 0             # B2 kernel launches (the plain twin does not count)
-chunk_launches = 0       # B4 kernel launches
-body_launches = dict.fromkeys(_BODY_CODE, 0)   # B2 and B4 launches by body
+# B2 and B4 count in _build.launches by entry point and by body
+# ('lsm_lif_stats:cluster', ...).
+_STATS = _build.Entry("lsm_lif_stats", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    ctypes.c_float] + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)                  # B2
+_CHUNK = _build.Entry("lsm_lif_chunk", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+    ctypes.c_float] + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)                  # B4
+_CLUSTER_SMEM = _build.Entry("lsm_lif_cluster_smem", [ctypes.c_int] * 3, ctypes.c_longlong)
+_CLUSTER_CAPACITY = _build.Entry("lsm_lif_cluster_capacity",
+                                 [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+_SCRATCH_BYTES = _build.Entry("lsm_block_lif_scratch_bytes", [ctypes.c_int] * 8,
+                              ctypes.c_longlong)
 
 
 def _lif_update(v, refrac, drive, leak_keep, threshold, refractory):
@@ -293,9 +301,7 @@ def dense_plan(batch: int, channels: int, n_pad: int, refractory: int,
 def cluster_smem(n_pad: int, channels: int, streams: int) -> int:
     """The cluster body's bytes of dynamic shared memory a CTA at `streams`
     streams a round, as csrc/lif.cu lays them out."""
-    fn = _build.function("lsm_lif_cluster_smem", [ctypes.c_int] * 3)
-    fn.restype = ctypes.c_longlong
-    return int(fn(n_pad, channels, streams))
+    return int(_CLUSTER_SMEM(n_pad, channels, streams))
 
 
 _capacity: dict = {}
@@ -309,11 +315,9 @@ def cluster_capacity(device: torch.device, chunk: bool, k: int, threads: int,
     index = device.index if device.index is not None else torch.cuda.current_device()
     key = (index, bool(chunk), k, threads, smem_bytes)
     if key not in _capacity:
-        fn = _build.function("lsm_lif_cluster_capacity",
-                             [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            err = fn(int(chunk), k, threads, smem_bytes, ctypes.byref(out))
+            err = _CLUSTER_CAPACITY(int(chunk), k, threads, smem_bytes, ctypes.byref(out))
         _build.check(err, "lsm_lif_cluster_capacity")
         _capacity[key] = out.value
     return _capacity[key]
@@ -342,9 +346,7 @@ def block_scratch(x, n_state, n_slots, n_outputs, chunk, refractory):
     spike bit planes, input bits, output raster, refrac (8 or 16 bits, as
     `refractory` needs) and, for the batch kernels, v."""
     B, C, T = x.shape
-    fn = _build.function("lsm_block_lif_scratch_bytes", [ctypes.c_int] * 8)
-    fn.restype = ctypes.c_longlong
-    n_bytes = fn(B, C, T, n_state, n_slots, n_outputs, int(chunk), int(refractory))
+    n_bytes = _SCRATCH_BYTES(B, C, T, n_state, n_slots, n_outputs, int(chunk), int(refractory))
     return alloc_block_scratch(n_bytes, x.device, n_state, n_slots)
 
 
@@ -375,7 +377,6 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
               burst_isi_max, n_outputs, n_win, plan: Optional[DensePlan] = None):
     """(stats (11, B, no), all_counts (B, Np)): kernel B2 on CUDA, on the
     body `plan` names (default: `card_plan`'s), the plain twin on CPU."""
-    global launches
     _check(x, w_rec, w_in, leak_keep, n_outputs)
     kw = dict(threshold=threshold, refractory=refractory,
               burst_isi_max=burst_isi_max, n_outputs=n_outputs, n_win=n_win)
@@ -387,24 +388,12 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
     B, C, T = x.shape
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=x.device)
     all_counts = torch.empty(B, n_pad, dtype=torch.float32, device=x.device)
-    fn = _build.function("lsm_lif_stats", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        *[ctypes.c_int] * 6, ctypes.c_void_p, ctypes.c_void_p,
-    ])
-    with torch.cuda.device(x.device):
-        _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, False, refractory)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
-                 leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
-                 B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), max(1, T // n_win), int(n_win), *plan.c_args(),
-                 scratch, stream)
-    _build.check(err, "lsm_lif_stats")
-    launches += 1
-    body_launches[plan.body] += 1
+    _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, False, refractory)
+    _STATS.launch(x.device, x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
+                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
+                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
+                  int(burst_isi_max), max(1, T // n_win), int(n_win), *plan.c_args(),
+                  scratch, body=plan.body)
     return stats, all_counts
 
 
@@ -449,7 +438,6 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
     """One carried-state chunk: (v, refrac, s_prev, seg (9, B, no),
     win (B, n_new_win, no)). Kernel B4 on CUDA, on the body `plan` names
     (default: `card_plan`'s), the plain twin on CPU."""
-    global chunk_launches
     _check(x, w_rec, w_in, leak_keep, n_outputs)
     B, C, T = x.shape
     n_pad = w_rec.shape[0]
@@ -476,22 +464,12 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
     s_out = torch.empty_like(s_prev)
     seg = torch.empty(len(SEG_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     win = torch.empty(B, n_new_win, n_outputs, dtype=torch.float32, device=dev)
-    fn = _build.function("lsm_lif_chunk", [ctypes.c_void_p] * 12 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        *[ctypes.c_int] * 6, ctypes.c_void_p, ctypes.c_void_p,
-    ])
-    with torch.cuda.device(dev):
-        _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, True, refractory)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(), leak_keep.data_ptr(),
-                 v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
-                 v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
-                 seg.data_ptr(), win.data_ptr(),
-                 B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), int(win_len), int(n_new_win), *plan.c_args(),
-                 scratch, stream)
-    _build.check(err, "lsm_lif_chunk")
-    chunk_launches += 1
-    body_launches[plan.body] += 1
+    _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, True, refractory)
+    _CHUNK.launch(dev, x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(), leak_keep.data_ptr(),
+                  v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
+                  v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
+                  seg.data_ptr(), win.data_ptr(),
+                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
+                  int(burst_isi_max), int(win_len), int(n_new_win), *plan.c_args(),
+                  scratch, body=plan.body)
     return v_out, refrac_out, s_out, seg, win

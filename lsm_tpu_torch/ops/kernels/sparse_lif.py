@@ -47,8 +47,10 @@ from lsm_tpu_torch.ops.kernels.lif import (
 
 BLOCK = 128
 
-launches = 0              # B5 kernel launches (the plain twin does not count)
-chunk_launches = 0        # B6 kernel launches
+_STATS = _build.Entry("lsm_sparse_lif_stats", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)                  # B5
+_CHUNK = _build.Entry("lsm_sparse_lif_chunk", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)                  # B6
 
 
 def sparse_drive(s_prev: torch.Tensor, w_blocks: torch.Tensor,
@@ -132,7 +134,6 @@ def sparse_lif_stats(x, w_blocks, src_idx, w_in, leak_keep, *, threshold, refrac
                      burst_isi_max, n_outputs, n_win):
     """(stats (11, B, no), all_counts (B, N)): kernel B5 on CUDA, the plain
     twin on CPU."""
-    global launches
     _check(x, w_blocks, src_idx, w_in, leak_keep, n_outputs)
     kw = dict(threshold=threshold, refractory=refractory,
               burst_isi_max=burst_isi_max, n_outputs=n_outputs, n_win=n_win)
@@ -144,18 +145,11 @@ def sparse_lif_stats(x, w_blocks, src_idx, w_in, leak_keep, *, threshold, refrac
     dev = x.device
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     all_counts = torch.empty(B, nb * BLOCK, dtype=torch.float32, device=dev)
-    fn = _build.function("lsm_sparse_lif_stats", [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(dev):
-        scratch = block_scratch(x, nb * BLOCK, S, n_outputs, False, refractory)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
-                 leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
-                 B, C, T, nb * BLOCK, S, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), max(1, T // n_win), int(n_win), scratch.data_ptr(),
-                 stream)
-    _build.check(err, "lsm_sparse_lif_stats")
-    launches += 1
+    scratch = block_scratch(x, nb * BLOCK, S, n_outputs, False, refractory)
+    _STATS.launch(dev, x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
+                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
+                  B, C, T, nb * BLOCK, S, n_outputs, float(threshold), int(refractory),
+                  int(burst_isi_max), max(1, T // n_win), int(n_win), scratch.data_ptr())
     return stats, all_counts
 
 
@@ -163,7 +157,6 @@ def sparse_lif_chunk(x, w_blocks, src_idx, w_in, leak_keep, v, refrac, s_prev, *
                      threshold, refractory, burst_isi_max, n_outputs, win_len, n_new_win):
     """One carried-state chunk: (v, refrac, s_prev, seg (9, B, no),
     win (B, n_new_win, no)). Kernel B6 on CUDA, the plain twin on CPU."""
-    global chunk_launches
     _check(x, w_blocks, src_idx, w_in, leak_keep, n_outputs)
     B, C, T = x.shape
     nb, S = src_idx.shape
@@ -191,18 +184,11 @@ def sparse_lif_chunk(x, w_blocks, src_idx, w_in, leak_keep, v, refrac, s_prev, *
     s_out = torch.empty_like(s_prev)
     seg = torch.empty(len(SEG_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     win = torch.empty(B, n_new_win, n_outputs, dtype=torch.float32, device=dev)
-    fn = _build.function("lsm_sparse_lif_chunk", [ctypes.c_void_p] * 13 + [
-        ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(dev):
-        scratch = block_scratch(x, n, S, n_outputs, True, refractory)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
-                 leak_keep.data_ptr(), v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
-                 v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
-                 seg.data_ptr(), win.data_ptr(),
-                 B, C, T, n, S, n_outputs, float(threshold), int(refractory),
-                 int(burst_isi_max), int(win_len), int(n_new_win), scratch.data_ptr(),
-                 stream)
-    _build.check(err, "lsm_sparse_lif_chunk")
-    chunk_launches += 1
+    scratch = block_scratch(x, n, S, n_outputs, True, refractory)
+    _CHUNK.launch(dev, x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
+                  leak_keep.data_ptr(), v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
+                  v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
+                  seg.data_ptr(), win.data_ptr(),
+                  B, C, T, n, S, n_outputs, float(threshold), int(refractory),
+                  int(burst_isi_max), int(win_len), int(n_new_win), scratch.data_ptr())
     return v_out, refrac_out, s_out, seg, win

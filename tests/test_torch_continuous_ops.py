@@ -32,6 +32,7 @@ from lsm_tpu.ops.pallas.lif_chunk_kernel import simulate_chunk_pallas
 
 from lsm_tpu_torch import convert
 from lsm_tpu_torch.models import reservoir as tres
+from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops import gammatone as tgt
 from lsm_tpu_torch.ops import hysteresis as thyst
 from lsm_tpu_torch.ops.kernels import gtgram as kgt
@@ -114,9 +115,9 @@ def test_gtgram_chunk_wrapper_cpu_and_validation(chunks):
     wave, state = chunks
     w, st = torch.as_tensor(wave[:, :1600].copy()), torch.as_tensor(state)
     fb = tgt.filterbank(FS, C, FMIN, G, torch.device("cpu"))
-    before = kgt.chunk_launches
+    before = _build.launches.copy()
     s_out, e = kgt.chunk(w, fb, st)
-    assert kgt.chunk_launches == before                 # plain twin: no launch
+    assert _build.launches == before                 # plain twin: no launch
     assert e.shape == (20, 4, C) and s_out.shape == (4, 8, C)
     with pytest.raises(TypeError):
         kgt.chunk(w, fb, st.double())
@@ -278,9 +279,9 @@ def test_lif_chunk_wrapper_cpu_and_validation():
     x = torch.zeros(2, 32, 40, dtype=torch.uint8)
     v, s = torch.zeros(2, 256), torch.zeros(2, 256)
     refrac = torch.zeros(2, 256, dtype=torch.int32)
-    before = klif.chunk_launches
+    before = _build.launches.copy()
     v2, r2, s2, seg, win = klif.lif_chunk(x, *ops, v, refrac, s, **kw, win_len=40, n_new_win=1)
-    assert klif.chunk_launches == before                 # plain twin: no launch
+    assert _build.launches == before                 # plain twin: no launch
     assert seg.shape == (9, 2, 64) and win.shape == (2, 1, 64)
     assert not seg[0].any() and torch.isinf(seg[3]).all() and (seg[4] == -1).all()
     with pytest.raises(TypeError):

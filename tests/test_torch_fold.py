@@ -17,6 +17,7 @@ from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models import sparse
 from lsm_tpu_torch.models.continuous import ContinuousKWS
 from lsm_tpu_torch.models.streaming import decode_pcm_device
+from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops.kernels import fold as kfold
 from lsm_tpu_torch.ops.kernels.lif import SEG_KEYS
 from lsm_tpu_torch.readout import logistic, scaler
@@ -78,9 +79,9 @@ def test_push_equals_the_whole_window(feature_set, seed):
     keys = tuple(FEATURE_SETS[feature_set])
     raster = _raster(seed)
     segs, win, new_seg, win_new = _rings(raster)
-    before = kfold.launches
+    before = _build.launches.copy()
     pushed, ring, feats = kfold.fold(segs, win, SEG_LEN, BURST, keys, new_seg, win_new)
-    assert kfold.launches == before and feats.shape == (B, len(keys) * NO)
+    assert _build.launches == before and feats.shape == (B, len(keys) * NO)
     for s in range(N_RING):
         sm = _summary(raster, s + 1)
         assert all(torch.equal(pushed[k][s], sm[k]) for k in SEG_KEYS)
@@ -101,7 +102,7 @@ def test_fold_only(feature_set):
     push's features."""
     keys = tuple(FEATURE_SETS[feature_set])
     segs, win, new_seg, win_new = _rings(_raster(3))
-    before = kfold.launches
+    before = _build.launches.copy()
     same, ring, feats = kfold.fold(segs, win, SEG_LEN, BURST, keys)
     assert same is segs and ring is win
     stats = res.fold_segment_stats(segs, SEG_LEN, BURST)
@@ -110,7 +111,7 @@ def test_fold_only(feature_set):
     pushed, pring, pfeats = kfold.fold(segs, win, SEG_LEN, BURST, keys, new_seg, win_new)
     assert torch.equal(kfold.fold(pushed, pring, SEG_LEN, BURST, keys)[2], pfeats)
     assert not torch.equal(feats, pfeats)
-    assert kfold.launches == before
+    assert _build.launches == before
 
 
 def _bad(case):
@@ -152,10 +153,10 @@ def _bad(case):
 ])
 def test_fold_refuses(case, error):
     segs, win, keys, new_seg, win_new = _bad(case)
-    before = kfold.launches
+    before = _build.launches.copy()
     with pytest.raises(error):
         kfold.fold(segs, win, SEG_LEN, BURST, keys, new_seg, win_new)
-    assert kfold.launches == before
+    assert _build.launches == before
 
 
 def _engine(kind, n_streams=3):
@@ -180,7 +181,7 @@ def test_engine_hop_equals_the_op_by_op_path(kind):
     of the plain twin's features of the pushed rings, and features()
     returns the features behind the last step()."""
     kws = _engine(kind)
-    before = kfold.launches
+    before = _build.launches.copy()
     audio, _ = dataset.synthetic_audio_batch_hard(1, 3, seed=11)
     wire = (np.clip(audio[:, :4800], -1, 1) * 32767).astype(np.int16)
     sc, ro = kws.scaler_state, kws.readout
@@ -199,4 +200,4 @@ def test_engine_hop_equals_the_op_by_op_path(kind):
         feats = kfold.fold_plain(segs, win, kws._t_c, kws.reservoir.burst_isi_max, kws.keys)[2]
         assert np.array_equal(logits, ((feats - sc.mean) / sc.scale @ ro.w + ro.b).numpy())
         assert np.array_equal(kws.features(), feats.numpy())
-    assert kws.state.segs["counts"].sum() > 0 and kfold.launches == before
+    assert kws.state.segs["counts"].sum() > 0 and _build.launches == before

@@ -18,6 +18,7 @@ from lsm_tpu_torch.models import sparse
 from lsm_tpu_torch.models.continuous import ContinuousKWS
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.models.streaming import decode_pcm_device
+from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops import gammatone as gt
 from lsm_tpu_torch.ops import hysteresis as hyst
 from lsm_tpu_torch.ops.kernels import fold as kfold
@@ -38,6 +39,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def dense_body_launches(body):
+    """B2 and B4 launches on one dense body so far."""
+    return (_build.launches[f"lsm_lif_stats:{body}"]
+            + _build.launches[f"lsm_lif_chunk:{body}"])
+
+
 def _wave(cuda, batch, samples, seed):
     return torch.as_tensor(
         (np.random.default_rng(seed).standard_normal((batch, samples)) * 0.2).astype(np.float32)
@@ -48,9 +55,9 @@ def _wave(cuda, batch, samples, seed):
 def test_gtgram_kernel_matches_plain(cuda, batch, channels):
     wave = _wave(cuda, batch, 16000, batch)
     fb = gt.filterbank(16000.0, channels, 50.0, 80, cuda)
-    before = kgt.launches
+    before = _build.launches["lsm_gtgram_sub_energy"]
     out = kgt.sub_energy(wave, fb)
-    assert kgt.launches == before + 1
+    assert _build.launches["lsm_gtgram_sub_energy"] == before + 1
     ref = kgt.sub_energy_plain(wave, fb)
     torch.cuda.synchronize()
     assert out.shape == (200, batch, channels)
@@ -106,9 +113,9 @@ def test_lif_kernel_bit_equal_on_dyadic_weights(cuda, cfg, c, t, b):
         (np.random.default_rng(t).random((b, c, t)) < 0.2).astype(np.uint8)
     ).to(cuda)
     ops, kw = r.kernel_operands()
-    before = klif.launches
+    before = _build.launches["lsm_lif_stats"]
     stats, all_counts = klif.lif_stats(spikes, *ops, **kw)
-    assert klif.launches == before + 1
+    assert _build.launches["lsm_lif_stats"] == before + 1
     ref_stats, ref_counts = klif.lif_stats_plain(spikes, *ops, **kw)
     torch.cuda.synchronize()
     assert torch.equal(stats, ref_stats)
@@ -136,9 +143,9 @@ def test_gtgram_chunk_kernel_matches_plain(cuda, batch, channels):
     hop = _wave(cuda, batch, 1600, batch + 1)
     fb = gt.filterbank(16000.0, channels, 50.0, 80, cuda)
     state = _carried_state(cuda, batch, channels, batch)
-    before = kgt.chunk_launches
+    before = _build.launches["lsm_gtgram_chunk"]
     s_out, e = kgt.chunk(hop, fb, state)
-    assert kgt.chunk_launches == before + 1
+    assert _build.launches["lsm_gtgram_chunk"] == before + 1
     s_ref, e_ref = kgt.chunk_plain(hop, fb, state)
     torch.cuda.synchronize()
     assert e.shape == (20, batch, channels) and s_out.shape == (batch, 8, channels)
@@ -208,9 +215,9 @@ def test_lif_chunk_kernel_bit_equal_over_chained_chunks(cuda, n_new_win):
         x = torch.as_tensor(
             (rng.random((b, 128, 40 * n_new_win)) < 0.2).astype(np.uint8)).to(cuda)
         carried += float(state_k[2].sum())
-        before = klif.chunk_launches
+        before = _build.launches["lsm_lif_chunk"]
         out_k = klif.lif_chunk(x, *ops, *state_k, **kw)
-        assert klif.chunk_launches == before + 1
+        assert _build.launches["lsm_lif_chunk"] == before + 1
         out_p = klif.lif_chunk_plain(x, *ops, *state_p, **kw)
         torch.cuda.synchronize()
         for a, p in zip(out_k, out_p):
@@ -287,9 +294,9 @@ def _dense_both_bit_equal(cuda, r, x):
     carried between them), each bit-equal to its twin; returns the twin's
     spike total."""
     ops, kw = r.kernel_operands()
-    before = klif.launches
+    before = _build.launches["lsm_lif_stats"]
     stats, counts = klif.lif_stats(x, *ops, **kw)
-    assert klif.launches == before + 1
+    assert _build.launches["lsm_lif_stats"] == before + 1
     ref_stats, ref_counts = klif.lif_stats_plain(x, *ops, **kw)
     torch.cuda.synchronize()
     assert torch.equal(stats, ref_stats) and torch.equal(counts, ref_counts)
@@ -345,9 +352,9 @@ def test_cluster_body_bit_equal_on_dyadic_weights(cuda, n_neurons, channels, bat
     assert plan.body == klif.CLUSTER and plan.cluster_size * 64 == n_pad
     if batch == 200:
         assert batch % plan.streams                  # the last round is ragged
-    before = klif.body_launches[klif.CLUSTER]
+    before = dense_body_launches(klif.CLUSTER)
     assert _dense_both_bit_equal(cuda, r, x) > 0
-    assert klif.body_launches[klif.CLUSTER] == before + 4
+    assert dense_body_launches(klif.CLUSTER) == before + 4
 
 
 def test_cluster_body_equals_one_thread_body_on_calibrated_weights(cuda):
@@ -369,9 +376,9 @@ def test_cluster_body_equals_one_thread_body_on_calibrated_weights(cuda):
         plan = klif.card_plan(xc, 1024, kws["refractory"], chunk=True, body=klif.ONE_THREAD)
         return klif.lif_chunk(xc, *args, **kws, plan=plan)
 
-    before = klif.body_launches[klif.CLUSTER]
+    before = dense_body_launches(klif.CLUSTER)
     equal, carried = _chained_chunks(cuda, r, x, klif.lif_chunk, one_thread)
-    assert klif.body_launches[klif.CLUSTER] == before + 3
+    assert dense_body_launches(klif.CLUSTER) == before + 3
     assert equal and carried > 0
 
 
@@ -429,9 +436,9 @@ def test_dense_plan_boundaries_launch_their_bodies(cuda, n_neurons, channels, bo
                         .astype(np.uint8)).to(cuda)
     ops, kw = r.kernel_operands()
     assert klif.card_plan(x, ops[0].shape[0], kw["refractory"], chunk=False).body == body
-    before = klif.body_launches[body]
+    before = dense_body_launches(body)
     assert _dense_both_bit_equal(cuda, r, x) > 0
-    assert klif.body_launches[body] == before + 4
+    assert dense_body_launches(body) == before + 4
 
 
 @pytest.mark.parametrize("n_neurons", [1100, 2048])
@@ -526,9 +533,9 @@ def test_sparse_lif_kernel_bit_equal_on_dyadic_weights(cuda, n, k, r, c, t, b, m
     x = torch.as_tensor((np.random.default_rng(t).random((b, c, t)) < 0.15)
                         .astype(np.uint8)).to(cuda)
     ops, kw = sr.kernel_operands()
-    before = ksp.launches
+    before = _build.launches["lsm_sparse_lif_stats"]
     stats, counts = ksp.sparse_lif_stats(x, *ops, **kw)
-    assert ksp.launches == before + 1
+    assert _build.launches["lsm_sparse_lif_stats"] == before + 1
     ref_stats, ref_counts = ksp.sparse_lif_stats_plain(x, *ops, **kw)
     torch.cuda.synchronize()
     assert torch.equal(stats, ref_stats)
@@ -574,9 +581,9 @@ def test_sparse_chunk_kernel_bit_equal_over_chained_chunks(cuda, n, n_new_win, b
         x = torch.as_tensor(
             (rng.random((b, c, 40 * n_new_win)) < 0.15).astype(np.uint8)).to(cuda)
         carried += float(state_k[2].sum())
-        before = ksp.chunk_launches
+        before = _build.launches["lsm_sparse_lif_chunk"]
         out_k = ksp.sparse_lif_chunk(x, *ops, *state_k, **kw)
-        assert ksp.chunk_launches == before + 1
+        assert _build.launches["lsm_sparse_lif_chunk"] == before + 1
         out_p = ksp.sparse_lif_chunk_plain(x, *ops, *state_p, **kw)
         torch.cuda.synchronize()
         for a, p in zip(out_k, out_p):
@@ -668,10 +675,10 @@ def test_hysteresis_kernel_bit_equal_at_batch_shape(cuda, n_thr):
     spec = torch.as_tensor(_hyst_spec((37, 128, 100), thr, gap, n_thr)).to(cuda)
     state = torch.as_tensor(np.random.default_rng(n_thr).random((37, n_thr, 128)) < 0.5).to(cuda)
     keep = state.clone()
-    before = khyst.launches
+    before = _build.launches["lsm_hysteresis_encode"]
     spikes = hyst.hysteresis_encode(spec, thr, gap)
     step_spikes, step_state = hyst.hysteresis_encode_step(spec, state, thr, gap)
-    assert khyst.launches == before + 2
+    assert _build.launches["lsm_hysteresis_encode"] == before + 2
     zeros = torch.zeros_like(state)
     ref_spikes = khyst.encode_plain(spec, zeros, on, off)[0]
     ref_step, ref_state = khyst.encode_plain(spec, state, on, off)
@@ -748,9 +755,9 @@ def test_hysteresis_kernel_launches_once_a_call(cuda):
     """featurize_batch and each ContinuousKWS.step launch the kernel once."""
     fcfg = FrontendConfig()
     audio, _ = dataset.synthetic_audio_batch_hard(1, 12, seed=5)
-    before = khyst.launches
+    before = _build.launches["lsm_hysteresis_encode"]
     featurize_batch(torch.as_tensor(audio[:4]).to(cuda), fcfg)
-    assert khyst.launches == before + 1
+    assert _build.launches["lsm_hysteresis_encode"] == before + 1
     r = res.init_reservoir(ReservoirConfig(num_neurons=128, num_output_neurons=64), fcfg.n_filters,
                            mean_weight=0.01, device=cuda)
     d = len(FEATURE_SETS["original"]) * r.n_outputs
@@ -760,9 +767,9 @@ def test_hysteresis_kernel_launches_once_a_call(cuda):
                         fcfg, "original", n_streams=3)
     wire = (np.clip(audio[:3, :3200], -1, 1) * 32767).astype(np.int16)
     for c in range(2):
-        before = khyst.launches
+        before = _build.launches["lsm_hysteresis_encode"]
         kws.step(np.ascontiguousarray(wire[:, c * 1600:(c + 1) * 1600]))
-        assert khyst.launches == before + 1
+        assert _build.launches["lsm_hysteresis_encode"] == before + 1
 
 
 # The benchmark's calibrated mean weights (benchmark/configs/): the flagship
@@ -823,15 +830,15 @@ def test_fold_kernel_bit_equal_to_its_twin_on_serving_rings(cuda, kind, n_stream
                                             kws.reservoir.burst_isi_max, kws.keys,
                                             new_seg, win_new)
         logits = ((feats - sc.mean) / sc.scale @ ro.w + ro.b).cpu().numpy()
-        before = kfold.launches
+        before = _build.launches["lsm_fold_window"]
         out = kws.step(chunk)
-        assert kfold.launches == before + 1
+        assert _build.launches["lsm_fold_window"] == before + 1
         torch.cuda.synchronize()
         assert all(torch.equal(kws.state.segs[k], segs[k]) for k in klif.SEG_KEYS), c
         assert torch.equal(kws.state.win_ring, win), c
         assert np.array_equal(out, logits), c
         assert np.array_equal(kws.features(), feats.cpu().numpy()), c
-        assert kfold.launches == before + 2
+        assert _build.launches["lsm_fold_window"] == before + 2
     stats = res.fold_segment_stats(kws.state.segs, kws._t_c, kws.reservoir.burst_isi_max)
     fired = stats["counts"] > 0
     assert fired.any() and not fired.all() and (stats["n_isi"] > 0).any()
@@ -859,10 +866,10 @@ def test_fold_kernel_bit_equal_at_any_ring_shape(cuda, n_win, n_new, n_ring, no)
                               .astype(np.float32)).to(cuda)
     for name, keys in FEATURE_SETS.items():
         args = (segs, win, seg_len, burst, keys)
-        before = kfold.launches
+        before = _build.launches["lsm_fold_window"]
         out = kfold.fold(*args, sums[n_ring], win_new)
         only = kfold.fold(*args)
-        assert kfold.launches == before + 2
+        assert _build.launches["lsm_fold_window"] == before + 2
         ref = kfold.fold_plain(*args, sums[n_ring], win_new)
         ref_only = kfold.fold_plain(*args)
         torch.cuda.synchronize()
@@ -884,6 +891,6 @@ def test_fold_kernel_refuses_what_it_cannot_run(cuda):
                    40, 5, keys)
     # No streams: nothing to launch.
     empty = {k: torch.zeros(2, 0, 8, device=cuda) for k in klif.SEG_KEYS}
-    before = kfold.launches
+    before = _build.launches["lsm_fold_window"]
     out = kfold.fold(empty, torch.zeros(0, 8, 10, device=cuda), 40, 5, keys)
-    assert out[2].shape == (0, 5 * 8) and kfold.launches == before
+    assert out[2].shape == (0, 5 * 8) and _build.launches["lsm_fold_window"] == before

@@ -7,6 +7,7 @@ answers and the kernels on the card); these tests pass them in."""
 import pytest
 import torch
 
+from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops.kernels import lif as klif
 
 torch.set_num_threads(1)
@@ -164,8 +165,8 @@ def test_cpu_tensors_take_the_twin_whatever_the_plan():
     w_in = (torch.randn(32, 128, generator=g) * 0.3).to(torch.bfloat16)
     kw = dict(threshold=1.0, refractory=2, burst_isi_max=5, n_outputs=64, n_win=4)
     plan = plan_for(2, 32, 128, 2)
-    before = (klif.launches, dict(klif.body_launches))
+    before = _build.launches.copy()
     out = klif.lif_stats(x, w_rec, w_in, torch.ones(128), **kw, plan=plan)
     ref = klif.lif_stats_plain(x, w_rec, w_in, torch.ones(128), **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    assert (klif.launches, klif.body_launches) == before
+    assert _build.launches == before

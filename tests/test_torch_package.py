@@ -2,14 +2,19 @@
 synthetic corpora and artifact writers agree with the reference, and
 importing it loads neither jax nor anything of lsm_tpu."""
 
+import collections
+import contextlib
+import ctypes
 import dataclasses
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from lsm_tpu import config as jcfg
 from lsm_tpu.io import artifacts as jart
@@ -130,6 +135,45 @@ def test_kernels_build_into_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "lsm_tpu_torch"
     assert [p.name for p in _build.sources()] == ["fold.cu", "gtgram.cu", "hysteresis.cu",
                                                   "lif.cu", "sparse_lif.cu"]
+
+
+def test_every_kernel_call_binds_once_and_counts_its_launches(monkeypatch):
+    """`_build.Entry` binds a C entry point at its first call, with its
+    argtypes set once; a launch passes the device's stream last, raises
+    through `check` and counts under the entry point (and its body)."""
+    calls, binds = [], []
+
+    class Fn:
+        def __setattr__(self, name, value):
+            binds.append(name)
+            object.__setattr__(self, name, value)
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0 if args[0] else 7
+
+    def error_string(err):
+        return b"refused"
+
+    lib = types.SimpleNamespace(lsm_fake=Fn(), lsm_cuda_error_string=error_string)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "launches", collections.Counter())
+    monkeypatch.setattr(_build, "_error_string", _build.Entry(
+        "lsm_cuda_error_string", [ctypes.c_int], ctypes.c_char_p))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=42))
+    entry = _build.Entry("lsm_fake", [ctypes.c_int] * 2)
+    cuda = torch.device("cuda", 0)
+    entry.launch(cuda, 1)
+    entry.launch(cuda, 2, body="cluster")
+    assert calls == [(1, 42), (2, 42)] and binds == ["argtypes", "restype"]
+    assert _build.launches == {"lsm_fake": 2, "lsm_fake:cluster": 1}
+    with pytest.raises(RuntimeError, match="lsm_fake: CUDA error 7 at launch: refused"):
+        entry.launch(cuda, 0)
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        entry.launch(torch.device("cpu"), 1)
+    assert _build.launches == {"lsm_fake": 2, "lsm_fake:cluster": 1}
 
 
 def test_the_decoder_builds_into_the_checkout_and_nowhere_else(tmp_path):

@@ -155,6 +155,32 @@ def test_save_load_continues_bit_exactly(dense, audio, tmp_path, kind, compress)
     assert not (tmp_path / "s.npz.tmp").exists()
 
 
+def _state_tensors(kws):
+    """Every tensor of an engine's carried state, by its snapshot name."""
+    if isinstance(kws, ContinuousKWS):
+        st = kws.state
+        out = {f.name: getattr(st, f.name) for f in dataclasses.fields(st) if f.name != "segs"}
+        return {**out, **{f"seg:{k}": v for k, v in st.segs.items()}}
+    return {k: v for k, v in vars(kws).items() if torch.is_tensor(v)}
+
+
+@pytest.mark.parametrize("model", ["dense", "sparse"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_leaf_table_names_every_state_tensor(request, audio, kind, model):
+    """The engine's leaf table is its whole carried state: it names every
+    state tensor, fresh and after hops, each with n_local rows on its
+    stream axis and the table's dtype, and snapshot() holds exactly it."""
+    kws = port_engine(request.getfixturevalue(model), kind, n_streams=3)
+    for h in range(3):
+        state = _state_tensors(kws)
+        assert set(state) == {lf.name for lf in kws.LEAVES}
+        for lf in kws.LEAVES:
+            t = state[lf.name]
+            assert t.shape[lf.axis] == kws.n_local and t.dtype == lf.dtype, lf.name
+        kws.step(hop(audio, h)[:3])
+    assert list(kws.snapshot()) == [lf.name for lf in kws.LEAVES]
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_migrate_streams_bit_exact(dense, audio, kind):
     src, dst = port_engine(dense, kind), port_engine(dense, kind, n_streams=3)

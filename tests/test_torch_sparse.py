@@ -40,6 +40,7 @@ from lsm_tpu_torch.models.calibration import calibrate_weight
 from lsm_tpu_torch.models.diagnostics import run_network_diagnostics
 from lsm_tpu_torch.models import reservoir as tres
 from lsm_tpu_torch.models import sparse as tsp
+from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
 # Under pytest-xdist several workers share a few cores; torch's intra-op
@@ -254,7 +255,7 @@ def test_sparse_wrapper_cpu_and_validation():
     sr = tsp.init_reservoir_sparse(_cfg(tcfg, n=256, k=52, seed=1), n_channels=16)
     ops, kw = sr.kernel_operands()
     x = torch.zeros(2, 16, 10, dtype=torch.uint8)
-    before = (ksp.launches, ksp.chunk_launches)
+    before = _build.launches.copy()
     stats, all_counts = ksp.sparse_lif_stats(x, *ops, **kw)
     assert stats.shape == (11, 2, 128) and all_counts.shape == (2, 256)
     assert not stats[0].any() and torch.isinf(stats[3]).all()     # silent input
@@ -262,7 +263,7 @@ def test_sparse_wrapper_cpu_and_validation():
     state = (torch.zeros(2, 256), torch.zeros(2, 256, dtype=torch.int32), torch.zeros(2, 256))
     ksp.sparse_lif_chunk(torch.zeros(2, 16, 40, dtype=torch.uint8), *ops, *state, **ckw,
                          win_len=40, n_new_win=1)
-    assert (ksp.launches, ksp.chunk_launches) == before           # plain twins: no launch
+    assert _build.launches == before           # plain twins: no launch
     with pytest.raises(TypeError):
         ksp.sparse_lif_stats(x.float(), *ops, **kw)
     with pytest.raises(TypeError):

@@ -128,8 +128,8 @@ def test_serving_hop_spans_and_results(modules, audio, kind):
     for a, b in zip(want, got):
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             np.testing.assert_array_equal(x, y)
-    for name, leaf in plain._state_leaves().items():
-        assert torch.equal(leaf, traced._state_leaves()[name]), name
+    for name, leaf in plain._leaves().items():
+        assert torch.equal(leaf, traced._leaves()[name]), name
     spans = traced_spans(prof)
     hops = [(a, b) for n, a, b, p in spans if n == "lsm.kws.step"]
     assert len(hops) == HOPS
