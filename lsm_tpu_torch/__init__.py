@@ -19,7 +19,10 @@ the card's kernels and copies in a Perfetto trace. The batch
 and training path also runs over several ranks of a process group
 (parallel/: data-parallel stages, the tensor-parallel reservoir, the fused
 training step), and WAVs decode on a native C++ decoder (csrc/wavio.cpp,
-io/native.py) where g++ can build it.
+io/native.py) where g++ can build it. A CUDA serving engine stages each
+host chunk into page-locked slots on native host threads (csrc/stage.cpp,
+ops/stage.py, also built by g++) and sends it to the card in row blocks
+ordered on its stream (models/streaming.py `IngestSlots`).
 
 The JAX package `lsm_tpu` is the reference; this package mirrors its
 layout (ops/, models/, readout/, pipeline.py) so each module's counterpart

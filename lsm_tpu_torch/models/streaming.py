@@ -23,7 +23,9 @@ stream indices; each rank acts on the ones it owns.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
 from collections import deque
 from typing import Dict, Optional, Tuple, Union
 
@@ -35,6 +37,7 @@ from lsm_tpu_torch.models import reservoir as res
 from lsm_tpu_torch.models.diagnostics import ServingDiagnosticsReport, serving_report
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.models.sparse import SparseReservoir
+from lsm_tpu_torch.ops import stage
 from lsm_tpu_torch.ops.ulaw import decode_ulaw
 from lsm_tpu_torch.parallel.mesh import (
     DATA_AXIS, Mesh, deliver_rows, gather_rows, local_rows, local_stream_rows,
@@ -85,12 +88,15 @@ def normalize_ingest_chunk(
 
 def bind_mesh(kws, mesh: Optional[Mesh], indivisible: str) -> None:
     """Set up an engine's stream rows: `kws.mesh`, `kws.rows` (the global
-    slice of streams this rank holds: all of them without a mesh) and
-    `kws.n_local`. On a mesh the stream count must divide over the data
-    axis (`indivisible` is the error, lsm_tpu's wording), the reservoir
-    must live on the mesh's device, and the weights are broadcast from
-    rank 0 so that every rank serves the same bits."""
+    slice of streams this rank holds: all of them without a mesh),
+    `kws.n_local`, and `kws.ingest`, the page-locked slots its host chunks
+    cross through on a CUDA device (IngestSlots; nothing is allocated
+    before the first chunk). On a mesh the stream count must divide over
+    the data axis (`indivisible` is the error, lsm_tpu's wording), the
+    reservoir must live on the mesh's device, and the weights are broadcast
+    from rank 0 so that every rank serves the same bits."""
     kws.mesh = mesh
+    kws.ingest = IngestSlots(kws.device)
     if mesh is None:
         kws.rows = slice(0, kws.n_streams)
     else:
@@ -259,14 +265,104 @@ class CarriedState:
             for lf, cur in self._pairs()})
 
 
+# Chunks placed by place_chunk in this process, by path: 'staged' (a host
+# chunk through an engine's page-locked slot), 'direct' (a host chunk on a
+# CPU engine), 'tensor' (a tensor passed through); 'slot_waits' (the next
+# slot's copy was still in flight) and 'slot_allocs' (slots allocated).
+ingest_counts: collections.Counter = collections.Counter()
+
+STAGE_SLOTS = 2                  # a ring's slots
+STAGE_THREADS = 8                # most host threads one engine's staging copy takes
+STAGE_BLOCK_BYTES = 2 << 20      # least bytes a block of the staging copy carries
+STAGE_BLOCKS = 64                # most blocks a chunk is sent in
+
+
+def staging_threads() -> int:
+    """Host threads for an engine's staging copy, the calling one included:
+    half this process's share of the cores it may run on (one serving
+    process a visible CUDA device, a rank a card), at most STAGE_THREADS.
+    The other half is left to the rest of the process (the thread that
+    waits on the card, the runtime's and torch's threads): a copy thread
+    that loses its core holds the whole hop back."""
+    share = len(os.sched_getaffinity(0)) // max(1, torch.cuda.device_count())
+    return max(1, min(STAGE_THREADS, share // 2))
+
+
+def ingest_blocks(rows: int, nbytes: int) -> int:
+    """Row blocks a staged chunk of `nbytes` is copied and sent in, so that
+    the first blocks' DMA runs beside the later blocks' copies: one a
+    STAGE_BLOCK_BYTES, at least one, at most STAGE_BLOCKS and one a row."""
+    return max(1, min(rows, STAGE_BLOCKS, nbytes // STAGE_BLOCK_BYTES))
+
+
+class IngestSlots:
+    """A CUDA serving engine's page-locked host slots for its wire chunks.
+
+    `place` copies a normalized (B, L) host chunk (any row strides) into
+    the next slot of the ring for its dtype and capacity, in row blocks
+    (`ingest_blocks`) on `staging_threads` host threads (ops/stage.py), and
+    enqueues each block's host-to-device copy on the current stream, in
+    row order, as soon as that block has landed: the DMA runs beside the
+    copying, and the host goes on to launch the hop while the last block
+    crosses. An event recorded after a slot's copies guards it: the host
+    waits on it before writing that slot again, so any number of hops may
+    be in flight (`stream(depth=...)`, `steps_fused`). The caller's array
+    is read only inside `place`. A ring of STAGE_SLOTS slots is allocated
+    at the first chunk of its dtype and capacity, and reused after that."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._rings: Dict[tuple, deque] = {}
+        self._threads = 0
+
+    def _ring(self, dtype: np.dtype, capacity: int) -> deque:
+        ring = self._rings.get((dtype, capacity))
+        if ring is None:
+            slots = [torch.empty(capacity, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                                 pin_memory=True) for _ in range(STAGE_SLOTS)]
+            ring = self._rings[(dtype, capacity)] = deque(
+                (t, t.numpy(), torch.cuda.Event()) for t in slots)
+            ingest_counts["slot_allocs"] += STAGE_SLOTS
+        return ring
+
+    def place(self, chunk: np.ndarray, capacity: int) -> torch.Tensor:
+        ring = self._ring(chunk.dtype, capacity)
+        slot, slot_np, done = ring[0]
+        ring.rotate(-1)
+        if not done.query():
+            ingest_counts["slot_waits"] += 1
+            done.synchronize()
+        host = slot[:chunk.size].view(chunk.shape)
+        host_np = slot_np[:chunk.size].reshape(chunk.shape)
+        out = torch.empty(chunk.shape, dtype=slot.dtype, device=self.device)
+        if chunk.shape[1] > 1 and chunk.strides[1] != chunk.itemsize:
+            chunk = np.ascontiguousarray(chunk)        # the staging copy takes whole rows
+        rows = chunk.shape[0]
+        self._threads = self._threads or staging_threads()
+        per = -(-rows // ingest_blocks(rows, chunk.nbytes))
+        with stage.copy_rows(host_np, chunk, per, self._threads) as landed:
+            for b, r in enumerate(range(0, rows, per)):
+                landed(b)
+                out[r:r + per].copy_(host[r:r + per], non_blocking=True)
+        done.record(torch.cuda.current_stream(self.device))
+        ingest_counts["staged"] += 1
+        return out
+
+
 def place_chunk(kws, chunk, fixed_len: bool) -> torch.Tensor:
     """A host chunk through the ingest policy onto the engine's device; a
     tensor must already be a (n_local, L) f32, int16 or uint8 tensor on
     that device with L within the engine's chunk contract. On a mesh a
-    chunk holds this rank's rows (`kws.rows`)."""
+    chunk holds this rank's rows (`kws.rows`). On a CUDA engine a host
+    chunk crosses through the engine's page-locked slots (`kws.ingest`,
+    IngestSlots) by a copy ordered on the current stream; on a CPU engine
+    it is placed as it is (`place_stream_chunk`)."""
     max_len = kws.chunk_len if fixed_len else kws.fcfg.num_samples
     if not torch.is_tensor(chunk):
         chunk = normalize_ingest_chunk(chunk, kws.n_local, max_len, fixed_len)
+        if kws.device.type == "cuda":
+            return kws.ingest.place(chunk, kws.n_local * max_len)
+        ingest_counts["direct"] += 1
         return place_stream_chunk(chunk, kws.device)
     n = chunk.shape[-1] if chunk.dim() == 2 else -1
     if chunk.dim() != 2 or chunk.shape[0] != kws.n_local or chunk.dtype not in _WIRE_DTYPES \
@@ -276,6 +372,7 @@ def place_chunk(kws, chunk, fixed_len: bool) -> torch.Tensor:
             f"a tensor chunk must be ({kws.n_local}, {want}) float32/int16/uint8 on "
             f"{kws.device}, got {chunk.dtype}{tuple(chunk.shape)} on {chunk.device}"
         )
+    ingest_counts["tensor"] += 1
     return chunk
 
 
@@ -455,12 +552,14 @@ def stream_pipelined(kws, chunks, depth: int = 2):
 
     Yields one (n_streams, n_classes) logits array per chunk, bit-equal to
     calling `kws.step(chunk)` serially (the same step, in the same order),
-    but with up to `depth` steps in flight: chunk k+1's H2D copy and step
-    k+1's launches are enqueued before the host waits for step k's logits,
-    whose D2H copy is itself asynchronous (pinned memory, one event a
-    step). `chunks` is any iterable of host chunks (the shared
-    `normalize_ingest_chunk` contract) or device tensors (trusted after a
-    shape/dtype/device check). Do not call reset()/step() on `kws` while
+    but with up to `depth` steps in flight: chunk k+1 is staged into a
+    page-locked slot of the engine (`IngestSlots`), and its H2D copy and
+    step k+1's launches are enqueued on the stream before the host waits
+    for step k's logits, whose D2H copy is itself asynchronous (pinned
+    memory, one event a step). A slot is written again only once its
+    earlier copy has landed, at any depth. `chunks` is any iterable of
+    host chunks (the shared `normalize_ingest_chunk` contract) or device
+    tensors (trusted after a shape/dtype/device check). Do not call reset()/step() on `kws` while
     the generator is live: state advances as chunks are dispatched,
     `depth - 1` steps ahead of what has been yielded."""
     if depth < 1:

@@ -1,5 +1,6 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu) and the native
-WAV decoder (csrc/wavio.cpp).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu), the native
+WAV decoder (csrc/wavio.cpp) and the serving engines' staging copy
+(csrc/stage.cpp).
 
 One shared library with a plain C interface, compiled by nvcc for sm_90a
 at first use and loaded with ctypes (no PyTorch headers, so a build takes
@@ -11,11 +12,11 @@ build/lsm_tpu_torch/ at the checkout's root (build/ is git-ignored); an
 installed package builds into the user's cache directory instead of
 site-packages.
 
-The decoder is plain C++: g++ builds it at first use with the JAX package's
-native/Makefile flags into the same directory, keyed by a hash of the
-source, the flags, the compiler's version and the host CPU's target
-flags (-march=native resolves per machine, and a checkout may be copied to
-another host).
+The decoder and the staging copy are plain C++: g++ builds each at first
+use with the JAX package's native/Makefile flags into the same directory,
+keyed by a hash of the source, the flags, the compiler's version and the
+host CPU's target flags (-march=native resolves per machine, and a
+checkout may be copied to another host).
 
 Every call of a C entry point goes through `Entry`: bound once at its first
 call, and a kernel launched by `Entry.launch`, which counts it in
@@ -188,40 +189,46 @@ def check(err: int, what: str) -> None:
 
 
 WAVIO_SOURCE = CSRC_DIR / "wavio.cpp"
+STAGE_SOURCE = CSRC_DIR / "stage.cpp"
 # native/Makefile's CXXFLAGS and LDFLAGS.
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
 CXX_LDFLAGS = ("-shared", "-pthread")
-_wavio_lock = threading.Lock()
+_native_lock = threading.Lock()
 
 
 def _cxx() -> str:
     found = shutil.which(os.environ.get("CXX", "g++"))
     if not found:
-        raise RuntimeError("g++ not found: the native WAV decoder builds from source "
-                           "at first use")
+        raise RuntimeError("g++ not found: the native WAV decoder and the serving "
+                           "staging copy build from source at first use")
     return found
 
 
-def build_wavio() -> Path:
-    """Compile csrc/wavio.cpp into BUILD_DIR/libwavio_<hash>.so unless that
-    exact build exists. Returns the library path."""
+def build_native(source: Path) -> Path:
+    """Compile one plain C++ source of csrc/ into BUILD_DIR/lib<stem>_<hash>.so
+    unless that exact build exists. Returns the library path."""
     cxx = _cxx()
     target = _run([cxx, "-march=native", "-Q", "--help=target"]).stdout
     h = hashlib.sha256(" ".join((cxx, *CXX_FLAGS, *CXX_LDFLAGS)).encode())
     h.update(_run([cxx, "--version"]).stdout.encode())
     h.update(target.encode())
-    h.update(WAVIO_SOURCE.read_bytes())
-    lib_path = BUILD_DIR / f"libwavio_{h.hexdigest()[:16]}.so"
-    with _wavio_lock:
+    h.update(source.read_bytes())
+    lib_path = BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+    with _native_lock:
         if lib_path.exists():
             return lib_path
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             so = Path(tmp) / lib_path.name
-            cmd = [cxx, *CXX_FLAGS, str(WAVIO_SOURCE), "-o", str(so), *CXX_LDFLAGS]
+            cmd = [cxx, *CXX_FLAGS, str(source), "-o", str(so), *CXX_LDFLAGS]
             proc = _run(cmd)
             if proc.returncode != 0:
                 raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                                    f"{proc.stdout}\n{proc.stderr}")
             os.replace(so, lib_path)
     return lib_path
+
+
+def build_wavio() -> Path:
+    """The native WAV decoder's library (csrc/wavio.cpp)."""
+    return build_native(WAVIO_SOURCE)

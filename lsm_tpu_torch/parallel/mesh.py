@@ -193,8 +193,10 @@ def local_stream_rows(n_streams: int, mesh: Optional[Mesh]) -> int:
 
 def place_stream_chunk(chunk: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host serving chunk, already normalized and holding this rank's
-    stream rows (`local_stream_rows`), on the rank's device. The one
-    placement both serving engines share."""
+    stream rows (`local_stream_rows`), on the rank's device by a plain
+    copy: a CPU engine's placement. A CUDA engine stages its host chunks
+    through its page-locked slots instead, by a copy ordered on the
+    current stream (models/streaming.py `place_chunk`, `IngestSlots`)."""
     return torch.as_tensor(np.asarray(chunk)).to(device)
 
 

@@ -12,8 +12,9 @@ that encloses it on the thread.
 The spans, one at each layer boundary of the two paths:
 
   lsm.kws.step       ContinuousKWS.step, step_compact, step_active: one hop
-  lsm.kws.ingest     host normalization and the host-to-device copy of
-                     the wire chunk (also under stream and steps_fused)
+  lsm.kws.ingest     host normalization, the copy into a page-locked slot
+                     and the host-to-device copies of the wire chunk (also
+                     under stream and steps_fused)
   lsm.kws.frontend   decode, B3, window sums, dB, normalization, encoder
   lsm.kws.reservoir  B4 or B6 and their wrappers' ops
   lsm.kws.readout    the fold kernel (ring pushes, fold, features; csrc/fold.cu),
