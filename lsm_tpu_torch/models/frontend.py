@@ -33,16 +33,20 @@ from lsm_tpu_torch.utils.profiling import span
 
 
 def spectrogram_db(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """(B, S) float32 -> (B, n_filters, n_frames) dB spectrogram."""
+    """(B, S) float32 -> (B, n_filters, n_frames) dB spectrogram. The mel
+    branch opens two spans of its own: `lsm.frontend.stft` (framing, window,
+    rFFT, power) and `lsm.frontend.mel` (filterbank product, power_to_db)."""
     if cfg.filterbank == "mel":
         hop = max(1, cfg.num_samples // cfg.time_bins)
-        power = stft.stft_power(audio, cfg.n_fft, hop)
-        fb = mel.filterbank_on(
-            cfg.sample_rate, cfg.n_fft, cfg.n_filters, cfg.mel_fmin,
-            cfg.mel_fmax if cfg.mel_fmax is not None else cfg.sample_rate / 2.0,
-            audio.device,
-        )
-        return db_ops.power_to_db(mel.apply_mel(power, fb), top_db=cfg.power_top_db)
+        with span("lsm.frontend.stft"):
+            power = stft.stft_power(audio, cfg.n_fft, hop)
+        with span("lsm.frontend.mel"):
+            fb = mel.filterbank_on(
+                cfg.sample_rate, cfg.n_fft, cfg.n_filters, cfg.mel_fmin,
+                cfg.mel_fmax if cfg.mel_fmax is not None else cfg.sample_rate / 2.0,
+                audio.device,
+            )
+            return db_ops.power_to_db(mel.apply_mel(power, fb), top_db=cfg.power_top_db)
     if cfg.filterbank != "gammatone":
         raise ValueError(f"unknown filterbank: {cfg.filterbank!r}")
     hop_time = cfg.num_samples / (cfg.sample_rate * cfg.time_bins)

@@ -7,14 +7,23 @@ NumPy constants copied from lsm_tpu (tests hold them bit-equal). The frames
 are a strided view of the padded signal, materialized once by the window
 product; the FFT is torch.fft.rfft (cuFFT on the card, pocketfft on the
 CPU), which rounds differently from lsm_tpu's at ~1e-7 relative.
+
+`counts` (as ops/_build.py's `launches`) advances with every `stft_power`
+call: `frames`, the frames transformed, and `bytes`, the bytes of the
+tensors the call creates, by their shapes (the padded signal, the windowed
+frames, the complex spectrum, the two squares and their sum).
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
 import torch
+
+
+counts: collections.Counter = collections.Counter()
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -55,4 +64,8 @@ def stft_power(audio: torch.Tensor, n_fft: int = 2048, hop_length: int = 160) ->
     frames = frame_signal(audio, n_fft, hop_length) * window_on(n_fft, audio.device)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     power = spec.real ** 2 + spec.imag ** 2
+    n_frames = frames.numel() // n_fft
+    padded = audio.numel() // audio.shape[-1] * (audio.shape[-1] + 2 * (n_fft // 2))
+    counts["frames"] += n_frames
+    counts["bytes"] += 4 * (padded + frames.numel()) + (8 + 3 * 4) * spec.numel()
     return power.transpose(-1, -2)

@@ -22,7 +22,9 @@ The spans, one at each layer boundary of the two paths:
   lsm.kws.egress     the gather, the compact output and the host copy
   lsm.kws.gather     gather_streams on a mesh: the collective and its buffer
   lsm.frontend       featurize_batch, with its children
-  lsm.frontend.spectrogram   wire decode, B1 (or mel), dB
+  lsm.frontend.spectrogram   wire decode, B1 (or the mel spans below), dB
+  lsm.frontend.stft          mel only: framing, window, rFFT and power
+  lsm.frontend.mel           mel only: filterbank product and power_to_db
   lsm.frontend.normalize     min-max and the zoom to time_bins
   lsm.frontend.encode        the hysteresis encoder and the redundancy repeat
   lsm.reservoir      extract_features (B2 or B5, and the features)

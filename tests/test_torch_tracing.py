@@ -164,4 +164,4 @@ def test_the_port_opens_only_the_documented_spans():
     for path in PORT.rglob("*.py"):
         opened |= set(re.findall(r'span\("(lsm\.[a-z.]+)"\)', path.read_text()))
     assert opened == documented
-    assert len(documented) == 13      # with lsm.kws.gather, opened on a mesh
+    assert len(documented) == 15      # with lsm.kws.gather, opened on a mesh
