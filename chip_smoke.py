@@ -75,7 +75,11 @@ Phases (any failure exits non-zero):
                past its 8-bit counter, all bit-equal on dyadic weights.
                B5 and B6 also report the tensor-core bound: the stream-
                tiled design's own block products at the 989 TFLOP/s bf16
-               dense peak, beside the function's bound.
+               dense peak, beside the function's bound. B5's line prints
+               the block body's plan (tile, tiles, persistent CTAs) and
+               the counter ops/kernels/sparse_lif.counts over the timed
+               call: steps, block uses and loads, and the share of loads
+               saved (0: each tile fetches what it multiplies).
   9. sparse slice - the N=1024 dense/sparse parity oracle of
                tests/test_sparse_reservoir.py (both EDGE OF CHAOS, accuracy
                in [0.66, 0.95], within 0.15), then run_pipeline_arrays at
@@ -1550,7 +1554,14 @@ def sparse_kernels(dev, spikes, card) -> dict:
             dy_spikes = float(a_p.sum()) / (rows * T)
 
     ops_c, kw_c = sr.kernel_operands()
+    before = ksp.counts.copy()
     s_c, a_c = ksp.sparse_lif_stats(spikes, *ops_c, **kw_c)
+    # The block body's tiling on this card (a CPU rehearsal: one SM).
+    plan = (ksp.card_block_plan(spikes, N_10K, S) if spikes.is_cuda
+            else ksp.block_plan(B, N_10K, S, C, 1))
+    entry = "lsm_sparse_lif_stats"
+    block = {f: ksp.counts[f"{entry}:{f}"] - before[f"{entry}:{f}"]
+             for f in ("steps", "block_uses", "block_loads")}
     a_cp = ksp.sparse_lif_stats_plain(spikes, *ops_c, **kw_c)[1]
     rec, inp = float(a_c.sum()), float(spikes.sum())
     block_flops = sparse_flops(rec, inp, fan, S * 128, B, T, N_10K)
@@ -1569,6 +1580,9 @@ def sparse_kernels(dev, spikes, card) -> dict:
                 nbytes(spikes, *ops_c, s_c, a_c)),
         "block_form_flops": block_flops, "block_form_ms": block_flops / F32_FLOPS * 1e3,
         **tensor_core_bound(B, T, N_10K, S, C),
+        "block_plan": {"tile": plan.tile, "tiles": plan.tiles, "ctas": plan.ctas},
+        "block_counts": block,
+        "loads_saved": 1.0 - block["block_loads"] / max(block["block_uses"], 1),
     }
     print(f"[B5 sparse_lif] N={N_10K} k={K_10K} S={S} C={C} T={T}, mean weight {mw:.6f} "
           f"(init {init_s:.1f} s): dyadic bit_equal {equal} max_abs_err {err:.3e}; "
@@ -1578,7 +1592,10 @@ def sparse_kernels(dev, spikes, card) -> dict:
           f"kernel {b5['ms']:.3f} ms plain "
           f"{b5['plain_ms']:.3f} ms bound {b5['bound_ms']:.4f} ms ({b5['bound_by']}; block "
           f"form {b5['block_form_ms']:.4f} ms; tensor-core bound "
-          f"{b5['tensor_core_bound_ms']:.4f} ms) ({card})")
+          f"{b5['tensor_core_bound_ms']:.4f} ms) ({card}); block body: tile {plan.tile}, "
+          f"{plan.tiles} tiles, {plan.ctas} CTAs, {block['steps']} steps, "
+          f"{block['block_uses']} block uses, {block['block_loads']} loads "
+          f"(share saved {b5['loads_saved']:.3f})")
     if not b5["bit_equal_dyadic"]:
         fail(f"B5 is not bit-equal to its plain twin on dyadic weights: {equal}")
     if abs(b5["spikes_ratio_to_plain"] - 1.0) > SPIKE_REL or \

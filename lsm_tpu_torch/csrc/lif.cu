@@ -104,6 +104,7 @@ constexpr int kSmemLimit = 232448;
 // The plan's bodies, as ops/kernels/lif.py numbers them.
 enum Body { kOneThread = 0, kCluster = 1, kBlock = 2 };
 
+// M: the cluster body's streams a round, or the block body's streams a tile.
 struct Plan {
   int body, K, M, threads, smem, clusters;
 };
@@ -708,8 +709,8 @@ int launch_cluster(const LifArgs& a, const Plan& p, cudaStream_t s) {
 // ---- the block body (above 1024 padded neurons) ----------------------------
 
 // The block body's arguments for a dense (Np, Np) matrix, row = source:
-// Np / 128 slots, slot s reading source block s.
-lsm::BlockLifArgs wide_args(const LifArgs& d, void* scratch) {
+// Np / 128 slots, slot s reading source block s, `tile` streams a CTA.
+lsm::BlockLifArgs wide_args(const LifArgs& d, int tile, void* scratch) {
   lsm::BlockLifArgs a{};
   a.x = d.x; a.w = d.w_rec; a.src_idx = nullptr; a.w_in = d.w_in;
   a.leak_keep = d.leak_keep; a.stats = d.stats; a.all_counts = d.all_counts;
@@ -721,7 +722,7 @@ lsm::BlockLifArgs wide_args(const LifArgs& d, void* scratch) {
   a.stride_r = d.Np;
   a.B = d.B; a.C = d.C; a.T = d.T; a.N = d.Np; a.S = d.Np / 128; a.no = d.no;
   a.thr = d.thr; a.refractory = d.refractory; a.burst_isi_max = d.burst_isi_max;
-  a.win_len = d.win_len; a.n_win = d.n_win; a.scratch = scratch;
+  a.win_len = d.win_len; a.n_win = d.n_win; a.tile = tile; a.scratch = scratch;
   return a;
 }
 
@@ -732,7 +733,7 @@ int launch(const LifArgs& a, const Plan& p, void* scratch, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if ((p.body == kBlock) != (a.Np > MAX_N)) return invalid;
-  if (p.body == kBlock) return lsm::launch_block_lif(wide_args(a, scratch), kChunk, s);
+  if (p.body == kBlock) return lsm::launch_block_lif(wide_args(a, p.M, scratch), kChunk, s);
   if (bad_shape(a.C, a.T, a.Np, a.no)) return invalid;
   if (p.body == kOneThread) return launch_one_thread<kChunk>(a, s);
   if (p.body == kCluster && !bad_cluster_plan(a, p)) return launch_cluster<kChunk>(a, p, s);

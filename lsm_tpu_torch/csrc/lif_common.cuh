@@ -123,6 +123,7 @@ struct BlockLifArgs {
   int B, C, T, N, S, no;
   float thr;
   int refractory, burst_isi_max, win_len, n_win;
+  int tile;                  // streams a CTA, 64 or 128, as the host's plan picks it
 };
 
 // The body keeps refrac between steps in 8 bits up to refractory 255 and in

@@ -23,71 +23,116 @@
 // each step as MXU products of the tile's spike plane with each 128 x 128
 // weight block, so a block was read once per tile, not once per stream. Here
 // the same products run on the tensor cores: per (tile of M streams, block
-// j, step) 2 M 128 128 (S + ceil(C / 128)) bf16 operations (1.5 TFLOP a
-// 40-step hop of 1024 streams at 10240 neurons, 1.5 ms at the 989 TFLOP/s
-// dense peak), 32 KB of weights per slot from L2 (34 MB of blocks fit the
-// 50 MB L2, no SM's shared memory), and the carried state, 5 bytes a
-// (stream, neuron) read and written each step. Every destination block
-// reads R random partner blocks, so step t + 1 waits for all of step t.
+// j, step) 2 M 128 128 K bf16 operations, K = S + ceil(C / 128) slots (at
+// B = 2400 and 10240 neurons 88 GFLOP a step, 89 us at the 989 TFLOP/s
+// dense peak). Each tile reads each slot's 32 KB block (680 MB a step at
+// B = 2400, from L2: ~100 us a step with nothing else running,
+// tools/block_split.py), and the carried state, 5 bytes a (stream, neuron),
+// is read and written each step (246 MB at B = 2400: 73 us at 3.35 TB/s).
+// The three can overlap; a step that runs them one after the other takes
+// their sum. Every destination block reads R random partner blocks, so step
+// t + 1 waits for all of step t.
 //
 // Design. One kernel launch per step, enqueued by the C entry point (T
 // launches a call, none from Python); v (f32), refrac (8 bits up to
 // refractory 255, else 16: picked at launch) and two bit-packed spike
 // planes (B, N / 32) live in global scratch between steps, which the
-// wrapper allocates. Each call first copies every slot's weight
-// block K-major into that scratch, the input projection's 128-channel
-// slices as more slots (x_t . W_in[:, block j] is one more K-slice, as on
-// the TPU), so any stride or alignment of the caller's weights will do.
-// A CTA of M / 64 warpgroups owns (tile of M = 64 or 128 streams, block j):
-// for each slot it streams the weight block through a two-stage cp.async
-// ring in shared memory, laid out in wgmma's 128-byte swizzle, and builds
-// the A operand in registers straight from the tile's spike bits of the
-// slot's source block (two bits to a pair of bf16 0/1, in the m16n8k16
-// register layout), so no spike tile passes through shared memory. Each
-// warpgroup runs wgmma.m64n128k16 (bf16 in, f32 out) over the slot's eight
-// k16 slices into its 64 x 128 f32 accumulator (64 registers a thread).
-// M = 128 halves the weight reads per stream; it is taken when the step
-// still has two CTAs for every SM (block_lif_tile), else M = 64 keeps the
-// card full. The epilogue applies the membrane update per (stream, neuron)
-// in the accumulator's layout, the product and the sum rounded separately
-// (__fmul_rn, __fadd_rn) as the plain twin rounds them, and writes the
-// step's spike words (one per row, OR-reduced over a quad) and, for output
-// blocks, the output raster. Rows past B in the last tile read nothing and
-// write nothing. After the last step one thread per (stream, output
+// wrapper allocates. Each call first copies every slot's weight block into
+// that scratch, the input projection's 128-channel slices as more slots
+// (x_t . W_in[:, block j] is one more K-slice, as on the TPU), K-major and
+// already in the byte order of wgmma's 128-byte swizzle, so a block lands in
+// shared memory by one TMA bulk copy; any stride or alignment of the
+// caller's weights will do. The work of a step is its items (tile of M = 64
+// or 128 streams, destination block j); one persistent CTA an SM walks them,
+// and its warps specialize:
+//   - a producer warp streams each item's K weight blocks and the tile's
+//     spike bits of each slot's source block through a four-stage ring in
+//     shared memory (the blocks by TMA bulk copy, the bits by cp.async), each
+//     stage counted by a full and an empty mbarrier, running ahead of the
+//     consumers over item boundaries;
+//   - M / 64 consumer warpgroups: for each slot, the A operand built in
+//     registers from the tile's bits (two bits to a pair of bf16 0/1, in the
+//     m16n8k16 register layout), eight wgmma.m64n128k16 (bf16 in, f32 out, a
+//     64 x 128 f32 accumulator of 64 registers a thread) on the stage, one
+//     commit group, and the stage released through its empty barrier; no
+//     CTA-wide barrier in the loop. An item's accumulators then go to a stash
+//     in shared memory;
+//   - two update warpgroups apply the stashed item's membrane update while
+//     the consumers run the next item's products, so the state's traffic
+//     overlaps the tensor cores instead of following them: per (stream,
+//     neuron) in the accumulator's layout, the product and the sum rounded
+//     separately (__fmul_rn, __fadd_rn) as the plain twin rounds them; v,
+//     refrac, the step's spike words (one per row, OR-reduced over a quad)
+//     and, for output blocks, the output raster are written; B5's all_counts
+//     takes its whole counts by reductions that return nothing.
+// The host's plan (ops/kernels/sparse_lif.py `block_plan`) picks M: 128 when
+// a step still has two tiles for every SM, else 64. Rows past B read nothing
+// and write nothing. After the last step one thread per (stream, output
 // neuron) replays the raster through OutputStats (B5's window fold, B6's
-// per-window counts). No atomics in the step: each (stream, neuron) has one
-// owner and the slot order is fixed, so results are deterministic; on
-// dyadic weights every partial sum is exact in f32 and the bits are the
-// twin's.
+// per-window counts). Each (stream, neuron) has one owner and the slot and
+// k16 order is fixed, so results are deterministic; on dyadic weights every
+// partial sum is exact in f32 and the bits are the twin's.
 //
 // Limits: N a multiple of 128, T > 0 and refractory <= 65535 (the 16-bit
-// counter); no limit on N, C or the outputs from shared memory, which
-// holds only the weight ring (65 KB). Each slot runs one serial chain (wait
-// for the stage, barrier, eight wgmma, wait, barrier) at two or three CTAs
-// an SM, and at 1024 streams the state (52 MB) does not fit the L2 beside
-// the weights, so its traffic goes to HBM each step.
+// counter); no limit on N, C or the outputs from shared memory, which holds
+// the ring, the bits and one stash (201 KB at M = 128: one CTA an SM). At 96
+// registers a thread (544 threads) ptxas serializes the eight wgmma of a
+// slot; the two consumer warpgroups interleave theirs.
 
 #include <type_traits>
 
 #include "lif_common.cuh"
 
+// A step's split (ROADMAP E11; tools/block_split.py builds these): 0 is the
+// kernel; 1 runs no products, 2 moves no state (the update neither reads nor
+// writes v and refrac), 3 loads no weight blocks (the ring stays zero), 4 is
+// 1 and 2 together, 5 loads neither blocks nor bits and waits for no stage;
+// 6 is the kernel with clock64 stamps (lsm_block_stamps). Only 0 and 6 are
+// right.
+#ifndef LSM_BLOCK_SPLIT
+#define LSM_BLOCK_SPLIT 0
+#endif
+
 namespace lsm {
 namespace {
 
+constexpr int kSplit = LSM_BLOCK_SPLIT;
+constexpr bool kStamps = kSplit == 6;
+constexpr bool kProducts = kSplit != 1 && kSplit != 4;
+constexpr bool kMove = kSplit != 2 && kSplit != 4;      // the state is read and written
+#if LSM_BLOCK_SPLIT == 6
+// Per CTA of the last launch: a consumer's cycles waiting for stages, in
+// products and in all, the update warpgroups' cycles waiting for a stash,
+// the producer's cycles waiting for free stages and in all, items, and a
+// consumer's cycles waiting for the stash to be free.
+__device__ long long g_stamps[4096][8];
+#endif
+
 constexpr int kBlock = 128;                     // neurons a block
 constexpr int kTileBytes = kBlock * kBlock * 2; // one 128 x 128 bf16 block
-constexpr int kStages = 2;                      // weight blocks in flight
+constexpr int kStages = 4;                      // weight blocks in the ring
+constexpr int kUpdaters = 256;                  // threads of the two update warpgroups
 
 size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 
 // Input slices per step: ceil(C / 128) blocks of 128 channels.
 int in_slices(int C) { return (C + kBlock - 1) / kBlock; }
 
-// The weight ring and 1 KB to align it to the 1024-byte swizzle atom.
-size_t smem_bytes() { return kStages * (size_t)kTileBytes + 1024; }
+// A CTA's shared memory past its 1024-byte alignment: the ring of weight
+// blocks, the ring of the tile's spike bits (16 bytes a row), the stash of
+// a tile's accumulators (value i of consumer thread t at [i][t]), then the
+// barriers full[stage], empty[stage], stash_full and stash_free. 201 KB at
+// M = 128: one CTA an SM.
+template <int M>
+struct Smem {
+  static constexpr size_t kBitsAt = (size_t)kStages * kTileBytes;
+  static constexpr size_t kStash = kBitsAt + (size_t)kStages * M * 16;
+  static constexpr size_t kBars = kStash + (size_t)64 * 2 * M * 4;
+  static constexpr size_t kBytes = kBars + (2 * kStages + 2) * 8 + 1024;
+};
 
-// Global scratch, in order: the K-major weight blocks (nb, S + n_in, 128,
-// 128) of every slot (the input projection's blocks after the recurrent
+// Global scratch, in order: the weight blocks (nb, S + n_in, 32 KB) of every
+// slot, pre-swizzled (the input projection's blocks after the recurrent
 // ones), two spike planes (B, N/32), the input bits (T, B, 4 n_in), the
 // output raster (T, B, ceil(no/32)), refrac (B, N) of rbytes each and, for
 // B5, v (B, N) f32 (B6 keeps v in v_out).
@@ -112,19 +157,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // Byte offset of 16-byte chunk c (lanes 8 c .. 8 c + 7 along K) of row r in
 // a K-major tile of `rows` rows and 128 K lanes, as wgmma's 128-byte swizzle
 // lays it out: two 64-lane halves of `rows` x 128 bytes, 8-row atoms of
@@ -141,10 +173,68 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (1ull << 62);
 }
 
+// ---- barriers and bulk copies -----------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// The one arrival of the barrier's phase, which then waits for `bytes`.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// past ~10 s of SM clock traps: a lost arrival or copy becomes a launch
+// error, not a card that never finishes the step.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// One arrival on the barrier.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// 16 bytes from global `src` into shared memory at `dst`, or 16 zero bytes
+// where `valid` is false (then nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// One arrival on `bar` once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// `bytes` from global `src` into this CTA's shared memory at `dst`, counted
+// by the barrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// ---- the tensor cores ----------------------------------------------------------
+
 // d (64 f32 a thread) += A (64 x 16, four bf16 pairs a thread in mma.sync's
 // m16n8k16 A layout, 16 rows a warp) . B (16 x 128, K-major in shared memory,
 // read through its descriptor). Asynchronous: a and d stay untouched until
-// wgmma.wait_group (see fence_operands).
+// wgmma.wait_group (see fence_operand).
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, const uint32_t* a, uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -170,6 +260,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, const uint32_t* a, ui
 __device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
 __device__ __forceinline__ void fence_operand(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
 
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Two spikes (bits 0 and 1 of y) as a pair of bf16 0/1 (1.0 = 0x3F80).
 __device__ __forceinline__ uint32_t bf16_pair(uint32_t y) {
   return (y & 1u) * 0x3F80u | (y & 2u) * 0x1FC00000u;
@@ -183,178 +278,288 @@ struct StepArgs {
   float* v;                  // (B, N)
   void* refrac;              // (B, N) of R
   float* all_counts;         // B5: (B, N); B6: nullptr
-  const uint16_t* wt;        // (nb, S + n_in, 128, 128) K-major blocks
+  const uint16_t* wt;        // (nb, S + n_in) pre-swizzled 32 KB blocks
   const int* src_idx;        // (nb, S) or nullptr (slot s reads block s)
   const float* leak_keep;
   int B, N, S, n_in, no_w, refractory;
+  int tiles;                 // stream tiles: ceil(B / M)
   float thr;
 };
 
-// One step for (tile of M streams = blockIdx.x, destination block j =
-// blockIdx.y). Warpgroup wg owns rows 64 wg .. + 64 of the tile and all 128
-// lanes; its warp w rows 64 wg + 16 w .. + 16, and each thread the two rows
-// g and g + 8 of its warp's 16. R (uint8_t or uint16_t) holds refrac.
+// Word wj (lanes 32 wj .. + 32) of the membrane update of the tile at row0
+// and block j, for consumer thread ct, from the tile's accumulators in the
+// stash: acc[4 c + 2 h + e] is row r0 + 8 h, lane 8 c + 2 q + e of block j.
+// The state of both rows (four chunks each) is loaded in one batch, then
+// updated and stored; each row's spike bits are OR-ed over the quad and
+// written by its first lane. Run by a warp whose lanes are ct's.
 template <int M, typename R>
-__global__ void __launch_bounds__(2 * M, 2) block_step_kernel(const StepArgs a) {
-  constexpr int kThreads = 2 * M;
+__device__ __forceinline__ void update_word(const StepArgs& a, const float* stash, int j,
+                                            int row0, int wj, int ct) {
   // Two neighbours' counters in one load and store.
   using Pair = typename std::conditional<sizeof(R) == 1, uint16_t, uint32_t>::type;
   constexpr int kBits = 8 * sizeof(R);
   constexpr unsigned kMask = (1u << kBits) - 1u;
   R* const refrac_s = static_cast<R*>(a.refrac);
-  extern __shared__ unsigned char smem_raw[];
-  // The weight ring, aligned to the 1024-byte swizzle atom.
-  unsigned char* w_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
-  const int j = blockIdx.y, row0 = blockIdx.x * M;
-  const int wpr = a.N >> 5, cw = 4 * a.n_in, K = a.S + a.n_in;
-
-  const int r0 = row0 + wg * 64 + (warp & 3) * 16 + g;      // rows r0 and r0 + 8
-  const bool ok0 = r0 < a.B, ok1 = r0 + 8 < a.B;
-
-  // Slot s's 128 spike bits of rows r0 (x[0..3]) and r0 + 8 (x[4..7]): the
-  // source block's bits of step t - 1, or input slice s - S of step t.
-  auto load_bits = [&](int s, uint32_t* x) {
-    const uint32_t* base = a.xb;
-    int stride = cw, off = 4 * (s - a.S);
-    if (s < a.S) {
-      base = a.rd;
-      stride = wpr;
-      off = 4 * (a.src_idx ? __ldg(a.src_idx + j * a.S + s) : s);
-    }
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      x[w] = ok0 ? base[(size_t)r0 * stride + off + w] : 0u;
-      x[4 + w] = ok1 ? base[(size_t)(r0 + 8) * stride + off + w] : 0u;
-    }
-  };
-
-  // Slot s's K-major 128 x 128 weight block into ring stage `stage`.
-  auto load_w = [&](int s, int stage) {
-    const uint16_t* base = a.wt + ((size_t)j * K + s) * (kBlock * kBlock);
-    const uint32_t dst = smem_u32(w_s + stage * kTileBytes);
-    for (int i = tid; i < kBlock * 16; i += kThreads) {
-      const int r = i >> 4, c = i & 15;
-      cp_async16(dst + sw128(kBlock, r, c), base + r * kBlock + c * 8);
-    }
-    cp_async_commit();
-  };
-
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
-  uint32_t xb[8];
-  load_bits(0, xb);
-  for (int st = 0; st < kStages && st < K; ++st) load_w(st, st);
-  for (int s = 0; s < K; ++s) {
-    // A fragments of the slot's eight k16 slices from the bits: slice kk
-    // holds lanes 16 kk .. + 16, this thread lanes 2 q, 2 q + 1 (+ 8).
-    uint32_t af[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int sh = 16 * (kk & 1) + 2 * q;
-      const uint32_t y0 = xb[kk >> 1] >> sh, y1 = xb[4 + (kk >> 1)] >> sh;
-      af[kk][0] = bf16_pair(y0);
-      af[kk][1] = bf16_pair(y1);
-      af[kk][2] = bf16_pair(y0 >> 8);
-      af[kk][3] = bf16_pair(y1 >> 8);
-    }
-    if (s + 1 < K) load_bits(s + 1, xb);
-    // Stage s % 2 has landed once at most the one later committed load
-    // (slot s + 1) is pending; cp.async writes reach the tensor cores'
-    // async proxy through the fence.
-    static_assert(kStages == 2, "the wait below assumes a two-stage ring");
-    if (s + 1 < K) cp_async_wait<1>();
-    else cp_async_wait<0>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const uint32_t w_base = smem_u32(w_s + (s % kStages) * kTileBytes);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_m64n128k16(acc, af[kk], sw128_desc(w_base + (kk >> 2) * kBlock * 128 + (kk & 3) * 32));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-    for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) fence_operand(af[kk][i]);
-    __syncthreads();                                      // the stage is free
-    if (s + kStages < K) load_w(s + kStages, s % kStages);
-  }
-
-  // Epilogue: acc[4 c + 2 h + e] is row r0 + 8 h, lane 8 c + 2 q + e of
-  // block j. For each 32-lane word the state of both rows (four chunks
-  // each) is loaded in one batch, then updated and stored; each row's spike
-  // bits are OR-ed over the quad and written by its first lane.
+  const int lane = ct & 31, warp = ct >> 5, g = lane >> 2, q = lane & 3;
+  const int wpr = a.N >> 5;
+  const int r0 = row0 + (warp >> 2) * 64 + (warp & 3) * 16 + g;
   const size_t rows[2] = {(size_t)r0 * a.N, (size_t)(r0 + 8) * a.N};
-  const bool oks[2] = {ok0, ok1};
+  const bool oks[2] = {r0 < a.B, r0 + 8 < a.B};
+  const int n0 = j * kBlock + wj * 32 + 2 * q;
+  float2 vv[2][4], lk[4];
+  unsigned rr[2][4];
 #pragma unroll
-  for (int wj = 0; wj < 4; ++wj) {
-    const int n0 = j * kBlock + wj * 32 + 2 * q;
-    float2 vv[2][4], lk[4];
-    unsigned rr[2][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      lk[t] = *reinterpret_cast<const float2*>(a.leak_keep + n0 + 8 * t);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const size_t at = rows[h] + n0 + 8 * t;
-        vv[h][t] = oks[h] ? *reinterpret_cast<const float2*>(a.v + at) : make_float2(0.f, 0.f);
-        rr[h][t] = oks[h] ? *reinterpret_cast<const Pair*>(refrac_s + at) : 0u;
-      }
-    }
+  for (int t = 0; t < 4; ++t) {
+    lk[t] = *reinterpret_cast<const float2*>(a.leak_keep + n0 + 8 * t);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      uint32_t word = 0;
+      const size_t at = rows[h] + n0 + 8 * t;
+      const bool rd = oks[h] && kMove;
+      vv[h][t] = rd ? *reinterpret_cast<const float2*>(a.v + at) : make_float2(0.f, 0.f);
+      rr[h][t] = rd ? *reinterpret_cast<const Pair*>(refrac_s + at) : 0u;
+    }
+  }
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const size_t at = rows[h] + n0 + 8 * t;
-        float vo[2];
-        unsigned ro = 0;
+  for (int h = 0; h < 2; ++h) {
+    uint32_t word = 0;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int refrac = (rr[h][t] >> (kBits * e)) & kMask;
-          const bool active = refrac == 0;
-          // No FMA contraction: the plain twin rounds the product and the sum.
-          const float v_new =
-              active ? __fadd_rn(__fmul_rn(e ? vv[h][t].y : vv[h][t].x, e ? lk[t].y : lk[t].x),
-                                 acc[4 * (4 * wj + t) + 2 * h + e])
-                     : 0.f;
-          const bool spike = active && v_new >= a.thr;
-          vo[e] = spike ? 0.f : v_new;
-          ro |= static_cast<unsigned>(spike ? a.refractory : max(refrac - 1, 0)) << (kBits * e);
-          if (spike) {
-            word |= 1u << (t * 8 + 2 * q + e);
-            if (oks[h] && a.all_counts) a.all_counts[at + e] += 1.f;
-          }
-        }
-        if (oks[h]) {
-          *reinterpret_cast<float2*>(a.v + at) = make_float2(vo[0], vo[1]);
-          *reinterpret_cast<Pair*>(refrac_s + at) = static_cast<Pair>(ro);
+    for (int t = 0; t < 4; ++t) {
+      const size_t at = rows[h] + n0 + 8 * t;
+      float vo[2];
+      unsigned ro = 0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float drive = stash[(4 * (4 * wj + t) + 2 * h + e) * (2 * M) + ct];
+        const int refrac = (rr[h][t] >> (kBits * e)) & kMask;
+        const bool active = refrac == 0;
+        // No FMA contraction: the plain twin rounds the product and the sum.
+        const float v_new =
+            active ? __fadd_rn(__fmul_rn(e ? vv[h][t].y : vv[h][t].x, e ? lk[t].y : lk[t].x), drive)
+                   : 0.f;
+        const bool spike = active && v_new >= a.thr;
+        vo[e] = spike ? 0.f : v_new;
+        ro |= static_cast<unsigned>(spike ? a.refractory : max(refrac - 1, 0)) << (kBits * e);
+        if (spike) {
+          word |= 1u << (t * 8 + 2 * q + e);
+          // One owner per (stream, neuron) a step and whole counts: the sum
+          // is exact, so a reduction that returns nothing will do.
+          if (oks[h] && a.all_counts) atomicAdd(a.all_counts + at + e, 1.f);
         }
       }
-      word |= __shfl_xor_sync(0xffffffffu, word, 1);
-      word |= __shfl_xor_sync(0xffffffffu, word, 2);
-      const int b = r0 + 8 * h, w_at = j * 4 + wj;
-      if (oks[h] && q == 0) {
-        a.wr[(size_t)b * wpr + w_at] = word;
-        if (w_at < a.no_w) a.raster[(size_t)b * a.no_w + w_at] = word;
+      if (oks[h] && kMove) {
+        *reinterpret_cast<float2*>(a.v + at) = make_float2(vo[0], vo[1]);
+        *reinterpret_cast<Pair*>(refrac_s + at) = static_cast<Pair>(ro);
       }
+    }
+    word |= __shfl_xor_sync(0xffffffffu, word, 1);
+    word |= __shfl_xor_sync(0xffffffffu, word, 2);
+    const int b = r0 + 8 * h, w_at = j * 4 + wj;
+    if (oks[h] && q == 0) {
+      a.wr[(size_t)b * wpr + w_at] = word;
+      if (w_at < a.no_w) a.raster[(size_t)b * a.no_w + w_at] = word;
     }
   }
 }
 
-// The weight blocks of every slot, K-major: wt[j, s, n, k] = W[j, s][k, n]
-// for the recurrent slots and w_in[128 (s - S) + k, 128 j + n] (zero past
-// channel C) for the input slices. One CTA per 64 x 64 quarter of a block.
+// One step. A work item is (tile of M streams, destination block j); the
+// CTAs, one an SM, walk the items tile fastest: item blockIdx.x, then
+// + gridDim.x, ... Each CTA has three kinds of warp, each with its own loop
+// over the CTA's items:
+//   - warps 0 .. M / 16 - 1, the consumer warpgroups: warpgroup wg owns rows
+//     64 wg .. + 64 of a tile and all 128 lanes; its warp w rows
+//     64 wg + 16 w .. + 16, and each thread the two rows g and g + 8 of its
+//     warp's 16. They run an item's products and put its accumulators in
+//     the stash;
+//   - the next eight warps, the update warpgroups: the stashed item's
+//     membrane update, while the consumers run the next item's products, so
+//     the state's traffic overlaps them;
+//   - the last warp, the producer: it fills the ring ahead of the consumers,
+//     over item boundaries.
+// R (uint8_t or uint16_t) holds refrac.
+template <int M, typename R>
+__global__ void __launch_bounds__(2 * M + kUpdaters + 32, 1) block_step_kernel(const StepArgs a) {
+  using L = Smem<M>;
+  constexpr int kConsumers = 2 * M;                       // threads of the M / 64 warpgroups
+  extern __shared__ unsigned char smem_raw[];
+  // Aligned to the 1024-byte swizzle atom.
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_u32(sm), bars = smem_u32(sm + L::kBars);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  // The stash is full (arrivals: the consumers) or free (the updaters).
+  const uint32_t stash_full = bars + 16 * kStages, stash_free = stash_full + 8;
+  float* stash = reinterpret_cast<float*>(sm + L::kStash);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wpr = a.N >> 5, cw = 4 * a.n_in, K = a.S + a.n_in;
+  const int n_items = a.tiles * (a.N / kBlock);
+
+  if (kSplit == 3 || kSplit == 5)
+    for (int i = tid; i < (int)(L::kBars / 16); i += blockDim.x)
+      reinterpret_cast<uint4*>(sm)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 33);                // the producer's 32 lanes and its byte count
+      mbar_init(empty(st), M / 64);           // every consumer warpgroup
+    }
+    mbar_init(stash_full, kConsumers);
+    mbar_init(stash_free, kUpdaters);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers + kUpdaters) {
+    // ---- the producer warp --------------------------------------------------
+    // Each slot's block, and the tile's 128 spike bits a row of the slot's
+    // source block (step t - 1) or input slice (step t), zeros past B.
+    int gs = 0;                                   // slots so far, over items
+    long long p_wait = 0, p_t0 = kStamps ? clock64() : 0;
+    for (int it = blockIdx.x; kSplit != 5 && it < n_items; it += gridDim.x) {
+      const int j = it / a.tiles, row0 = (it % a.tiles) * M;
+      const unsigned char* wt =
+          reinterpret_cast<const unsigned char*>(a.wt) + (size_t)j * K * kTileBytes;
+      for (int s = 0; s < K; ++s, ++gs) {
+        const int st = gs % kStages;
+        const long long w0 = kStamps ? clock64() : 0;
+        if (gs >= kStages) mbar_wait(empty(st), (gs / kStages - 1) & 1);
+        if (kStamps) p_wait += clock64() - w0;
+        if (lane == 0) {
+          mbar_expect(full(st), kSplit == 3 ? 0 : kTileBytes);
+          if (kSplit != 3)
+            bulk_load(ring + st * kTileBytes, wt + (size_t)s * kTileBytes, kTileBytes, full(st));
+        }
+        const uint32_t* base = a.xb;
+        int stride = cw, off = 4 * (s - a.S);
+        if (s < a.S) {
+          base = a.rd;
+          stride = wpr;
+          off = 4 * (a.src_idx ? __ldg(a.src_idx + j * a.S + s) : s);
+        }
+        const uint32_t dst = smem_u32(sm + L::kBitsAt) + st * M * 16;
+        for (int r = lane; r < M; r += 32) {
+          const bool valid = row0 + r < a.B;
+          cp_async16(dst + r * 16, base + (size_t)(valid ? row0 + r : 0) * stride + off, valid);
+        }
+        cp_async_arrive(full(st));
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+#if LSM_BLOCK_SPLIT == 6
+    if (lane == 0 && blockIdx.x < 4096) {
+      g_stamps[blockIdx.x][4] = p_wait;
+      g_stamps[blockIdx.x][5] = clock64() - p_t0;
+    }
+#endif
+    (void)p_wait; (void)p_t0;
+    return;
+  }
+
+  if (tid >= kConsumers) {
+    // ---- the update warpgroups ----------------------------------------------
+    // Thread u updates for consumer threads u, u + 256, ... (the same lane at
+    // the same place in a warp, so its quad reductions hold), then frees the
+    // stash.
+    const int u = tid - kConsumers;
+    long long u_wait = 0;
+    int k = 0;
+    for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++k) {
+      const long long w0 = kStamps ? clock64() : 0;
+      mbar_wait(stash_full, k & 1);
+      if (kStamps) u_wait += clock64() - w0;
+      const int j = it / a.tiles, row0 = (it % a.tiles) * M;
+#pragma unroll 1
+      for (int ct = u; ct < kConsumers; ct += kUpdaters)
+#pragma unroll 1
+        for (int wj = 0; wj < 4; ++wj) update_word<M, R>(a, stash, j, row0, wj, ct);
+      mbar_arrive(stash_free);
+    }
+#if LSM_BLOCK_SPLIT == 6
+    if (u == 0 && blockIdx.x < 4096) g_stamps[blockIdx.x][2] = u_wait;
+#endif
+    (void)u_wait;
+    return;
+  }
+
+  // ---- the consumer warpgroups ----------------------------------------------
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
+  const bool signal = (tid & 127) == 0;          // its thread that releases stages
+  float acc[64];
+  int gs = 0, k = 0;                              // slots and items so far
+  long long c_wait = 0, c_mma = 0, c_stash = 0, c_t0 = kStamps ? clock64() : 0;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++k) {
+    const int row0 = (it % a.tiles) * M;
+    const int r0 = row0 + wg * 64 + (warp & 3) * 16 + g;  // rows r0 and r0 + 8
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll 1
+    for (int s = 0; s < K; ++s, ++gs) {
+      const int st = gs % kStages;
+      const long long w0 = kStamps ? clock64() : 0;
+      if (kSplit != 5) mbar_wait(full(st), (gs / kStages) & 1);  // the block and bits landed
+      const long long w1 = kStamps ? clock64() : 0;
+      if (kStamps) c_wait += w1 - w0;
+      // The slot's 128 spike bits of rows r0 (x[0..3]) and r0 + 8 (x[4..7]);
+      // slice kk holds lanes 16 kk .. + 16, this thread lanes 2 q, 2 q + 1
+      // (+ 8): two bits to a pair of bf16 0/1, in the m16n8k16 A layout.
+      const unsigned char* bits = sm + L::kBitsAt + st * M * 16 + (r0 - row0) * 16;
+      const uint4 x0 = *reinterpret_cast<const uint4*>(bits);
+      const uint4 x1 = *reinterpret_cast<const uint4*>(bits + 128);
+      const uint32_t xb[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      // Every warpgroup multiplies, one whose rows all lie past B zeros: a
+      // branch around the products would make ptxas serialize them.
+      const uint32_t w_base = ring + st * kTileBytes;
+      uint32_t af[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int sh = 16 * (kk & 1) + 2 * q;
+        const uint32_t y0 = xb[kk >> 1] >> sh, y1 = xb[4 + (kk >> 1)] >> sh;
+        af[kk][0] = bf16_pair(y0);
+        af[kk][1] = bf16_pair(y1);
+        af[kk][2] = bf16_pair(y0 >> 8);
+        af[kk][3] = bf16_pair(y1 >> 8);
+      }
+      if (kProducts) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_m64n128k16(acc, af[kk], sw128_desc(w_base + (kk >> 2) * kBlock * 128 + (kk & 3) * 32));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_operand(af[kk][i]);
+      }
+      if (signal) mbar_arrive(empty(st));        // the stage is free
+      if (kStamps) c_mma += clock64() - w1;
+    }
+    // The update warpgroups are done with the last item's stash.
+    const long long w3 = kStamps ? clock64() : 0;
+    if (k > 0) mbar_wait(stash_free, (k - 1) & 1);
+    if (kStamps) c_stash += clock64() - w3;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) stash[i * kConsumers + tid] = acc[i];
+    mbar_arrive(stash_full);
+  }
+#if LSM_BLOCK_SPLIT == 6
+  if (tid == 0 && blockIdx.x < 4096) {
+    long long* out = g_stamps[blockIdx.x];
+    out[0] = c_wait; out[1] = c_mma; out[3] = clock64() - c_t0; out[6] = k; out[7] = c_stash;
+  }
+#endif
+  (void)c_wait; (void)c_mma; (void)c_stash; (void)c_t0;
+}
+
+// The weight blocks of every slot, K-major and in the byte order of the
+// 128-byte swizzle (sw128 with 128 rows): element (n, k) of block (j, s) is
+// W[j, s][k, n] for the recurrent slots and w_in[128 (s - S) + k, 128 j + n]
+// (zero past channel C) for the input slices. One CTA per 64 x 64 quarter
+// of a block.
 __global__ void transpose_blocks_kernel(const uint16_t* w, const uint16_t* w_in, long long stride_j,
                                         long long stride_s, long long stride_r, int N, int S,
                                         int K, int C, uint16_t* wt) {
@@ -382,7 +587,8 @@ __global__ void transpose_blocks_kernel(const uint16_t* w, const uint16_t* w_in,
   uint16_t* dst = wt + (size_t)blk * kBlock * kBlock;
   for (int i = threadIdx.x; i < 64 * 64; i += blockDim.x) {
     const int r = i >> 6, c = i & 63;                      // r: lane n, c: lane k
-    dst[(n0 + r) * kBlock + k0 + c] = tile[c][r];
+    const int n = n0 + r, k = k0 + c;
+    dst[sw128(kBlock, n, k >> 3) / 2 + (k & 7)] = tile[c][r];
   }
 }
 
@@ -438,30 +644,30 @@ __global__ void stats_kernel(const uint32_t* raster, int B, int T, int no, int n
 
 unsigned grid_1d(size_t n, int threads) { return static_cast<unsigned>((n + threads - 1) / threads); }
 
-// Streams per tile for B streams of N neurons: 128-stream tiles halve the
-// weight reads per stream; take them when the step still has two CTAs for
-// every SM.
-int block_lif_tile(int B, int N) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (long long)((B + 127) / 128) * (N / kBlock) >= 2LL * sms ? 128 : 64;
-}
-
+// T launches of the step, as many CTAs as the card holds at once (one an
+// SM) or as work items, if fewer.
 template <int M, typename R>
 int run_steps(const BlockLifArgs& a, StepArgs s, uint32_t* plane0, uint32_t* plane1,
               const uint32_t* xbits, uint32_t* raster, cudaStream_t stream) {
-  const int smem = static_cast<int>(smem_bytes());
+  constexpr int threads = 2 * M + kUpdaters + 32;
+  const int smem = static_cast<int>(Smem<M>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(block_step_kernel<M, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.B + M - 1) / M, a.N / kBlock);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_step_kernel<M, R>,
+                                                           threads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  s.tiles = (a.B + M - 1) / M;
+  const int grid = min(s.tiles * (a.N / kBlock), max(per_sm, 1) * sms);
   for (int t = 0; t < a.T; ++t) {
     s.rd = t & 1 ? plane1 : plane0;
     s.wr = t & 1 ? plane0 : plane1;
     s.xb = xbits + (size_t)t * a.B * 4 * s.n_in;
     s.raster = raster + (size_t)t * a.B * s.no_w;
-    block_step_kernel<M, R><<<grid, 2 * M, smem, stream>>>(s);
+    block_step_kernel<M, R><<<grid, threads, smem, stream>>>(s);
     if (t == 0 && (err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -508,9 +714,8 @@ int launch_with(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
   s.wt = wt; s.src_idx = a.src_idx; s.leak_keep = a.leak_keep;
   s.B = a.B; s.N = a.N; s.S = a.S; s.n_in = n_in; s.no_w = no_w;
   s.refractory = a.refractory; s.thr = a.thr;
-  const int rc = block_lif_tile(a.B, a.N) == 128
-                     ? run_steps<128, R>(a, s, plane0, plane1, xbits, raster, stream)
-                     : run_steps<64, R>(a, s, plane0, plane1, xbits, raster, stream);
+  const int rc = a.tile == 128 ? run_steps<128, R>(a, s, plane0, plane1, xbits, raster, stream)
+                               : run_steps<64, R>(a, s, plane0, plane1, xbits, raster, stream);
   if (rc != 0) return rc;
 
   const float isi_max = static_cast<float>(a.burst_isi_max);
@@ -538,6 +743,7 @@ int launch_block_lif(const BlockLifArgs& a, bool chunk, cudaStream_t stream) {
   if (a.B <= 0) return 0;
   if (a.N <= 0 || a.N % kBlock || a.S <= 0 || a.C < 0 || a.no <= 0 || a.no > a.N ||
       a.T <= 0 || a.refractory < 0 || a.refractory > kMaxRefractory || !a.scratch ||
+      (a.tile != 64 && a.tile != 128) ||
       (chunk && (a.win_len <= 0 || a.T != a.win_len * a.n_win)))
     return static_cast<int>(cudaErrorInvalidValue);
   return refrac_bytes(a.refractory) == 2 ? launch_with<uint16_t>(a, chunk, stream)
@@ -552,7 +758,8 @@ lsm::BlockLifArgs sparse_args(const uint8_t* x, const uint16_t* w_blocks,
                               const int* src_idx, const uint16_t* w_in,
                               const float* leak_keep, int B, int C, int T,
                               int N, int S, int no, float thr, int refractory,
-                              int burst_isi_max, int win_len, int n_win, void* scratch) {
+                              int burst_isi_max, int win_len, int n_win, int tile,
+                              void* scratch) {
   lsm::BlockLifArgs a{};
   a.x = x; a.w = w_blocks; a.src_idx = src_idx; a.w_in = w_in;
   a.leak_keep = leak_keep;
@@ -561,7 +768,7 @@ lsm::BlockLifArgs sparse_args(const uint8_t* x, const uint16_t* w_blocks,
   a.stride_j = (long long)S * 128 * 128;
   a.B = B; a.C = C; a.T = T; a.N = N; a.S = S; a.no = no; a.thr = thr;
   a.refractory = refractory; a.burst_isi_max = burst_isi_max;
-  a.win_len = win_len; a.n_win = n_win; a.scratch = scratch;
+  a.win_len = win_len; a.n_win = n_win; a.tile = tile; a.scratch = scratch;
   return a;
 }
 
@@ -575,16 +782,19 @@ extern "C" long long lsm_block_lif_scratch_bytes(int B, int C, int T, int N, int
       lsm::block_lif_scratch_bytes(B, C, T, N, S, no, chunk != 0, refractory));
 }
 
+// `tile`: streams a CTA, 64 or 128, as the host's plan picks it
+// (ops/kernels/sparse_lif.py `block_plan`).
 extern "C" int lsm_sparse_lif_stats(const uint8_t* x, const uint16_t* w_blocks,
                                     const int* src_idx, const uint16_t* w_in,
                                     const float* leak_keep, float* stats,
                                     float* all_counts, int B, int C, int T,
                                     int N, int S, int no, float thr,
                                     int refractory, int burst_isi_max,
-                                    int win_len, int n_win, void* scratch, void* stream) {
+                                    int win_len, int n_win, int tile, void* scratch,
+                                    void* stream) {
   lsm::BlockLifArgs a = sparse_args(x, w_blocks, src_idx, w_in, leak_keep, B, C,
                                     T, N, S, no, thr, refractory,
-                                    burst_isi_max, win_len, n_win, scratch);
+                                    burst_isi_max, win_len, n_win, tile, scratch);
   a.stats = stats;
   a.all_counts = all_counts;
   return lsm::launch_block_lif(a, false, static_cast<cudaStream_t>(stream));
@@ -598,12 +808,20 @@ extern "C" int lsm_sparse_lif_chunk(const uint8_t* x, const uint16_t* w_blocks,
                                     float* seg, float* win, int B, int C, int T,
                                     int N, int S, int no, float thr,
                                     int refractory, int burst_isi_max,
-                                    int win_len, int n_win, void* scratch, void* stream) {
+                                    int win_len, int n_win, int tile, void* scratch,
+                                    void* stream) {
   lsm::BlockLifArgs a = sparse_args(x, w_blocks, src_idx, w_in, leak_keep, B, C,
                                     T, N, S, no, thr, refractory,
-                                    burst_isi_max, win_len, n_win, scratch);
+                                    burst_isi_max, win_len, n_win, tile, scratch);
   a.v_in = v_in; a.refrac_in = refrac_in; a.s_in = s_in;
   a.v_out = v_out; a.refrac_out = refrac_out; a.s_out = s_out;
   a.seg = seg; a.win = win;
   return lsm::launch_block_lif(a, true, static_cast<cudaStream_t>(stream));
 }
+
+#if LSM_BLOCK_SPLIT == 6
+// The stamps of the last launch's first n CTAs (8 int64 each) into host memory.
+extern "C" int lsm_block_stamps(void* dst, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, lsm::g_stamps, (size_t)n * 64));
+}
+#endif

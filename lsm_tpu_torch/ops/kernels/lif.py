@@ -37,7 +37,9 @@ the C entry points check the plan and run it:
   compacts channels n, n + N_pad, ...);
 - the block body above 1024 padded neurons: the stream-tiled body of
   csrc/sparse_lif.cu with the dense matrix seen as N_pad/128 x N_pad/128
-  blocks, in global scratch that the wrapper allocates (`block_scratch`);
+  blocks, tiled by `sparse_lif.block_plan` (its tile travels as the
+  plan's M, its steps count in `sparse_lif.counts`), in global scratch
+  that the wrapper allocates (`block_scratch`);
   it keeps refrac in 8 bits up to refractory 255 and in 16 bits above
   (refractory <= 65535). It has no size limit of its own: what it cannot
   take is scratch past the card's free memory (the K-major weight blocks
@@ -54,7 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
 import torch
@@ -364,13 +366,27 @@ def alloc_block_scratch(n_bytes: int, device: torch.device, n_state: int,
             f"blocks, spike planes, state); take fewer streams a call ({err})") from err
 
 
-def _scratch_ptr(x, plan, n_pad, n_outputs, chunk, refractory):
-    """(tensor kept alive for the call, pointer): the block body's scratch
-    (the dense matrix as n_pad / 128 slots), none for the other bodies."""
+def _block_body(x, plan, n_pad, n_outputs, chunk, refractory):
+    """(tensor kept alive for the call, pointer, tiling): the block body's
+    scratch and its `sparse_lif.BlockPlan`, the dense matrix as n_pad / 128
+    slots; (None, None, None) for the other bodies."""
     if plan.body != BLOCK:
-        return None, None
+        return None, None, None
+    from lsm_tpu_torch.ops.kernels import sparse_lif      # it imports this module
+
     sc = block_scratch(x, n_pad, n_pad // 128, n_outputs, chunk, refractory)
-    return sc, sc.data_ptr()
+    return sc, sc.data_ptr(), sparse_lif.card_block_plan(x, n_pad, n_pad // 128)
+
+
+def _launch(entry, x, plan, tiling, *args, scratch):
+    """Launch `entry` on the body `plan` names, the block body with its
+    tile in the plan's M, and count the block body's steps."""
+    c_args = plan.c_args() if tiling is None else replace(plan, streams=tiling.tile).c_args()
+    entry.launch(x.device, *args, *c_args, scratch, body=plan.body)
+    if tiling is not None:
+        from lsm_tpu_torch.ops.kernels import sparse_lif
+
+        sparse_lif.count_steps(entry.name, tiling, x.shape[2])
 
 
 def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
@@ -388,12 +404,11 @@ def lif_stats(x, w_rec, w_in, leak_keep, *, threshold, refractory,
     B, C, T = x.shape
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=x.device)
     all_counts = torch.empty(B, n_pad, dtype=torch.float32, device=x.device)
-    _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, False, refractory)
-    _STATS.launch(x.device, x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
-                  leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
-                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                  int(burst_isi_max), max(1, T // n_win), int(n_win), *plan.c_args(),
-                  scratch, body=plan.body)
+    _keep, scratch, tiling = _block_body(x, plan, n_pad, n_outputs, False, refractory)
+    _launch(_STATS, x, plan, tiling, x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
+            leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
+            B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
+            int(burst_isi_max), max(1, T // n_win), int(n_win), scratch=scratch)
     return stats, all_counts
 
 
@@ -464,12 +479,11 @@ def lif_chunk(x, w_rec, w_in, leak_keep, v, refrac, s_prev, *, threshold,
     s_out = torch.empty_like(s_prev)
     seg = torch.empty(len(SEG_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     win = torch.empty(B, n_new_win, n_outputs, dtype=torch.float32, device=dev)
-    _keep, scratch = _scratch_ptr(x, plan, n_pad, n_outputs, True, refractory)
-    _CHUNK.launch(dev, x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(), leak_keep.data_ptr(),
-                  v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
-                  v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
-                  seg.data_ptr(), win.data_ptr(),
-                  B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
-                  int(burst_isi_max), int(win_len), int(n_new_win), *plan.c_args(),
-                  scratch, body=plan.body)
+    _keep, scratch, tiling = _block_body(x, plan, n_pad, n_outputs, True, refractory)
+    _launch(_CHUNK, x, plan, tiling, x.data_ptr(), w_rec.data_ptr(), w_in.data_ptr(),
+            leak_keep.data_ptr(), v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
+            v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
+            seg.data_ptr(), win.data_ptr(),
+            B, C, T, n_pad, n_outputs, float(threshold), int(refractory),
+            int(burst_isi_max), int(win_len), int(n_new_win), scratch=scratch)
     return v_out, refrac_out, s_out, seg, win

@@ -15,19 +15,28 @@ products, the CUDA body works on (tile of 64 or 128 streams, destination
 block j) per step: for each slot the tile's 0/1 spike plane of the source
 block times the 128 x 128 bf16 weight block on the tensor cores (wgmma,
 f32 accumulate), plus the step's input bits times W_in[:, block j] as one
-more slot. Each weight block is read from L2 once per tile and step, not
-once per stream, so the time no longer depends on the firing rate. What
+more slot. One persistent CTA an SM walks the step's (tile, block) items
+with specialized warps: a producer warp streams the blocks into a
+shared-memory ring with TMA bulk copies, two consumer warpgroups run the
+products and park each tile's accumulators in shared memory, and two update
+warpgroups apply the parked tile's membrane update while the consumers run
+the next tile's products. Each weight block is read once per tile and step,
+not once per stream, so the time does not depend on the firing rate. What
 bounds it on an H100: the block products (2 * 128 * 128 * (S + C / 128)
 operations a stream-step and block at the bf16 tensor-core peak), the
-weight reads from L2, the state read and written each step, and the
-latency of each slot's serial chain of load, barrier and products. A tile
-is 128 streams when a step still has two CTAs for every SM, else 64.
-Every block reads R random partner blocks, so
-the C entry point enqueues one launch a step (T a call); v, refrac (8
-bits up to refractory 255, 16 above) and two bit-packed spike planes live
-between steps in global scratch that the wrapper allocates (`lif.block_scratch`),
-and the output statistics are replayed from a bit raster after the last
-step.
+weight reads, and the state read and written each step. Every block reads R
+random partner blocks, so the C entry point enqueues one launch a step (T a
+call); v, refrac (8 bits up to refractory 255, 16 above) and two bit-packed
+spike planes live between steps in global scratch that the wrapper
+allocates (`lif.block_scratch`), and the output statistics are replayed from
+a bit raster after the last step.
+
+`block_plan` tiles a call from its shape alone: 128 streams a tile when a
+step still has two tiles for every SM, else 64; the C entry points take the
+tile and check it. `counts` counts, by C entry point, the steps launched,
+the weight blocks the CTAs multiplied (`block_uses`) and the blocks they
+fetched from global memory (`block_loads`), from that plan on the host; each
+tile fetches every block it multiplies, so the two are equal.
 
 The plain twins repeat lsm_tpu's `simulate_batch_sparse` and its XLA sparse
 chunk scan, with the bf16 weights widened to f32 and multiplied in f32. On
@@ -37,7 +46,10 @@ tensor cores sum in another order, which may flip the last bit of a drive.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -48,9 +60,70 @@ from lsm_tpu_torch.ops.kernels.lif import (
 BLOCK = 128
 
 _STATS = _build.Entry("lsm_sparse_lif_stats", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)                  # B5
+    ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)                  # B5
 _CHUNK = _build.Entry("lsm_sparse_lif_chunk", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
-    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)                  # B6
+    ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)                  # B6
+
+# Steps, block uses and block loads of the block body in this process, as
+# '<C entry point>:steps', ':block_uses' and ':block_loads' (B5, B6 and the
+# dense B2/B4 above 1024 padded neurons). Plain twins count nothing.
+counts: collections.Counter = collections.Counter()
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """How the block body runs a step: `tile` streams a tile (64 or 128),
+    `tiles` stream tiles, `blocks` destination blocks, `slots` weight blocks
+    each (S recurrent slots and one per 128 input channels), and `ctas`
+    persistent CTAs (one an SM) walking the tiles x blocks items."""
+
+    tile: int
+    tiles: int
+    blocks: int
+    slots: int
+    ctas: int
+
+    @property
+    def block_uses(self) -> int:
+        """Weight blocks the CTAs multiply a step."""
+        return self.tiles * self.blocks * self.slots
+
+    @property
+    def block_loads(self) -> int:
+        """Weight blocks fetched from global memory a step: each tile
+        fetches every block it multiplies."""
+        return self.block_uses
+
+
+def block_plan(batch: int, n_state: int, n_slots: int, channels: int, sms: int) -> BlockPlan:
+    """The block body's tiling of `batch` streams at `n_state` neurons,
+    `n_slots` recurrent slots a destination block and `channels` input
+    channels on a card of `sms` SMs: 128-stream tiles (each block read once
+    for twice the streams) when a step still has two of them for every SM,
+    else 64 to keep the card fuller; as many CTAs as SMs or items."""
+    blocks = n_state // BLOCK
+    tile = 128 if -(-batch // 128) * blocks >= 2 * sms else 64
+    tiles = -(-batch // tile)
+    return BlockPlan(tile, tiles, blocks, n_slots + -(-channels // BLOCK),
+                     min(tiles * blocks, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_block_plan(x: torch.Tensor, n_state: int, n_slots: int) -> BlockPlan:
+    """`block_plan` for spikes x (B, C, T) on their card."""
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return block_plan(x.shape[0], n_state, n_slots, x.shape[1], _sms(index))
+
+
+def count_steps(entry: str, plan: BlockPlan, steps: int) -> None:
+    """Count one call's `steps` launches of the block body under `entry`."""
+    counts[f"{entry}:steps"] += steps
+    counts[f"{entry}:block_uses"] += steps * plan.block_uses
+    counts[f"{entry}:block_loads"] += steps * plan.block_loads
 
 
 def sparse_drive(s_prev: torch.Tensor, w_blocks: torch.Tensor,
@@ -146,10 +219,13 @@ def sparse_lif_stats(x, w_blocks, src_idx, w_in, leak_keep, *, threshold, refrac
     stats = torch.empty(len(STAT_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     all_counts = torch.empty(B, nb * BLOCK, dtype=torch.float32, device=dev)
     scratch = block_scratch(x, nb * BLOCK, S, n_outputs, False, refractory)
+    plan = card_block_plan(x, nb * BLOCK, S)
     _STATS.launch(dev, x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
                   leak_keep.data_ptr(), stats.data_ptr(), all_counts.data_ptr(),
                   B, C, T, nb * BLOCK, S, n_outputs, float(threshold), int(refractory),
-                  int(burst_isi_max), max(1, T // n_win), int(n_win), scratch.data_ptr())
+                  int(burst_isi_max), max(1, T // n_win), int(n_win), plan.tile,
+                  scratch.data_ptr())
+    count_steps(_STATS.name, plan, T)
     return stats, all_counts
 
 
@@ -185,10 +261,13 @@ def sparse_lif_chunk(x, w_blocks, src_idx, w_in, leak_keep, v, refrac, s_prev, *
     seg = torch.empty(len(SEG_KEYS), B, n_outputs, dtype=torch.float32, device=dev)
     win = torch.empty(B, n_new_win, n_outputs, dtype=torch.float32, device=dev)
     scratch = block_scratch(x, n, S, n_outputs, True, refractory)
+    plan = card_block_plan(x, n, S)
     _CHUNK.launch(dev, x.data_ptr(), w_blocks.data_ptr(), src_idx.data_ptr(), w_in.data_ptr(),
                   leak_keep.data_ptr(), v.data_ptr(), refrac.data_ptr(), s_prev.data_ptr(),
                   v_out.data_ptr(), refrac_out.data_ptr(), s_out.data_ptr(),
                   seg.data_ptr(), win.data_ptr(),
                   B, C, T, n, S, n_outputs, float(threshold), int(refractory),
-                  int(burst_isi_max), int(win_len), int(n_new_win), scratch.data_ptr())
+                  int(burst_isi_max), int(win_len), int(n_new_win), plan.tile,
+                  scratch.data_ptr())
+    count_steps(_CHUNK.name, plan, T)
     return v_out, refrac_out, s_out, seg, win

@@ -264,8 +264,7 @@ def test_chunk_kernels_refuse_what_they_cannot_run(cuda):
         klif.lif_chunk(x, *ops, v, refrac.cpu(), s, **kw)
     with pytest.raises(ValueError, match="windows"):
         klif.lif_chunk(x, *ops, v, refrac, s, **{**kw, "win_len": 30})
-    # 1100 neurons (N_pad 1152) run on the block body, bit-equal to the twin;
-    # N_pad 4224 is past the largest dense reservoir the port draws.
+    # 1100 neurons (N_pad 1152) run on the block body, bit-equal to the twin.
     big = res.init_reservoir(ReservoirConfig(num_neurons=1100, small_world_k=32,
                                              mean_weight=0.02), 32, device=cuda).dyadic()
     ops_b, kw_b = big.kernel_operands()
@@ -279,14 +278,31 @@ def test_chunk_kernels_refuse_what_they_cannot_run(cuda):
     out_p = klif.lif_chunk_plain(x_b, *ops_b, *state, **kw_b, win_len=40, n_new_win=1)
     torch.cuda.synchronize()
     assert all(torch.equal(a, p) for a, p in zip(out_k, out_p))
-    n_w = 4224
-    wide = (torch.zeros(n_w, n_w, dtype=torch.bfloat16, device=cuda),
-            torch.zeros(128, n_w, dtype=torch.bfloat16, device=cuda),
-            torch.ones(n_w, device=cuda))
+    # So do wider ones: 4200 neurons (N_pad 4224, 33 blocks) on B4, bit-equal.
+    wide_r = res.init_reservoir(ReservoirConfig(num_neurons=4200, small_world_k=32,
+                                                mean_weight=0.02), 32, device=cuda).dyadic()
+    ops_w, kw_w = wide_r.kernel_operands()
+    del kw_w["n_win"]
+    n_w = ops_w[0].shape[0]
+    assert n_w == 4224
+    state_w = (torch.zeros(2, n_w, device=cuda),
+               torch.zeros(2, n_w, dtype=torch.int32, device=cuda),
+               torch.zeros(2, n_w, device=cuda))
+    held = BlockCounts("lsm_lif_chunk")
+    out_k = klif.lif_chunk(x_b, *ops_w, *state_w, **kw_w, win_len=40, n_new_win=1)
+    held.held(x_b, n_w, n_w // 128, 40)
+    out_p = klif.lif_chunk_plain(x_b, *ops_w, *state_w, **kw_w, win_len=40, n_new_win=1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, p) for a, p in zip(out_k, out_p))
+    # What the block body refuses: a width that is no multiple of 128.
+    n_r = 4160
+    ragged = (torch.zeros(n_r, n_r, dtype=torch.bfloat16, device=cuda),
+              torch.zeros(128, n_r, dtype=torch.bfloat16, device=cuda),
+              torch.ones(n_r, device=cuda))
     with pytest.raises(ValueError, match="N_pad"):
-        klif.lif_chunk(x, *wide, torch.zeros(2, n_w, device=cuda),
-                       torch.zeros(2, n_w, dtype=torch.int32, device=cuda),
-                       torch.zeros(2, n_w, device=cuda), **kw_b, win_len=40, n_new_win=1)
+        klif.lif_chunk(x, *ragged, torch.zeros(2, n_r, device=cuda),
+                       torch.zeros(2, n_r, dtype=torch.int32, device=cuda),
+                       torch.zeros(2, n_r, device=cuda), **kw_b, win_len=40, n_new_win=1)
 
 
 def _dense_both_bit_equal(cuda, r, x):
@@ -521,12 +537,38 @@ def test_sparse_init_same_on_card(cuda):
         assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
 
 
+class BlockCounts:
+    """The block body's counter (`sparse_lif.counts`) over one call of
+    `entry`: it must advance by the plan's arithmetic, ceil(B / tile) tiles
+    each using and loading every destination block's slots a step."""
+
+    def __init__(self, entry):
+        self.entry = entry
+        self.before = ksp.counts.copy()
+
+    def held(self, x, n, slots, steps):
+        B, C = x.shape[:2]
+        plan = ksp.card_block_plan(x, n, slots)
+        per_step = -(-B // plan.tile) * (n // 128) * (slots + -(-C // 128))
+        delta = {f: ksp.counts[f"{self.entry}:{f}"] - self.before[f"{self.entry}:{f}"]
+                 for f in ("steps", "block_uses", "block_loads")}
+        assert delta == {"steps": steps, "block_uses": steps * per_step,
+                         "block_loads": steps * per_step}
+
+
 @pytest.mark.parametrize("n,k,r,c,t,b,mw", [
     (384, 76, 2, 32, 40, 5, 0.02),
     (384, 76, 2, 32, 45, 4, 0.02),        # T % n_win != 0: the last window folds
     (10240, 2048, 4, 128, 400, 8, 0.003),  # BASELINE configs[3] width
     (384, 76, 2, 32, 40, 70, 0.02),       # 70 rows: a ragged last stream tile
     (10240, 2048, 4, 128, 400, 70, 0.003),
+    # Tilings the persistent CTAs walk: one 64-stream tile (three items at
+    # 384 neurons), three 64-stream tiles, and at 10240 neurons four and five
+    # 128-stream tiles (320 and 400 items on the card's SMs).
+    (384, 76, 2, 32, 40, 1, 0.02),
+    (384, 76, 2, 32, 40, 130, 0.02),
+    (10240, 2048, 4, 128, 400, 512, 0.003),
+    (10240, 2048, 4, 128, 400, 640, 0.003),
 ])
 def test_sparse_lif_kernel_bit_equal_on_dyadic_weights(cuda, n, k, r, c, t, b, mw):
     sr = _sparse(cuda, n, k, r, c, mw)
@@ -534,8 +576,10 @@ def test_sparse_lif_kernel_bit_equal_on_dyadic_weights(cuda, n, k, r, c, t, b, m
                         .astype(np.uint8)).to(cuda)
     ops, kw = sr.kernel_operands()
     before = _build.launches["lsm_sparse_lif_stats"]
+    held = BlockCounts("lsm_sparse_lif_stats")
     stats, counts = ksp.sparse_lif_stats(x, *ops, **kw)
     assert _build.launches["lsm_sparse_lif_stats"] == before + 1
+    held.held(x, n, sr.src_idx.shape[1], t)
     ref_stats, ref_counts = ksp.sparse_lif_stats_plain(x, *ops, **kw)
     torch.cuda.synchronize()
     assert torch.equal(stats, ref_stats)
@@ -560,10 +604,13 @@ def test_sparse_lif_kernel_equals_dense_kernel_on_densify(cuda):
 @pytest.mark.parametrize("n,n_new_win,b", [
     (384, 1, 6), (384, 2, 6), (10240, 1, 6),
     # Stream counts that are no multiple of the stream tile. The body takes
-    # 128-stream tiles when a step still has two CTAs for every SM, else 64:
+    # 128-stream tiles when a step still has two tiles for every SM, else 64:
     # on a 132-SM H100 at 10240 neurons (80 blocks) 70 and 383 streams run
     # on 64-stream tiles, 390, just past the switch, on 128-stream tiles.
     (384, 1, 70), (10240, 1, 70), (10240, 1, 383), (10240, 1, 390),
+    # One 64-stream tile, an odd number of them, an even and an odd number
+    # of 128-stream tiles.
+    (384, 1, 1), (384, 1, 130), (10240, 1, 512), (10240, 1, 640),
 ])
 def test_sparse_chunk_kernel_bit_equal_over_chained_chunks(cuda, n, n_new_win, b):
     c = 128
@@ -582,8 +629,10 @@ def test_sparse_chunk_kernel_bit_equal_over_chained_chunks(cuda, n, n_new_win, b
             (rng.random((b, c, 40 * n_new_win)) < 0.15).astype(np.uint8)).to(cuda)
         carried += float(state_k[2].sum())
         before = _build.launches["lsm_sparse_lif_chunk"]
+        held = BlockCounts("lsm_sparse_lif_chunk")
         out_k = ksp.sparse_lif_chunk(x, *ops, *state_k, **kw)
         assert _build.launches["lsm_sparse_lif_chunk"] == before + 1
+        held.held(x, n, sr.src_idx.shape[1], 40 * n_new_win)
         out_p = ksp.sparse_lif_chunk_plain(x, *ops, *state_p, **kw)
         torch.cuda.synchronize()
         for a, p in zip(out_k, out_p):

@@ -2,13 +2,16 @@
 cluster body's tiling, on the CPU. The plan is pure given how many clusters
 the card holds at once and a CTA's shared memory at M streams, both of
 which the card's library answers (tests/test_torch_kernels.py holds those
-answers and the kernels on the card); these tests pass them in."""
+answers and the kernels on the card); these tests pass them in. Also the
+block body's plan (`sparse_lif.block_plan`: stream tiles, persistent CTAs
+and the weight blocks they use and load), pure given the card's SM count."""
 
 import pytest
 import torch
 
 from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops.kernels import lif as klif
+from lsm_tpu_torch.ops.kernels import sparse_lif as ksp
 
 torch.set_num_threads(1)
 
@@ -170,3 +173,63 @@ def test_cpu_tensors_take_the_twin_whatever_the_plan():
     ref = klif.lif_stats_plain(x, w_rec, w_in, torch.ones(128), **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert _build.launches == before
+
+
+# (batch, neurons, tile, tiles, ctas) on 132 SMs, by hand: 128-stream tiles
+# once ceil(B / 128) x blocks reaches 2 x 132 = 264, and one persistent CTA
+# an SM, or an item, if fewer. At 10240 neurons (80 blocks) that is from 4
+# tiles of 128, B = 385; at 384 neurons (3 blocks) never.
+@pytest.mark.parametrize("batch,neurons,tile,tiles,ctas", [
+    (1, 10240, 64, 1, 80),
+    (70, 10240, 64, 2, 132),
+    (200, 10240, 64, 4, 132),
+    (1024, 10240, 128, 8, 132),     # scaled10k.serve: 640 items
+    (2400, 10240, 128, 19, 132),    # scaled10k.batch: 1520 items
+    (1, 384, 64, 1, 3),
+    (70, 384, 64, 2, 6),
+    (200, 384, 64, 4, 12),
+    (1024, 384, 64, 16, 48),
+    (2400, 384, 64, 38, 114),
+])
+def test_block_plan_tiles_by_hand(batch, neurons, tile, tiles, ctas):
+    slots, channels = 13, 128               # configs[3]: 13 recurrent slots, one input slice
+    plan = ksp.block_plan(batch, neurons, slots, channels, sms=132)
+    assert (plan.tile, plan.tiles, plan.ctas) == (tile, tiles, ctas)
+    blocks = neurons // 128
+    assert plan.block_uses == tiles * blocks * 14
+    assert plan.block_loads == plan.block_uses       # each tile fetches what it multiplies
+
+
+def test_block_plan_switches_tile_at_two_tiles_an_sm():
+    assert ksp.block_plan(384, 10240, 13, 128, sms=132).tile == 64      # 3 x 80 = 240
+    assert ksp.block_plan(385, 10240, 13, 128, sms=132).tile == 128     # 4 x 80 = 320
+    assert ksp.block_plan(385, 10240, 13, 128, sms=264).tile == 64      # a card twice as wide
+    # Input slices: one per 128 channels, none without input.
+    assert ksp.block_plan(8, 384, 2, 32, sms=132).slots == 3
+    assert ksp.block_plan(8, 384, 2, 256, sms=132).slots == 4
+    assert ksp.block_plan(8, 384, 2, 0, sms=132).slots == 2
+
+
+@pytest.mark.parametrize("batch", [1, 1024, 2400])
+def test_counts_advance_by_the_plan(batch, monkeypatch):
+    monkeypatch.setattr(ksp, "counts", type(ksp.counts)())
+    entry = "lsm_sparse_lif_chunk"
+    plan = ksp.block_plan(batch, 10240, 13, 128, sms=132)
+    ksp.count_steps(entry, plan, 40)
+    ksp.count_steps(entry, plan, 40)
+    assert ksp.counts[f"{entry}:steps"] == 80
+    assert ksp.counts[f"{entry}:block_uses"] == 80 * plan.tiles * 80 * 14
+    assert ksp.counts[f"{entry}:block_loads"] == ksp.counts[f"{entry}:block_uses"]
+    assert ksp.counts["lsm_sparse_lif_stats:steps"] == 0                # no calls yet
+
+
+def test_cpu_tensors_count_no_block_steps():
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand(2, 32, 40, generator=g) < 0.3).to(torch.uint8)
+    w_blocks = (torch.randn(3, 2, 128, 128, generator=g) * 0.05).to(torch.bfloat16)
+    src_idx = torch.tensor([[0, 1], [1, 2], [2, 0]], dtype=torch.int32)
+    w_in = (torch.randn(32, 384, generator=g) * 0.3).to(torch.bfloat16)
+    kw = dict(threshold=1.0, refractory=2, burst_isi_max=5, n_outputs=64, n_win=4)
+    before = ksp.counts.copy()
+    ksp.sparse_lif_stats(x, w_blocks, src_idx, w_in, torch.ones(384), **kw)
+    assert ksp.counts == before
