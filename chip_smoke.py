@@ -130,7 +130,9 @@ Phases (any failure exits non-zero):
                phase 6's dense modules (host wall a hop after a 1 s
                warm-up, median and min of 12; the window's device time;
                one step alone launches B1 once and B2 once on the cluster
-               body); ContinuousKWS over 1024 streams (B3 and B4 launched;
+               body; `exact_counts` over the timed hops, one hop a step,
+               and how many times each sample is featurized);
+               ContinuousKWS over 1024 streams (B3 and B4 launched;
                save_serving_state compressed and uncompressed with bytes and
                seconds, a fresh engine loads each and its next 10 hops are
                bit-equal to the uninterrupted engine's; 64 streams migrated
@@ -2217,7 +2219,7 @@ def serving_engines(dev, card, dense, sparse, tmp: Path) -> dict:
     from lsm_tpu_torch.config import PipelineConfig
     from lsm_tpu_torch.io.serving_state import migrate_streams
     from lsm_tpu_torch.models.continuous import ContinuousKWS
-    from lsm_tpu_torch.models.streaming import StreamingKWS
+    from lsm_tpu_torch.models.streaming import StreamingKWS, exact_counts
 
     cfg = PipelineConfig()
     fcfg, fs = cfg.frontend, cfg.feature_set
@@ -2231,7 +2233,11 @@ def serving_engines(dev, card, dense, sparse, tmp: Path) -> dict:
     kws = exact(dense, N_SERVE)
     for h in hops["pcm16"]:                                   # warm-up: one window
         kws.step(h)
+    counted = dict(exact_counts)
     ex = hop_walls(kws, hops, 12)
+    ex["exact_counts"] = {k: exact_counts[k] - counted.get(k, 0)
+                          for k in ("hops", "windows", "window_samples", "new_samples")}
+    ex["recompute_factor"] = ex["exact_counts"]["window_samples"] / ex["exact_counts"]["new_samples"]
     reset_launches()
     kws.step(hops["pcm16"][0])
     ex["launches_one_step"] = one = read_launches()
@@ -2243,12 +2249,16 @@ def serving_engines(dev, card, dense, sparse, tmp: Path) -> dict:
           f"median hop wall {ex['hop_wall_ms_median']:.3f} ms (min {ex['hop_wall_ms_min']:.3f}), "
           f"{ex['stream_chunks_per_s']:.1f} stream-chunks/s, real-time factor "
           f"{ex['real_time_factor']:.2f}; the window's device time {ex['device_ms_window']:.3f} "
-          f"ms; one step launched {one}; step_compact = argmax "
+          f"ms; one step launched {one}; exact_counts over the timed hops "
+          f"{ex['exact_counts']}, each sample featurized {ex['recompute_factor']:.1f} times; "
+          f"step_compact = argmax "
           f"{ex['compact_preds_equal_argmax']}, step_active = step with silence "
           f"{ex['step_active_bit_equal']}, stream = steps {ex['stream_bit_equal']}, "
           f"steps_fused = steps {ex['steps_fused_equal']} ({card})")
     if not (one["B1"] == 1 and one["B2"] == 1 and on_cluster_body(one)):
         fail(f"one exact step launched {one}, not B1 once and B2 once on the cluster body")
+    if ex["exact_counts"]["hops"] != ex["hops_timed"]:
+        fail(f"exact_counts counted {ex['exact_counts']['hops']} hops of {ex['hops_timed']}")
     del kws
 
     # ---- 2. continuous engine, dense, 1024 streams --------------------------

@@ -271,6 +271,14 @@ class CarriedState:
 # slot's copy was still in flight) and 'slot_allocs' (slots allocated).
 ingest_counts: collections.Counter = collections.Counter()
 
+# The exact engine's hops in this process (`StreamingKWS._step_device`),
+# counted on the host from shapes: 'hops', 'windows' (stream-windows
+# classified), 'window_samples' (samples featurized) and 'new_samples'
+# (samples pushed into the windows: a chunk's rows times its length,
+# step_active's silent rows included). window_samples / new_samples is
+# how many times each sample is featurized: num_samples / chunk length.
+exact_counts: collections.Counter = collections.Counter()
+
 STAGE_SLOTS = 2                  # a ring's slots
 STAGE_THREADS = 8                # most host threads one engine's staging copy takes
 STAGE_BLOCK_BYTES = 2 << 20      # least bytes a block of the staging copy carries
@@ -591,7 +599,10 @@ class StreamingKWS(CarriedState):
     the (n_streams, num_samples) float32 trailing window. Chunks of 1 to
     num_samples samples arrive as float32 samples in [-1, 1], int16 PCM or
     uint8 mu-law, host arrays or device tensors. With `mesh=`, `buffer`
-    holds this rank's rows and chunks carry them (module docstring)."""
+    holds this rank's rows and chunks carry them (module docstring).
+    A hop of step, step_compact or step_active is one `lsm.kws.step`
+    span, and `exact_counts` counts it (utils/profiling.py lists the
+    spans nested in it)."""
 
     def __init__(
         self,
@@ -632,28 +643,39 @@ class StreamingKWS(CarriedState):
         self.buffer = leaves["buffer"]
 
     def _evaluate(self, buffer: torch.Tensor) -> torch.Tensor:
-        """The batch path over the (B, num_samples) windows: logits (B, K)."""
+        """The batch path over the (B, num_samples) windows: logits (B, K).
+        featurize_batch and extract_features open the batch spans
+        `lsm.frontend` and `lsm.reservoir`."""
         spikes = featurize_batch(buffer, self.fcfg)
         feats = res.extract_features(self.reservoir, spikes, self.keys)
-        sc, ro = self.scaler_state, self.readout
-        return (feats - sc.mean) / sc.scale @ ro.w + ro.b
+        with span("lsm.kws.readout"):
+            sc, ro = self.scaler_state, self.readout
+            return (feats - sc.mean) / sc.scale @ ro.w + ro.b
+
+    def _shift(self, chunk: torch.Tensor) -> None:
+        """Decode a device-resident wire chunk and push it into the ring
+        buffer."""
+        with span("lsm.kws.window"):
+            chunk = decode_pcm_device(chunk)
+            self.buffer = torch.cat([self.buffer[:, chunk.shape[-1]:], chunk], dim=-1)
 
     def _step_device(self, chunk: torch.Tensor) -> torch.Tensor:
         """One hop on a device-resident wire chunk: push it into the ring
         buffer and evaluate; returns the (B, K) logits on the device."""
-        chunk = decode_pcm_device(chunk)
-        n = chunk.shape[-1]
-        self.buffer = torch.cat([self.buffer[:, n:], chunk], dim=-1)
+        rows, n = chunk.shape
+        exact_counts.update(hops=1, windows=rows, window_samples=rows * self.fcfg.num_samples,
+                            new_samples=rows * n)
+        self._shift(chunk)
         return self._evaluate(self.buffer)
 
     def _place_chunk(self, chunk) -> torch.Tensor:
-        return place_chunk(self, chunk, fixed_len=False)
+        with span("lsm.kws.ingest"):
+            return place_chunk(self, chunk, fixed_len=False)
 
     def push(self, chunk) -> None:
         """Append a (n_streams, chunk_len) chunk to the ring buffer (same
         ingest contract as step())."""
-        chunk = decode_pcm_device(self._place_chunk(chunk))
-        self.buffer = torch.cat([self.buffer[:, chunk.shape[-1]:], chunk], dim=-1)
+        self._shift(self._place_chunk(chunk))
 
     def logits(self) -> np.ndarray:
         """Evaluate the current trailing window: (n_streams, n_classes)."""
@@ -666,14 +688,19 @@ class StreamingKWS(CarriedState):
         """push + logits in one call: (n_streams, n_classes) on the host.
         int16 PCM and float32 samples of the same values (pcm / 32768) give
         the same bits."""
-        return gather_streams(self, self._step_device(self._place_chunk(chunk))).cpu().numpy()
+        with span("lsm.kws.step"):
+            logits = self._step_device(self._place_chunk(chunk))
+            with span("lsm.kws.egress"):
+                return gather_streams(self, logits).cpu().numpy()
 
     def step_compact(self, chunk) -> Tuple[np.ndarray, np.ndarray]:
         """step() with the compact decision output (compact_output_device):
         (preds int32 (B,), margin f32 (B,)), 4 bytes a stream off the
         device; preds equal step(chunk).argmax(-1)."""
-        return unpack_compact_output(gather_streams(
-            self, compact_output_device(self._step_device(self._place_chunk(chunk)))))
+        with span("lsm.kws.step"):
+            logits = self._step_device(self._place_chunk(chunk))
+            with span("lsm.kws.egress"):
+                return unpack_compact_output(gather_streams(self, compact_output_device(logits)))
 
     def step_active(self, rows, active_idx, compact: bool = False):
         """step() with only the active streams' audio on the wire: `rows`
@@ -683,12 +710,16 @@ class StreamingKWS(CarriedState):
         chunk with silence in the inactive rows. compact=True returns
         (preds, margin) as step_compact does. On a mesh every rank passes
         the same global rows and slots."""
-        rows_d, idx_d = prepare_active_rows(self, rows, active_idx,
-                                            max_len=self.fcfg.num_samples)
-        out = self._step_device(expand_active_rows(rows_d, idx_d, self.n_local))
-        if compact:
-            return unpack_compact_output(gather_streams(self, compact_output_device(out)))
-        return gather_streams(self, out).cpu().numpy()
+        with span("lsm.kws.step"):
+            with span("lsm.kws.ingest"):
+                rows_d, idx_d = prepare_active_rows(self, rows, active_idx,
+                                                    max_len=self.fcfg.num_samples)
+                chunk = expand_active_rows(rows_d, idx_d, self.n_local)
+            out = self._step_device(chunk)
+            with span("lsm.kws.egress"):
+                if compact:
+                    return unpack_compact_output(gather_streams(self, compact_output_device(out)))
+                return gather_streams(self, out).cpu().numpy()
 
     def stream(self, chunks, depth: int = 2):
         """Pipelined serving loop: yields per-chunk logits, bit-equal to

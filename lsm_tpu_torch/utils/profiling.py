@@ -11,14 +11,18 @@ that encloses it on the thread.
 
 The spans, one at each layer boundary of the two paths:
 
-  lsm.kws.step       ContinuousKWS.step, step_compact, step_active: one hop
+  lsm.kws.step       step, step_compact, step_active of either serving
+                     engine (ContinuousKWS, StreamingKWS): one hop
   lsm.kws.ingest     host normalization, the copy into a page-locked slot
                      and the host-to-device copies of the wire chunk (also
                      under stream and steps_fused)
+  lsm.kws.window     StreamingKWS only: the on-device decode of the wire
+                     chunk and the shift of the trailing window
   lsm.kws.frontend   decode, B3, window sums, dB, normalization, encoder
   lsm.kws.reservoir  B4 or B6 and their wrappers' ops
   lsm.kws.readout    the fold kernel (ring pushes, fold, features; csrc/fold.cu),
-                     scaler, readout
+                     scaler, readout; in StreamingKWS the standardization and
+                     the readout product alone
   lsm.kws.egress     the gather, the compact output and the host copy
   lsm.kws.gather     gather_streams on a mesh: the collective and its buffer
   lsm.frontend       featurize_batch, with its children
@@ -29,6 +33,13 @@ The spans, one at each layer boundary of the two paths:
   lsm.frontend.encode        the hysteresis encoder and the redundancy repeat
   lsm.reservoir      extract_features (B2 or B5, and the features)
   lsm.readout        scaler.transform and logistic.predict
+
+The two engines' hops nest different spans. ContinuousKWS's hop opens
+lsm.kws.frontend and lsm.kws.reservoir. StreamingKWS runs the batch path
+over each stream's trailing window, so its hop holds lsm.kws.ingest,
+lsm.kws.window, the batch spans lsm.frontend (with its children) and
+lsm.reservoir, then lsm.kws.readout and lsm.kws.egress; it opens neither
+lsm.kws.frontend nor lsm.kws.reservoir.
 
 `perfetto_trace(path)` records the enclosed block, host ops and the card's
 activity where CUDA is available, and writes it to `path` as a

@@ -1,8 +1,10 @@
 """The port's spans (utils/profiling.py) on the CPU: off, `span` is one
 shared null context and records nothing; inside a profiler window the
 spans nest as the code nests and `perfetto_trace` writes them out; the
-serving hop and the batch path give the documented spans in their order,
-and tracing changes no result and no carried state by a bit."""
+serving hops of both engines and the batch path give the documented spans
+in their order, and tracing changes no result and no carried state by a
+bit. The exact engine's hop counter (models/streaming.py `exact_counts`)
+against hand counts."""
 
 import json
 import re
@@ -16,7 +18,9 @@ from torch.profiler import ProfilerActivity, profile
 from lsm_tpu_torch import config as tcfg
 from lsm_tpu_torch.io import dataset
 from lsm_tpu_torch.models import reservoir as res
+from lsm_tpu_torch.models import streaming
 from lsm_tpu_torch.models.continuous import ContinuousKWS
+from lsm_tpu_torch.models.streaming import StreamingKWS
 from lsm_tpu_torch.models.frontend import featurize_batch
 from lsm_tpu_torch.readout import logistic, scaler
 from lsm_tpu_torch.utils import profiling
@@ -29,6 +33,10 @@ N_STREAMS, L, HOPS, K = 3, 1600, 2, 4
 FCFG = tcfg.FrontendConfig(n_filters=16)
 HOP_STAGES = ["lsm.kws.ingest", "lsm.kws.frontend", "lsm.kws.reservoir",
               "lsm.kws.readout", "lsm.kws.egress"]
+EXACT_STAGES = ["lsm.kws.ingest", "lsm.kws.window", "lsm.frontend", "lsm.reservoir",
+                "lsm.kws.readout", "lsm.kws.egress"]
+FRONTEND_STAGES = ["lsm.frontend.spectrogram", "lsm.frontend.normalize",
+                   "lsm.frontend.encode"]
 
 
 def traced_spans(prof) -> list:
@@ -138,6 +146,60 @@ def test_serving_hop_spans_and_results(modules, audio, kind):
         assert children(spans, a, b, "lsm.kws.step") == HOP_STAGES
 
 
+def _exact(modules):
+    return StreamingKWS(*modules, FCFG, "original", n_streams=N_STREAMS)
+
+
+@pytest.mark.parametrize("kind", ["step", "step_compact", "step_active"])
+def test_exact_hop_spans_and_results(modules, audio, kind):
+    plain, traced = _exact(modules), _exact(modules)
+    chunks = [audio[:, h * L:(h + 1) * L] for h in range(HOPS)]
+    want = [_hop(plain, kind, c) for c in chunks]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = [_hop(traced, kind, c) for c in chunks]
+    for a, b in zip(want, got):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_array_equal(x, y)
+    assert torch.equal(plain.buffer, traced.buffer)
+    spans = traced_spans(prof)
+    hops = [(a, b) for n, a, b, p in spans if n == "lsm.kws.step"]
+    assert len(hops) == HOPS
+    assert not {"lsm.kws.frontend", "lsm.kws.reservoir"} & {n for n, *_ in spans}
+    for a, b in hops:
+        assert children(spans, a, b, "lsm.kws.step") == EXACT_STAGES
+        (fa, fb), = [(x, y) for n, x, y, p in spans if n == "lsm.frontend" and a <= x and y <= b]
+        assert children(spans, fa, fb, "lsm.frontend") == FRONTEND_STAGES
+        assert children(spans, a, b, "lsm.reservoir") == []
+
+
+@pytest.mark.parametrize("lens", [[1600] * 3, [4000, 4000], [16000], [800, 2400, 160, 1]],
+                         ids=lambda lens: "-".join(map(str, lens)))
+def test_exact_counts_hops_windows_and_samples(modules, lens):
+    engine = _exact(modules)
+    rng = np.random.default_rng(11)
+    before = dict(streaming.exact_counts)
+    for n in lens:
+        engine.step(rng.integers(-3000, 3000, (N_STREAMS, n)).astype(np.int16))
+    engine.push(np.zeros((N_STREAMS, 160), np.int16))          # no hop
+    engine.logits()                                            # no hop
+    got = {k: streaming.exact_counts[k] - before.get(k, 0)
+           for k in ("hops", "windows", "window_samples", "new_samples")}
+    assert got == {"hops": len(lens), "windows": len(lens) * N_STREAMS,
+                   "window_samples": len(lens) * N_STREAMS * 16000,
+                   "new_samples": N_STREAMS * sum(lens)}
+    if len(set(lens)) == 1:
+        assert got["window_samples"] / got["new_samples"] == 16000 / lens[0]
+
+
+def test_exact_counts_step_active_counts_every_row_it_pushes(modules, audio):
+    engine = _exact(modules)
+    before = dict(streaming.exact_counts)
+    engine.step_active(audio[[1], :L], np.array([1]))
+    engine.step_compact(audio[:, :L])
+    got = {k: streaming.exact_counts[k] - before.get(k, 0) for k in ("hops", "new_samples")}
+    assert got == {"hops": 2, "new_samples": 2 * N_STREAMS * L}
+
+
 def test_batch_path_spans_and_results(modules, audio):
     reservoir, ro, sc = modules
 
@@ -164,4 +226,4 @@ def test_the_port_opens_only_the_documented_spans():
     for path in PORT.rglob("*.py"):
         opened |= set(re.findall(r'span\("(lsm\.[a-z.]+)"\)', path.read_text()))
     assert opened == documented
-    assert len(documented) == 15      # with lsm.kws.gather, opened on a mesh
+    assert len(documented) == 16      # with lsm.kws.gather, opened on a mesh
